@@ -1,0 +1,45 @@
+"""Weights of the JAX reference, as numpy, turned into the port's params.
+
+The reference (``repro.models.lm.init_lm``) stacks every layer's leaves
+along a leading layer axis -- ``layers/attn/wq`` is (L, d, n_q, hd),
+``layers/mlp/w_gate`` is (L, d, ff) -- for ``lax.scan``. The port keeps
+one dict per layer. ``params_from_jax`` takes the reference's tree with
+numpy leaves (``jax.tree.map(np.asarray, params)``) and slices it layer by
+layer, so both packages compute with the same weights in the tests. Only
+the dense family's tree (a ``layers`` stack) is mapped.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":         # ml_dtypes' bfloat16: no numpy
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                             .copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, device="cuda") -> dict:
+    """The reference's dense-LM params (numpy leaves) as the port's."""
+    dev = resolve_device(device)
+    if "layers" not in tree:
+        raise ValueError("params_from_jax maps the dense family's stacked "
+                         "'layers' tree; other layouts are not yet ported")
+    n_layers = np.asarray(tree["layers"]["attn_norm"]).shape[0]
+    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i], dev))
+                     for i in range(n_layers)]
+    return out

@@ -1,0 +1,7 @@
+"""Architecture configs (a copy of the subset of ``repro.configs`` the port
+serves)."""
+from repro_torch.configs.base import (  # noqa: F401
+    REGISTRY, ArchConfig, get_config,
+)
+from repro_torch.configs import granite_3_8b  # noqa: F401
+from repro_torch.configs import qwen2_5_14b  # noqa: F401

@@ -1,0 +1,336 @@
+// Flash-decode for Hopper (sm_90a): single-token GQA attention of one new
+// query per row over that row's filled KV cache.
+//
+// Replaces the Pallas TPU kernel `_decode_kernel` / `flash_decode` in
+// src/repro/kernels/decode_attention.py. Row b attends cache positions
+// 0..pos[b] inclusive with an online softmax over KV tiles; tiles past
+// pos[b] are never read, so a step costs the *filled* cache, not the
+// allocated one.
+//
+// Bound: bytes. Each KV element is read once and used for qpg (4 at
+// granite-3-8b) multiply-adds, far below the ~295 operations per byte the
+// card needs before compute is the limit. The design therefore reads the
+// cache exactly once, in its own dtype and in the serve layout
+// (B, S, G, hd) by strides -- no transpose and no cast copy of the cache
+// (the JAX reference transposes and casts it on every call) -- and serves
+// all qpg q heads of a kv group from one block so the group's K/V stream
+// is shared. A 64-position K/V tile moves into shared memory with
+// 16-byte `cp.async` copies, double-buffered so the next tile is in flight
+// while this one is used; each thread then dots its own position against
+// its q heads from shared memory, so no score waits on a chain of warp
+// shuffles.
+//
+// Layout: q (B, G, qpg, hd) by strides, caches (B, S, G, hd) by strides
+// with 16-byte aligned rows, pos (B,) int32 on the device (read by the
+// block itself: no host sync), out (B, G, qpg, hd) contiguous.
+// Accumulation (max, sum, output) is f32 whatever the input dtype.
+//
+// Grid: one block per (b, g). At granite-3-8b with 8 slots that is
+// 8 * 8 = 64 blocks on 132 SMs, so half the card idles; a split-KV second
+// pass (several blocks per (b, g), merged by their log-sum-exp) is the
+// planned next step for speed.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;    // KV positions per tile (2 per lane in softmax)
+constexpr int kMaxQpg = 16;  // q heads per kv group served by one block
+constexpr int kHGroups = kThreads / kTile;  // threads sharing one position
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// 16 bytes of shared memory as f32 values
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// 16-byte global -> shared copy; with `ok` false it writes zeros instead
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <typename T, int HD>
+struct Layout {
+  static constexpr int kVec = 16 / sizeof(T);      // elements per 16 B
+  static constexpr int kKRow = HD + kVec;          // padded K row
+  static constexpr int kStage = kTile * kKRow + kTile * HD;  // K + V
+  static constexpr size_t bytes =
+      2 * kStage * sizeof(T) +
+      sizeof(float) * (kMaxQpg * HD + kMaxQpg * kTile + 3 * kMaxQpg);
+};
+
+// rows t0 .. t0+kTile-1 of K and V into one stage; rows past `last` are
+// zero-filled (their p is 0, and 0 * 0 stays 0)
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
+                                          const T* vb, long long k_ss,
+                                          long long v_ss, int t0, int last,
+                                          int tid) {
+  using L = Layout<T, HD>;
+  constexpr int kPerRow = HD / L::kVec;
+  for (int i = tid; i < kTile * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * L::kVec;
+    const bool ok = t0 + r <= last;
+    const long long t = ok ? t0 + r : 0;  // a valid address either way
+    cp_async16(ks + r * L::kKRow + c, kb + t * k_ss + c, ok);
+    cp_async16(vs + r * HD + c, vb + t * v_ss + c, ok);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ pos,
+                    T* __restrict__ out, int G, int qpg, int S,
+                    long long q_sb, long long q_sg, long long q_sj,
+                    long long k_sb, long long k_ss, long long k_sg,
+                    long long v_sb, long long v_ss, long long v_sg,
+                    float scale) {
+  using L = Layout<T, HD>;
+  static_assert(HD % 32 == 0 && kThreads % HD == 0, "unsupported head dim");
+  constexpr int kHStep = kThreads / HD;  // q heads sharing one column d
+  constexpr int kAcc = (kMaxQpg + kHStep - 1) / kHStep;
+  constexpr int kOwn = kMaxQpg / kHGroups;  // q heads a thread scores
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* stage0 = reinterpret_cast<T*>(smem);
+  float* q_s = reinterpret_cast<float*>(stage0 + 2 * L::kStage);  // [qpg][HD]
+  float* p_s = q_s + kMaxQpg * HD;                           // [qpg][kTile]
+  float* m_s = p_s + kMaxQpg * kTile;
+  float* l_s = m_s + kMaxQpg;
+  float* a_s = l_s + kMaxQpg;
+
+  const int b = blockIdx.x / G;
+  const int g = blockIdx.x % G;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int last = pos[b];
+  if (last > S - 1) last = S - 1;
+  const T* kb = k + b * k_sb + g * k_sg;
+  const T* vb = v + b * v_sb + g * v_sg;
+
+  load_tile<T, HD>(stage0, stage0 + kTile * L::kKRow, kb, vb, k_ss, v_ss, 0,
+                   last, tid);
+  cp_async_commit();
+  for (int i = tid; i < qpg * HD; i += kThreads) {
+    const int j = i / HD, d = i % HD;
+    q_s[j * HD + d] = to_f32(q[b * q_sb + g * q_sg + j * q_sj + d]);
+  }
+  if (tid < qpg) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+
+  const int d_own = tid % HD;      // output column of this thread
+  const int h_own = tid / HD;      // first of its output heads
+  const int jj = tid % kTile;      // score position of this thread
+  const int hg = tid / kTile;      // first of its score heads
+  float acc[kAcc];
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
+
+  for (int t0 = 0, it = 0; t0 <= last; t0 += kTile, ++it) {
+    T* ks = stage0 + (it & 1) * L::kStage;
+    T* vs = ks + kTile * L::kKRow;
+    if (t0 + kTile <= last) {  // next tile into the other stage
+      T* nk = stage0 + ((it + 1) & 1) * L::kStage;
+      load_tile<T, HD>(nk, nk + kTile * L::kKRow, kb, vb, k_ss, v_ss,
+                       t0 + kTile, last, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // scores: thread (jj, hg) dots position t0+jj with q heads hg, hg+2, ..
+    float sc[kOwn];
+#pragma unroll
+    for (int a = 0; a < kOwn; ++a) sc[a] = 0.f;
+    const T* krow = ks + jj * L::kKRow;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += L::kVec) {
+      float kf[L::kVec];
+      load16(krow + d, kf);
+#pragma unroll
+      for (int a = 0; a < kOwn; ++a) {
+        const int j = hg + a * kHGroups;
+        if (j < qpg) {
+#pragma unroll
+          for (int e = 0; e < L::kVec; ++e)
+            sc[a] += q_s[j * HD + d + e] * kf[e];
+        }
+      }
+    }
+    const bool live = t0 + jj <= last;
+#pragma unroll
+    for (int a = 0; a < kOwn; ++a) {
+      const int j = hg + a * kHGroups;
+      if (j < qpg) p_s[j * kTile + jj] = live ? sc[a] * scale : -INFINITY;
+    }
+    __syncthreads();
+
+    // online softmax: warp w takes q heads w, w+kWarps, ...
+    for (int j = warp; j < qpg; j += kWarps) {
+      float* pr = p_s + j * kTile;
+      const float s0 = pr[lane], s1 = pr[lane + 32];
+      const float m_prev = m_s[j];
+      // position t0 <= last is in every tile, so m_new is finite
+      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+      const float e0 = expf(s0 - m_new), e1 = expf(s1 - m_new);
+      const float sum = warp_sum(e0 + e1);
+      pr[lane] = e0;
+      pr[lane + 32] = e1;
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        a_s[j] = alpha;
+        l_s[j] = l_s[j] * alpha + sum;
+        m_s[j] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc[h] = acc[h] * alpha[h] + sum_t p[h][t] * v[t][d]
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) {
+      const int j = h_own + a * kHStep;
+      if (j < qpg) acc[a] *= a_s[j];
+    }
+    const int n = min(kTile, last - t0 + 1);
+#pragma unroll 4
+    for (int t = 0; t < n; ++t) {
+      const float vv = to_f32(vs[t * HD + d_own]);
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a) {
+        const int j = h_own + a * kHStep;
+        if (j < qpg) acc[a] += p_s[j * kTile + t] * vv;
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+  T* ob = out + ((long long)b * G + g) * qpg * HD;
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) {
+    const int j = h_own + a * kHStep;
+    if (j < qpg) {
+      const float l = l_s[j];
+      store(ob + j * HD + d_own, acc[a] / (l > 0.f ? l : 1.f));
+    }
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* pos,
+           void* out, int B, int G, int qpg, int S, const long long* qs,
+           const long long* ks, const long long* vs, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = Layout<T, HD>::bytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  flash_decode_kernel<T, HD><<<B * G, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(pos),
+      static_cast<T*>(out), G, qpg, S, qs[0], qs[1], qs[2], ks[0], ks[1],
+      ks[2], vs[0], vs[1], vs[2], scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_hd(int hd, const void* q, const void* k, const void* v,
+                const void* pos, void* out, int B, int G, int qpg, int S,
+                const long long* qs, const long long* ks, const long long* vs,
+                float scale, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch<T, 32>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
+    default: return -1;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
+// q_strides (b, g, j), k_strides / v_strides (b, s, g), in elements.
+// Cache rows must be 16-byte aligned (base and strides). Returns 0, a CUDA
+// error code from the attribute call or the launch, or -1 for an
+// unsupported dtype / head dim / group size.
+int flash_decode_launch(int dtype, int hd, const void* q, const void* k,
+                        const void* v, const void* pos, void* out, int B,
+                        int G, int qpg, int S, const long long* q_strides,
+                        const long long* k_strides,
+                        const long long* v_strides, float scale,
+                        void* stream) {
+  if (qpg < 1 || qpg > kMaxQpg || B < 1 || G < 1 || S < 1) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch_hd<float>(hd, q, k, v, pos, out, B, G, qpg, S, q_strides,
+                              k_strides, v_strides, scale, st);
+  if (dtype == 1)
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, pos, out, B, G, qpg, S,
+                                      q_strides, k_strides, v_strides, scale,
+                                      st);
+  return -1;
+}
+
+const char* flash_decode_error_string(int code) {
+  return code < 0 ? "unsupported dtype, head dim or group size"
+                  : cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,57 @@
+"""Binding of the Hopper flash-decode kernel (``csrc/flash_decode.cu``).
+
+Replaces the Pallas TPU kernel ``_decode_kernel`` / ``flash_decode`` of
+``src/repro/kernels/decode_attention.py``: single-token GQA attention of
+q ``(B, G, qpg, hd)`` over the serve caches ``(B, S, G, hd)``, row b over
+positions ``0..pos[b]``. The kernel reads the caches natively (by strides,
+in their own dtype); it is bound by the bytes of the filled cache. See the
+source for the design. Callers go through ``repro_torch.kernels.ops``,
+which checks the arguments and counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "flash_decode"
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+MAX_QPG = 16
+
+_LongPtr = ctypes.POINTER(ctypes.c_longlong)
+_Strides3 = ctypes.c_longlong * 3
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(NAME)
+    fn = lib.flash_decode_launch
+    if not fn.argtypes:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 4 + [_LongPtr] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_decode_error_string.restype = ctypes.c_char_p
+        lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           pos: torch.Tensor, out: torch.Tensor, scale: float) -> None:
+    """Enqueue one launch on the current stream; raises if CUDA refused
+    it. Arguments must already be checked (``ops.flash_decode``)."""
+    lib = _lib()
+    B, G, qpg, hd = q.shape
+    S = k_cache.shape[1]
+    qs = _Strides3(q.stride(0), q.stride(1), q.stride(2))
+    ks = _Strides3(k_cache.stride(0), k_cache.stride(1), k_cache.stride(2))
+    vs = _Strides3(v_cache.stride(0), v_cache.stride(1), v_cache.stride(2))
+    code = lib.flash_decode_launch(
+        DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, G, qpg, S,
+        qs, ks, vs, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    if code != 0:
+        msg = lib.flash_decode_error_string(code).decode()
+        raise RuntimeError(f"flash_decode launch failed ({code}): {msg}")

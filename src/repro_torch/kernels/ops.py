@@ -1,0 +1,112 @@
+"""Public wrappers of the port's kernels: one per kernel.
+
+A wrapper runs the kernel's plain version (``kernels.ref``) when its
+tensors lie on the CPU, and launches the CUDA kernel when they lie on a
+CUDA device; there it checks device, dtype, shape and strides first and
+raises on anything the kernel does not take. Nothing falls back: a CUDA
+tensor either reaches the kernel or raises.
+
+``LAUNCHES`` counts kernel launches (plain integers, one per wrapper); only
+a launch of the CUDA kernel adds to it, so a run can show that its path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import decode_attention, flash_attention as fa, ref
+
+LAUNCHES = {"flash_decode": 0, "flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(name: str, *tensors) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie
+    on the CPU; raises on anything else."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return True
+
+
+def _check_dtype(name, dtypes, *tensors):
+    dt = tensors[0].dtype
+    if dt not in dtypes or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{name}: q, k and v must share one dtype of "
+                        f"{sorted(map(str, dtypes))}, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA attention. q: (B, G, qpg, hd); caches (B, S, G, hd)
+    (any 16-byte aligned strides with a contiguous last dim, e.g. one
+    layer of the serve pool); pos: (B,) int32, row b attends 0..pos[b].
+    Returns (B, G, qpg, hd)."""
+    if not _on_cuda("flash_decode", q, k_cache, v_cache, pos):
+        return ref.flash_decode_ref(q, k_cache, v_cache, pos)
+    _check_dtype("flash_decode", decode_attention.DTYPES, q, k_cache, v_cache)
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    B, G, qpg, hd = q.shape
+    if k_cache.shape[0] != B or k_cache.shape[2] != G \
+            or k_cache.shape[3] != hd:
+        raise ValueError(f"flash_decode: cache {tuple(k_cache.shape)} does "
+                         f"not match q {tuple(q.shape)}")
+    if hd not in decode_attention.HEAD_DIMS or qpg > decode_attention.MAX_QPG:
+        raise ValueError(f"flash_decode: head dim {hd} / group size {qpg} "
+                         "not supported")
+    if q.stride(3) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
+        raise ValueError("flash_decode: the head dim must be contiguous")
+    esize = k_cache.element_size()
+    for t in (k_cache, v_cache):        # the kernel copies 16-byte chunks
+        if t.data_ptr() % 16 or any(t.stride(i) * esize % 16
+                                    for i in range(3)):
+            raise ValueError("flash_decode: cache rows must be 16-byte "
+                             f"aligned, got strides {t.stride()}")
+    if pos.dtype != torch.int32 or pos.shape != (B,) or not pos.is_contiguous():
+        raise ValueError(f"flash_decode: pos must be contiguous int32 ({B},), "
+                         f"got {pos.dtype} {tuple(pos.shape)}")
+    out = torch.empty((B, G, qpg, hd), dtype=q.dtype, device=q.device)
+    decode_attention.launch(q, k_cache, v_cache, pos, out,
+                            1.0 / math.sqrt(hd))
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal or full GQA attention over a whole sequence. q:
+    (B, S, G, qpg, hd); k, v: (B, S, G, hd), any strides with a contiguous
+    last dim; S need not be a multiple of any tile. Returns
+    (B, S, G, qpg, hd)."""
+    if not _on_cuda("flash_attention", q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    _check_dtype("flash_attention", fa.DTYPES, q, k, v)
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    B, S, G, qpg, hd = q.shape
+    if tuple(k.shape) != (B, S, G, hd):
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if hd not in fa.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not supported")
+    if q.stride(4) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention: the head dim must be contiguous")
+    out = torch.empty((B, S, G, qpg, hd), dtype=q.dtype, device=q.device)
+    fa.launch(q, k, v, out, causal, 1.0 / math.sqrt(hd))
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,156 @@
+"""GQA attention for the serve path: prefill, decode-with-cache
+(the port of ``repro.models.attention``).
+
+Layout is *grouped*, as in the reference: q is (B, S, G, qpg, hd) where
+G = physical kv heads and qpg = physical q-heads-per-group (see
+``repro_torch.models.dims``); k/v and the caches are (B, S, G, hd).
+
+Two backends compute the same function:
+
+  * ``"kernel"`` (default) -- prefill through ``ops.flash_attention`` and
+    decode through ``ops.flash_decode``: the hand-written CUDA kernels on
+    a CUDA tensor, their plain versions on a CPU tensor;
+  * ``"einsum"`` -- the reference's dense path, kept as the oracle.
+
+Caches are updated in place: a per-layer cache argument is a view of one
+layer of the (L, B, S, G, hd) pool, and the new K/V are written into it.
+The kernels read that view by strides in the cache's own dtype, so there
+is no transpose and no cast copy of the cache.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.dims import PaddedDims, q_head_mask
+from repro_torch.models.layers import apply_rope, he_init
+
+NEG_INF = -1e9
+
+
+def init_attention(gen: torch.Generator, d_model: int, dims: PaddedDims,
+                   head_dim: int, qkv_bias: bool, dtype) -> dict:
+    mask = torch.from_numpy(q_head_mask(dims)).to(gen.device, dtype)
+    p = {
+        "wq": he_init(gen, (d_model, dims.n_q, head_dim), dtype, d_model)
+              * mask[None, :, None],
+        "wk": he_init(gen, (d_model, dims.n_kv, head_dim), dtype, d_model),
+        "wv": he_init(gen, (d_model, dims.n_kv, head_dim), dtype, d_model),
+        "wo": he_init(gen, (dims.n_q, head_dim, d_model), dtype,
+                      dims.n_q * head_dim),
+    }
+    if qkv_bias:
+        zeros = dict(dtype=dtype, device=gen.device)
+        p["bq"] = torch.zeros((dims.n_q, head_dim), **zeros)
+        p["bk"] = torch.zeros((dims.n_kv, head_dim), **zeros)
+        p["bv"] = torch.zeros((dims.n_kv, head_dim), **zeros)
+    return p
+
+
+def _project_qkv(params, x, dims: PaddedDims):
+    B, S, d = x.shape
+    hd = params["wq"].shape[-1]
+    q = (x @ params["wq"].reshape(d, -1)).reshape(B, S, dims.n_q, hd)
+    k = (x @ params["wk"].reshape(d, -1)).reshape(B, S, dims.n_kv, hd)
+    v = (x @ params["wv"].reshape(d, -1)).reshape(B, S, dims.n_kv, hd)
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return q.reshape(B, S, dims.n_kv, dims.q_per_group, hd), k, v
+
+
+def _mask_pad_heads(ctx, dims: PaddedDims):
+    """Zero the padded q-head outputs so they are exactly inert."""
+    if all(dims.q_real):
+        return ctx
+    m = torch.from_numpy(q_head_mask(dims).reshape(dims.n_kv,
+                                                   dims.q_per_group))
+    return ctx * m.to(ctx.device, ctx.dtype)[None, None, :, :, None]
+
+
+def _out_proj(params, ctx, dims: PaddedDims):
+    B, S = ctx.shape[:2]
+    ctx = _mask_pad_heads(ctx, dims).reshape(B, S, -1)
+    return ctx @ params["wo"].reshape(ctx.shape[-1], -1)
+
+
+def _attend(q, k, v, q_pos, k_pos, causal: bool):
+    """The reference's dense attention. q: (B,Cq,G,qpg,hd); k,v: (B,T,G,hd);
+    positions are int vectors. Scores in f32, probabilities rounded to v's
+    dtype before the P.V product."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bsgqh,btgh->bgqst", q.float(), k.float()) * scale
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]          # (Cq, T)
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgqst,btgh->bsgqh", probs.to(v.dtype), v)
+
+
+def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
+                      rope_theta=0.0, backend: str = "kernel"):
+    """Causal attention over the prompt that also writes its K/V into
+    positions [0, S) of the per-layer caches (B, S_cache, G, hd), in place.
+    Returns (B, S, d_model)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, dims)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if rope_theta:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    k_cache[:, :S].copy_(k)
+    v_cache[:, :S].copy_(v)
+    if backend == "kernel":
+        ctx = ops.flash_attention(q, k, v, causal=True)
+    elif backend == "einsum":
+        ctx = _attend(q, k, v, positions, positions, causal=True)
+    else:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    return _out_proj(params, ctx, dims)
+
+
+def project_decode_qkv(params, x, dims: PaddedDims, pos, rope_theta):
+    """Project the new token's q/k/v with RoPE at ``pos`` ((B,) int
+    tensor: row b at pos[b])."""
+    q, k_new, v_new = _project_qkv(params, x, dims)
+    if rope_theta:
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], rope_theta)
+    return q, k_new, v_new
+
+
+def write_kv(k_cache, v_cache, k_new, v_new, pos):
+    """Write one token's k/v into the (B, S, G, hd) caches in place, row b
+    at pos[b] ((B,) int tensor)."""
+    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    idx = pos.long()
+    k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
+                  backend: str = "kernel"):
+    """Read-only attention of a single-token q (B,1,G,qpg,hd) over
+    cache[0..pos[b]] per row (pos: (B,) int32 tensor). ``"kernel"`` goes
+    through ``ops.flash_decode``, which skips the unfilled cache;
+    ``"einsum"`` is the reference's dense path over the whole cache with a
+    mask. Returns (B, 1, d_model)."""
+    if backend == "kernel":
+        ctx = ops.flash_decode(q[:, 0], k_cache, v_cache, pos)[:, None]
+        return _out_proj(params, ctx, dims)
+    if backend != "einsum":
+        raise ValueError(f"unknown attention backend {backend!r}")
+    T = k_cache.shape[1]
+    k_pos = torch.arange(T, dtype=torch.int32, device=q.device)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bsgqh,btgh->bgqst", q.float(),
+                          k_cache.to(q.dtype).float()) * scale
+    mask = (k_pos[None, :] <= pos[:, None])[:, None, None, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bgqst,btgh->bsgqh", probs.to(v_cache.dtype), v_cache)
+    return _out_proj(params, ctx.to(q.dtype), dims)

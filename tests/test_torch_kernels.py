@@ -1,0 +1,130 @@
+"""The port's plain kernel versions (``repro_torch.kernels.ref``) against the
+JAX Pallas kernels run in interpret mode, and the ``ops`` wrappers' CPU
+path.
+
+Inputs come from numpy with a seed and go to both packages. The port keeps
+the serve layout -- q (B, G, qpg, hd) / (B, S, G, qpg, hd), caches
+(B, S, G, hd) -- while the JAX kernels take heads before positions, so
+the tests transpose on the JAX side. Tolerances are the reference's
+(``tests/test_kernels.py``): f32 2e-5, bf16 3e-2.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import flash_decode as jax_flash_decode
+from repro.kernels.flash_attention import \
+    flash_attention as jax_flash_attention
+from repro_torch.kernels import ops, ref
+
+TOLS = {"float32": dict(atol=2e-5, rtol=2e-5),
+        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _both(a: np.ndarray, dtype: str):
+    return jnp.asarray(a, JDT[dtype]), torch.from_numpy(a).to(TDT[dtype])
+
+
+def _close(got: torch.Tensor, want, dtype: str):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOLS[dtype])
+
+
+def _decode_case(B, Hq, Hkv, S, d, pos, dtype, block_kv, seed):
+    """JAX flash_decode (interpret) vs the port's plain flash_decode."""
+    rng = np.random.default_rng(seed)
+    qj, qt = _both(rng.standard_normal((B, Hq, d), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((B, Hkv, S, d), np.float32), dtype)
+    vj, vt = _both(rng.standard_normal((B, Hkv, S, d), np.float32), dtype)
+    want = jax_flash_decode(qj, kj, vj, jnp.asarray(pos, jnp.int32),
+                            block_kv=block_kv, interpret=True)
+    got = ref.flash_decode_ref(qt.reshape(B, Hkv, Hq // Hkv, d),
+                               kt.transpose(1, 2), vt.transpose(1, 2),
+                               torch.as_tensor(pos, dtype=torch.int32))
+    _close(got.reshape(B, Hq, d), want, dtype)
+
+
+def _attention_case(B, Hq, Hkv, S, d, causal, dtype, block_q, block_kv,
+                    seed):
+    """JAX flash_attention (interpret) vs the port's plain
+    flash_attention."""
+    rng = np.random.default_rng(seed)
+    qj, qt = _both(rng.standard_normal((B, Hq, S, d), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((B, Hkv, S, d), np.float32), dtype)
+    vj, vt = _both(rng.standard_normal((B, Hkv, S, d), np.float32), dtype)
+    want = jax_flash_attention(qj, kj, vj, causal=causal, block_q=block_q,
+                               block_kv=block_kv, interpret=True)
+    q = qt.transpose(1, 2).reshape(B, S, Hkv, Hq // Hkv, d)
+    got = ref.flash_attention_ref(q, kt.transpose(1, 2), vt.transpose(1, 2),
+                                  causal=causal)
+    _close(got.reshape(B, S, Hq, d).transpose(1, 2), want, dtype)
+
+
+# the sweep of tests/test_kernels.py (block sizes as large as the shape
+# allows: the function does not depend on them, the interpreter's time
+# does)
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
+    (1, 4, 4, 128, 64), (2, 4, 2, 256, 64), (1, 8, 1, 256, 128),
+    (2, 6, 2, 384, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_jax(B, Hq, Hkv, S, d, dtype, causal):
+    _attention_case(B, Hq, Hkv, S, d, causal, dtype, 128, 128, B * S + d)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,pos", [
+    (1, 4, 4, 256, 64, 0), (2, 4, 2, 512, 64, 100), (1, 8, 1, 256, 128, 255),
+    (3, 4, 1, 512, 32, 384),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_jax(B, Hq, Hkv, S, d, pos, dtype):
+    _decode_case(B, Hq, Hkv, S, d, pos, dtype, 256, pos + S)
+
+
+@pytest.mark.parametrize("S", [8, 100])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_ragged_s(S, causal):
+    """S that is no multiple of any tile (serving buckets start at 8): the
+    JAX kernel runs with one block as long as S."""
+    _attention_case(2, 8, 2, S, 32, causal, "float32", S, S, S)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_vector_pos_ragged_s(dtype):
+    """Per-row pos (0, S-1 and values inside a tile) over a ragged S."""
+    _decode_case(4, 8, 2, 100, 64, [0, 99, 37, 64], dtype, 100, 7)
+
+
+def test_ops_cpu_tensors_take_the_plain_path():
+    """On CPU tensors the wrappers return the plain versions' results and
+    launch nothing."""
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32))
+    q, k, v = t(2, 2, 3, 32), t(2, 20, 2, 32), t(2, 20, 2, 32)
+    pos = torch.tensor([0, 13], dtype=torch.int32)
+    before = dict(ops.LAUNCHES)
+    torch.testing.assert_close(ops.flash_decode(q, k, v, pos),
+                               ref.flash_decode_ref(q, k, v, pos),
+                               rtol=0, atol=0)
+    qa = t(2, 20, 2, 3, 32)
+    for causal in (True, False):
+        torch.testing.assert_close(
+            ops.flash_attention(qa, k, v, causal=causal),
+            ref.flash_attention_ref(qa, k, v, causal=causal), rtol=0, atol=0)
+    assert ops.LAUNCHES == before
+
+
+def test_ops_refuse_other_devices():
+    """No silent path: a device that is neither the CPU nor CUDA raises, and
+    so do tensors split across devices."""
+    q = torch.empty(1, 1, 1, 32, device="meta")
+    k = torch.empty(1, 8, 1, 32, device="meta")
+    pos = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_decode(q, k, k, pos)
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(torch.empty(1, 8, 1, 1, 32), k, k)
