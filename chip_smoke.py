@@ -11,10 +11,15 @@ the script exits non-zero:
   1. the card (``nvidia-smi`` name and power limit), torch / CUDA versions,
      and the TF32 settings (both off: f32 parity needs full f32 products);
   2. the kernel build: one ``nvcc`` per ``csrc/*.cu``, all in parallel;
-  3. each kernel against its plain PyTorch version on the card, in f32
-     (atol/rtol 2e-5) and bf16 (3e-2), at the main path's shapes;
-  4. the main path: full-width granite-3-8b (random bf16 weights from a
-     seed, bf16 KV cache) served in drain mode by 2 replicas
+  3. each kernel against its plain PyTorch version on the card:
+     flash_decode and flash_attention in f32 (atol/rtol 2e-5) and bf16
+     (3e-2), at the drain mode's shapes and at the control loop's (decode
+     over fleet slabs of 16 and 32 rows x max_seq 256 with ragged depths,
+     fleet prefills of K in {1,2,4,8} prompts of bucket 4, 8 or 16);
+     gcn_layer in f32 (1e-5, the reference's tolerance) at the control
+     plane's shapes and beyond, relu on and off, and batched;
+  4. drain mode (the first slice's path): full-width granite-3-8b (random
+     bf16 weights from a seed, bf16 KV cache) served by 2 replicas
      (max_batch 8, max_seq 1024) behind ``ClusterFrontend(policy="lc")``,
      16 requests with prompts up to 512 tokens and up to 64 new tokens.
      Launch counts are zeroed just before and read just after: every
@@ -23,23 +28,49 @@ the script exits non-zero:
   5. the kernel path against the einsum path: full-width bf16 prefill
      last-token logits and first decode logits within a stated tolerance,
      and identical greedy streams at full width cut to 2 layers in f32;
-  6. times at the main path's shapes (CUDA-event medians over CUDA-graph
-     replays): each kernel, its plain version, the one PyTorch call that
-     computes the same function (``scaled_dot_product_attention``, timed
-     here only -- the port never calls it) and the bound, the larger of
-     bytes / 3.35 TB/s and operations / 989 TFLOP/s (bf16).
+     then one fleet decode dispatch of a sub-step round (some slab rows
+     step, the others must keep their cache bit for bit) at 32 rows, f32,
+     2 layers, kernel logits against einsum logits;
+  6. the control loop (this slice's main path): ``run_control_loop`` with
+     ``--policy ours --autoscale gpso`` over the same full-width bf16
+     model -- the elastic frontend with fleet-batched decode and admission
+     and the async tick, the GCN+DDPG balancer and GPSO on the plane's own
+     stream -- for 40 ticks, then drained. Counts zeroed just before and
+     read just after: gcn_layer twice per plane tick, flash_decode once per
+     layer per fleet decode dispatch, flash_attention once per layer per
+     fleet prefill dispatch; every request finishes, the ledger balances,
+     GPSO scales up, no host sync hides in the engine (torch's sync debug
+     mode), and every tick keeps the async tick's sync contract
+     (``async_tick_violations``). Then one GPSO plan's host time, split
+     into the random key's own work and the rest;
+  7. times (CUDA-event medians over CUDA-graph replays): each kernel, its
+     plain version, the one PyTorch call that computes the same function
+     (timed here only -- the port never calls it) and the bound, the
+     larger of bytes / 3.35 TB/s and operations over the peak rate of
+     their type (989 TFLOP/s bf16, 67 TFLOP/s f32). The JSON rows are
+     timed at the control loop's shapes (its largest slab, its largest
+     fleet prefill, the balancer's first GCN layer); the drain mode's
+     shapes are timed and printed beside them. Then the drain-mode decode
+     step's host and device times;
+  8. the control loop's oracles: the same run with ``--no-async`` gives
+     the same digest of (rid, output, first-token and finish ticks) in
+     bf16, and at full width cut to 2 layers in f32 the fleet kernel run,
+     ``--no-fleet`` and ``--attn-backend einsum`` do too.
 
-The line before the last is the JSON table of kernels; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the JSON table of kernels (launches from the
+control loop of phase 6); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,6 +78,7 @@ TOLS = {"float32": dict(atol=2e-5, rtol=2e-5),
         "bfloat16": dict(atol=3e-2, rtol=3e-2)}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak, same source
+F32_FLOPS_PER_S = 67e12         # f32 outside the tensor cores, same source
 N_REQUESTS, MAX_PROMPT, MAX_NEW = 16, 512, 64
 MAX_BATCH, MAX_SEQ, REPLICAS, SEED = 8, 1024, 2, 0
 # full-width bf16, kernel path vs einsum path: the einsum path rounds the
@@ -54,6 +86,9 @@ MAX_BATCH, MAX_SEQ, REPLICAS, SEED = 8, 1024, 2, 0
 # f32, and each of the 40 layers rounds its activations to bf16 again, so
 # the two agree to a few bf16 steps of the logits' scale, not bitwise
 BF16_PATH_TOL = 0.05            # max |delta logits| / max |logits|
+# the same in f32 at 2 layers: the paths differ only in the order of the
+# attention sums, a few f32 ulps carried through two layers and the head
+F32_PATH_TOL = 1e-4
 
 KERNELS = {
     "flash_decode": dict(source="src/repro_torch/csrc/flash_decode.cu",
@@ -61,7 +96,24 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:29"),
+    "gcn_layer": dict(source="src/repro_torch/csrc/gcn_layer.cu",
+                      replaces="src/repro/kernels/gcn_fused.py:17"),
 }
+GCN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py's tolerance
+# (N, F, H): the serve path's two layers (2 nodes, horizon 8, gcn_hidden
+# 64), the paper's 16-node cluster (horizon 32), the reference's sweep, and
+# a few hundred nodes with F, H past one tile
+GCN_SHAPES = [(2, 12, 64), (2, 64, 64), (16, 36, 64), (16, 64, 64),
+              (8, 12, 16), (32, 8, 8), (256, 76, 128)]
+CONTROL_MAX_SEQ = 256
+CONTROL_FLAGS = ["--policy", "ours", "--autoscale", "gpso", "--nodes", "2",
+                 "--replicas", "1", "--max-replicas", "4",
+                 "--provision-delay", "3", "--ticks", "40", "--rate", "2",
+                 "--max-batch", "8", "--max-seq", str(CONTROL_MAX_SEQ),
+                 "--seed", str(SEED), "--device", "cuda"]
+# the control loop's requests: prompts of 2-11 tokens and 4-11 new tokens
+# (``run_control_loop``'s request factory), so no cache row passes depth 22
+CONTROL_DEPTH = (2, 22)
 
 
 def log(msg: str) -> None:
@@ -102,48 +154,101 @@ def _close(name, got, want, dtype, torch) -> float:
     return err
 
 
+def _ragged_pos(torch, gen, n: int, lo: int, hi: int):
+    """``n`` cache depths in [lo, hi], the first two pinned to the ends."""
+    pos = torch.randint(lo, hi + 1, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[:2] = torch.tensor([lo, hi], dtype=torch.int32, device="cuda")
+    return pos
+
+
 def phase_parity(torch, ops, ref) -> dict:
-    """Each kernel against its plain version on the same card inputs."""
+    """Each kernel against its plain version on the same card inputs, at
+    the drain mode's shapes and at the control loop's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {"flash_decode": 0.0, "flash_attention": 0.0}
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    # flash_decode at the serve pool's head layout, long cache, ragged pos
-    B, G, qpg, hd, S = 8, 8, 4, 128, 4096
-    pos = torch.tensor([0, S - 1, 100, 1000, 2047, 777, 3000, 64],
-                       dtype=torch.int32, device="cuda")
-    for dname, dt in dtypes.items():
-        q = torch.randn(B, G, qpg, hd, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
-        got = ops.flash_decode(q, k, v, pos)
-        torch.cuda.synchronize()
-        err = _close("flash_decode", got, ref.flash_decode_ref(q, k, v, pos),
-                     dname, torch)
-        errs["flash_decode"] = max(errs["flash_decode"], err)
-        log(f"[parity] flash_decode B={B} Hq={G * qpg} Hkv={G} hd={hd} "
-            f"S={S} pos={pos.tolist()} {dname}: max|err|={err:.3e} "
-            f"(atol/rtol {TOLS[dname]['atol']})")
-    # flash_attention: ragged and long S, causal and full
-    B = 2
-    for S in (8, 100, 2048):
-        for causal in (True, False):
-            for dname, dt in dtypes.items():
-                q = torch.randn(B, S, G, qpg, hd, generator=gen,
-                                device="cuda").to(dt)
-                k = torch.randn(B, S, G, hd, generator=gen,
-                                device="cuda").to(dt)
-                v = torch.randn(B, S, G, hd, generator=gen,
-                                device="cuda").to(dt)
-                got = ops.flash_attention(q, k, v, causal=causal)
-                torch.cuda.synchronize()
-                err = _close("flash_attention", got,
-                             ref.flash_attention_ref(q, k, v, causal=causal),
-                             dname, torch)
-                errs["flash_attention"] = max(errs["flash_attention"], err)
-                log(f"[parity] flash_attention B={B} Hq={G * qpg} Hkv={G} "
-                    f"hd={hd} S={S} causal={causal} {dname}: "
-                    f"max|err|={err:.3e} (atol/rtol {TOLS[dname]['atol']})")
+    G, qpg, hd = 8, 4, 128        # the serve pool's head layout
+    # flash_decode: the drain pool (8 slots, long cache) and the control
+    # loop's fleet slab (up to 32 rows x max_seq 256), ragged pos
+    pos_drain = torch.tensor([0, 4095, 100, 1000, 2047, 777, 3000, 64],
+                             dtype=torch.int32, device="cuda")
+    decode_cases = [(8, 4096, pos_drain)] + [
+        (rows, CONTROL_MAX_SEQ, _ragged_pos(torch, gen, rows, 0,
+                                            CONTROL_MAX_SEQ - 1))
+        for rows in (16, 32)]
+    for B, S, pos in decode_cases:
+        for dname, dt in dtypes.items():
+            q = torch.randn(B, G, qpg, hd, generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
+            got = ops.flash_decode(q, k, v, pos)
+            torch.cuda.synchronize()
+            err = _close("flash_decode", got,
+                         ref.flash_decode_ref(q, k, v, pos), dname, torch)
+            errs["flash_decode"] = max(errs["flash_decode"], err)
+            log(f"[parity] flash_decode B={B} Hq={G * qpg} Hkv={G} hd={hd} "
+                f"S={S} pos={pos.tolist()} {dname}: max|err|={err:.3e} "
+                f"(atol/rtol {TOLS[dname]['atol']})")
+    # flash_attention: ragged and long S (drain mode, causal and full), and
+    # the control loop's fleet prefill (K prompts of one pow2 bucket sb)
+    attn_cases = [(2, S, causal) for S in (8, 100, 2048)
+                  for causal in (True, False)] + \
+        [(K, sb, True) for K in (1, 2, 4, 8) for sb in (4, 8, 16)]
+    for B, S, causal in attn_cases:
+        for dname, dt in dtypes.items():
+            q = torch.randn(B, S, G, qpg, hd, generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
+            got = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            err = _close("flash_attention", got,
+                         ref.flash_attention_ref(q, k, v, causal=causal),
+                         dname, torch)
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+            log(f"[parity] flash_attention B={B} Hq={G * qpg} Hkv={G} "
+                f"hd={hd} S={S} causal={causal} {dname}: "
+                f"max|err|={err:.3e} (atol/rtol {TOLS[dname]['atol']})")
+    errs["gcn_layer"] = phase_parity_gcn(torch, ops, ref, gen)
     return errs
+
+
+def _gcn_inputs(torch, gen, xs, ws):
+    """Inputs in the range the balancer gives the kernel: a row-normalised
+    adjacency (entries in [0, 1], rows summing to 1, like D^-1/2 (A+I)
+    D^-1/2), unit-normal features and he-scaled weights, so outputs are
+    O(1) and the reference's absolute 1e-5 is a fair bound (with raw
+    uniform adjacency rows summing to N/2 the outputs reach ~1e3 and any
+    other summation order misses 1e-5 near zero)."""
+    n = xs[-2]
+    a = torch.rand(n, n, generator=gen, device="cuda")
+    a = a / a.sum(dim=1, keepdim=True)
+    x = torch.randn(*xs, generator=gen, device="cuda")
+    w = torch.randn(*ws, generator=gen, device="cuda") / ws[0] ** 0.5
+    b = 0.1 * torch.randn(ws[1], generator=gen, device="cuda")
+    return a, x, w, b
+
+
+def phase_parity_gcn(torch, ops, ref, gen) -> float:
+    """gcn_layer against its plain version, f32, relu on and off, at the
+    control plane's shapes and beyond, plus one batched case."""
+    worst = 0.0
+    cases = [((n, f), (f, h), relu) for n, f, h in GCN_SHAPES
+             for relu in (True, False)] + [((4, 16, 36), (36, 64), True)]
+    for xs, ws, relu in cases:
+        a, x, w, b = _gcn_inputs(torch, gen, xs, ws)
+        got = ops.gcn_layer(a, x, w, b, relu=relu)
+        torch.cuda.synchronize()
+        want = ref.gcn_layer_ref(a, x, w, b, relu=relu)
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **GCN_TOL,
+                                   msg=lambda m: f"gcn_layer {xs}: {m}")
+        worst = max(worst, err)
+        log(f"[parity] gcn_layer x={xs} w={ws} relu={relu} f32: "
+            f"max|err|={err:.3e} (atol/rtol {GCN_TOL['atol']})")
+    return worst
 
 
 # ------------------------------------------------------------------ phase 4
@@ -178,8 +283,10 @@ def phase_serve(torch, ops, cfg, model, params, workload):
                                                  for r in fe.finished):
         raise AssertionError(f"{len(fe.finished)}/{N_REQUESTS} finished")
     want = {"flash_decode": cfg.num_layers * steps,
-            "flash_attention": cfg.num_layers * dispatches}
-    if launches != want or min(launches.values()) == 0:
+            "flash_attention": cfg.num_layers * dispatches,
+            "gcn_layer": 0}                   # drain mode runs no plane
+    if launches != want or min(launches["flash_decode"],
+                               launches["flash_attention"]) == 0:
         raise AssertionError(f"launches {launches} != expected {want}")
     return reps, launches, shapes
 
@@ -198,10 +305,9 @@ def _bucket(prompts, device, torch):
     return {"tokens": toks.to(device), "lengths": lens.to(device)}
 
 
-def phase_paths(torch, cfg, model, params, workload):
+def phase_paths(torch, cfg, model, params, workload, small):
     """Kernel path vs einsum path on the card."""
     from repro_torch.launch import serve
-    from repro_torch.models.model import make_model
 
     batch = _bucket([w["prompt"] for w in workload[:MAX_BATCH]], "cuda",
                     torch)
@@ -228,9 +334,7 @@ def phase_paths(torch, cfg, model, params, workload):
 
     # f32, full width, 2 layers: identical greedy streams through the
     # whole drain-mode path
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    model2 = make_model(cfg2)
-    params2 = model2.init(seed=SEED, dtype=torch.float32, device="cuda")
+    cfg2, model2, params2 = small
     streams = {}
     for backend in ("kernel", "einsum"):
         fe, _, _ = serve.run_drain_mode(_serve_args(serve, backend), cfg2,
@@ -249,6 +353,161 @@ def phase_paths(torch, cfg, model, params, workload):
 
 
 # ------------------------------------------------------------------ phase 6
+# the only operation of the port allowed to synchronise with the card in
+# the async control loop: the plane's fetch of its own stream's fractions
+# and GPSO plan (the engine's one wait a tick is an event wait)
+PLANE_FETCHES = "src/repro_torch/control/plane.py"
+
+
+def _where(filename: str) -> str:
+    path = Path(filename).resolve()
+    return str(path.relative_to(ROOT)) if path.is_relative_to(ROOT) \
+        else path.name
+
+
+def _control_args(serve, *extra):
+    return serve.build_parser().parse_args(CONTROL_FLAGS + list(extra))
+
+
+def _digest(fe) -> list:
+    return sorted((r.rid, tuple(r.output), r.first_token_time, r.finish_time)
+                  for r in fe.finished)
+
+
+def phase_control(torch, ops, cfg, model, params) -> dict:
+    """The main path, counted: the control loop at full width."""
+    from repro_torch.launch import serve
+
+    from repro_torch.serving.elastic import async_tick_violations
+
+    args = _control_args(serve)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    # every operation that synchronises the host with the card is flagged
+    # (torch's sync debug mode): the async tick may have none in the engine,
+    # only the plane's fetches of its own stream's results
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = serve.run_control_loop(args, cfg, model, params,
+                                         cache_dtype=torch.bfloat16)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    flagged = collections.Counter(
+        f"{_where(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    log(f"[control] synchronising operations flagged in the run: "
+        f"{dict(flagged)}")
+    hidden = {k: n for k, n in flagged.items()
+              if k.startswith("src/repro_torch/")
+              and not k.startswith(PLANE_FETCHES)}
+    if hidden:
+        raise AssertionError(f"host syncs besides the plane's fetches: "
+                             f"{hidden}")
+    fe, plane, ticks = out["fe"], out["plane"], out["ticks"]
+    L = cfg.num_layers
+    decode, prefill = fe.decode_dispatches(), fe.prefill_dispatches()
+    syncs = fe.sync_count()
+    toks = sum(len(r.output) for r in fe.finished)
+    tick_ms = sorted(t["s"] * 1e3 for t in ticks)
+    busy = sum(1 for t in ticks if t["decode_dispatches"]
+               or t["prefill_dispatches"])
+    hs = {k: v / len(ticks) * 1e3 for k, v in plane.host_s.items()}
+    log(f"[control] launches {launches}; plane ticks {len(ticks)}, decode "
+        f"dispatches {decode}, prefill dispatches {prefill}, layers {L}; "
+        f"syncs {syncs} over {busy} ticks with work (+ drain); replicas "
+        f"spawned {fe.replicas_spawned}; peak slab rows "
+        f"{fe.peak_slab_rows()}; fleet prefill shapes "
+        f"{sorted(fe.prefill_shapes())}")
+    log(f"[control] {len(fe.finished)} requests, {toks} tokens in "
+        f"{out['wall']:.2f}s: {toks / out['wall']:.1f} tok/s; tick wall ms "
+        f"p50 {statistics.median(tick_ms):.2f} p95 "
+        f"{tick_ms[int(0.95 * (len(tick_ms) - 1))]:.2f}; engine sync wait "
+        f"{fe.sync_wait_s():.3f}s; plane host ms/tick forecast "
+        f"{hs['forecast']:.2f} balance {hs['balance']:.2f} scale "
+        f"{hs['scale']:.2f}; plane fetches {plane.fetches}, fetch wait "
+        f"{plane.fetch_wait:.3f}s")
+    led = fe.ledger
+    if not (led.balanced() and len(fe.finished) == led.submitted
+            and all(r.done for r in fe.finished)):
+        raise AssertionError(f"ledger {led.balance()}")
+    if fe.replicas_spawned <= args.nodes * args.replicas:
+        raise AssertionError("GPSO never scaled up")
+    want = {"flash_decode": L * decode, "flash_attention": L * prefill,
+            "gcn_layer": 2 * len(ticks)}
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"launches {launches} != expected {want}")
+    _fleet_step_times(torch, model, params, fe.peak_slab_rows(),
+                      args.max_seq)
+    # the async tick's sync contract, tick by tick: each sync consumes one
+    # fleet dispatch's results (the pool has two max_batch groups, and speed
+    # 1.4 replicas take a second sub-step round on some ticks, so a tick may
+    # pay several), and each tick leaves its last round in flight
+    broken = async_tick_violations(ticks)
+    per_tick = collections.Counter(t["syncs"] for t in ticks)
+    log(f"[control] async tick: syncs per tick {dict(sorted(per_tick.items()))}"
+        f"; ticks leaving dispatches in flight "
+        f"{sum(t['in_flight_groups'] > 0 for t in ticks)}/{len(ticks)}; "
+        f"churn flushes {sum(t['syncs'] - t['reconciles'] for t in ticks)}; "
+        f"contract broken on {len(broken)} ticks")
+    if broken:
+        raise AssertionError(f"async tick sync contract: {broken}")
+    _plan_times(plane)
+    return {"launches": launches, "digest": _digest(fe),
+            "rows": fe.peak_slab_rows(), "shapes": fe.prefill_shapes()}
+
+
+def _plan_times(plane) -> None:
+    """Host time of one GPSO plan on the card, and of it the key's own
+    work: its splits and the seeding of a ``torch.Generator`` for each leaf
+    draw. The rest is the plan's launches and its one fetch."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.core.gpso import TorchKey
+
+    spent = {"s": 0.0, "gens": 0}
+
+    class TimedKey(TorchKey):
+        def split(self, n=2):
+            t0 = time.perf_counter()
+            out = [TimedKey(k.seq, k.device) for k in super().split(n)]
+            spent["s"] += time.perf_counter() - t0
+            return out
+
+        def _gen(self):
+            t0 = time.perf_counter()
+            g = super()._gen()
+            spent["s"] += time.perf_counter() - t0
+            spent["gens"] += 1
+            return g
+
+    scaler = copy.deepcopy(plane.scaler)
+    scaler.key = TimedKey(scaler.key.seq, scaler.key.device)
+    n = plane.backend.num_nodes
+    demand, current = np.full(n, 4.0, np.float32), np.ones(n, np.int32)
+    total, keys = [], []
+    for i in range(6):
+        spent.update(s=0.0, gens=0)
+        t0 = time.perf_counter()
+        with plane._on_plane():
+            scaler.plan(demand, 1000 + 10 * i, current)
+        total.append((time.perf_counter() - t0) * 1e3)
+        keys.append(spent["s"] * 1e3)
+    cfg = scaler.cluster_cfg
+    log(f"[plan] one GPSO plan (population {cfg.ga_pop}, "
+        f"{cfg.ga_generations} GA generations, {cfg.pso_iters} PSO "
+        f"iterations, {n} nodes): {statistics.median(total[1:]):.2f} ms "
+        f"host clock (median of 5), of which key splits and generator "
+        f"seeding {statistics.median(keys[1:]):.2f} ms ({spent['gens']} "
+        f"generators a plan)")
+
+
+# ------------------------------------------------------------------ phase 7
 def _graph_ms(torch, fn, n_inner: int, reps: int = 10) -> float:
     """Median over ``reps`` CUDA-graph replays of ``fn`` (which makes
     ``n_inner`` calls), per call, from CUDA events."""
@@ -275,32 +534,20 @@ def _graph_ms(torch, fn, n_inner: int, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def _bound(nbytes: float, flops: float):
+def _bound(nbytes: float, flops: float, peak: float = BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_times(torch, F, ops, ref, cfg, reps, workload, shapes):
-    """Kernel, plain and library times at the main path's shapes."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    qpg = cfg.num_heads // G
-    L = cfg.num_layers
-    bf = torch.bfloat16
-    rows = {}
-
-    # flash_decode: one decode step over the served pool's 40 layer views
-    # (each launch reads another layer, as the decode step does), at the
-    # fill depth of the first 8 requests half-way through their decode
-    pool = reps[0].cache
-    pos = torch.tensor([min(len(w["prompt"]) + MAX_NEW // 2, MAX_SEQ - 1)
-                        for w in workload[:MAX_BATCH]], dtype=torch.int32,
-                       device="cuda")
-    B = MAX_BATCH
-    q = torch.randn(B, G, qpg, hd, generator=gen, device="cuda").to(bf)
-    views = [(pool["k"][li], pool["v"][li]) for li in range(L)]
-    mask = (torch.arange(MAX_SEQ, device="cuda")[None, :]
+def _time_decode(torch, F, ops, ref, q, views, pos, label: str) -> dict:
+    """flash_decode over ``views`` (one (k, v) per layer, so each launch
+    reads another layer, as a decode step does): kernel, plain and sdpa
+    times, and the bound from the rows' depths ``pos``."""
+    B, G, qpg, hd = q.shape
+    S = views[0][0].shape[1]
+    L = len(views)
+    mask = (torch.arange(S, device="cuda")[None, :]
             <= pos[:, None])[:, None, None, :]
     qs = q.reshape(B, G * qpg, 1, hd)
     sdpa_out = F.scaled_dot_product_attention(
@@ -317,21 +564,25 @@ def phase_times(torch, F, ops, ref, cfg, reps, workload, shapes):
         qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
         enable_gqa=True) for k, v in views], L)
     filled = int((pos.long() + 1).sum())
-    esz = 2
+    esz = q.element_size()
     nbytes = (2 * B * G * qpg * hd * esz          # q in, out
               + 2 * filled * G * hd * esz         # K and V rows 0..pos[b]
               + B * 4)                            # pos
     flops = 4 * hd * G * qpg * filled             # q.k and p.v per position
     bound, by = _bound(nbytes, flops)
-    rows["flash_decode"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                bound_by=by, library_ms=lib)
-    log(f"[times] flash_decode B={B} Hq={G * qpg} Hkv={G} hd={hd} "
-        f"S={MAX_SEQ} pos={pos.tolist()} bf16: kernel {ms:.4f} ms, plain "
+    log(f"[times] flash_decode {label} B={B} Hq={G * qpg} Hkv={G} hd={hd} "
+        f"S={S} pos={pos.tolist()} bf16: kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
         f"{nbytes} B, {flops} flop)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib)
 
-    # flash_attention: the largest bucketed prefill shape the run saw
-    kb, sb = max((s[1], s[2]) for s in shapes if s[0] == "bucketed")
+
+def _time_attention(torch, F, ops, ref, gen, kb, sb, G, qpg, hd,
+                    label: str) -> dict:
+    """Causal flash_attention at (kb prompts, bucket sb), bf16: kernel,
+    plain and sdpa times, and the bound."""
+    bf = torch.bfloat16
     q = torch.randn(kb, sb, G, qpg, hd, generator=gen, device="cuda").to(bf)
     k = torch.randn(kb, sb, G, hd, generator=gen, device="cuda").to(bf)
     v = torch.randn(kb, sb, G, hd, generator=gen, device="cuda").to(bf)
@@ -347,12 +598,80 @@ def phase_times(torch, F, ops, ref, cfg, reps, workload, shapes):
     nbytes = 2 * (2 * kb * sb * G * qpg * hd + 2 * kb * sb * G * hd)
     flops = 4 * hd * kb * G * qpg * sb * (sb + 1) // 2
     bound, by = _bound(nbytes, flops)
-    rows["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                   bound_by=by, library_ms=lib)
-    log(f"[times] flash_attention B={kb} S={sb} Hq={G * qpg} Hkv={G} "
-        f"hd={hd} causal bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}: {nbytes} B, "
-        f"{flops} flop)")
+    log(f"[times] flash_attention {label} B={kb} S={sb} Hq={G * qpg} "
+        f"Hkv={G} hd={hd} causal bf16: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{nbytes} B, {flops} flop)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib)
+
+
+def phase_times(torch, F, ops, ref, cfg, reps, workload, shapes, control):
+    """Kernel, plain and library times at the main paths' shapes. The JSON
+    rows are the control loop's shapes (its launches are the rows' counts);
+    the drain mode's shapes are timed beside them."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    qpg = cfg.num_heads // G
+    L = cfg.num_layers
+    bf = torch.bfloat16
+    rows = {}
+
+    # flash_decode, drain mode: one decode step over the served pool's 40
+    # layer views at the fill depth of the first 8 requests half-way
+    # through their decode
+    pool = reps[0].cache
+    pos = torch.tensor([min(len(w["prompt"]) + MAX_NEW // 2, MAX_SEQ - 1)
+                        for w in workload[:MAX_BATCH]], dtype=torch.int32,
+                       device="cuda")
+    q = torch.randn(MAX_BATCH, G, qpg, hd, generator=gen,
+                    device="cuda").to(bf)
+    _time_decode(torch, F, ops, ref, q, [(pool["k"][li], pool["v"][li])
+                                         for li in range(L)], pos, "drain")
+    # the control loop: one fleet decode dispatch over its largest slab
+    # (rows x max_seq 256), every row at a depth its requests reach
+    n = control["rows"]
+    slab = torch.randn((2, L, n, CONTROL_MAX_SEQ, G, hd), generator=gen,
+                       device="cuda").to(bf)
+    pos = _ragged_pos(torch, gen, n, *CONTROL_DEPTH)
+    q = torch.randn(n, G, qpg, hd, generator=gen, device="cuda").to(bf)
+    rows["flash_decode"] = _time_decode(
+        torch, F, ops, ref, q, [(slab[0, li], slab[1, li])
+                                for li in range(L)], pos, "control slab")
+    del slab
+
+    # flash_attention: the largest bucketed prefill of the drain mode, and
+    # the control loop's largest fleet prefill (K prompts, bucket sb)
+    kb, sb = max((s[1], s[2]) for s in shapes if s[0] == "bucketed")
+    _time_attention(torch, F, ops, ref, gen, kb, sb, G, qpg, hd, "drain")
+    kb, sb = max(((s[1], s[2]) for s in control["shapes"]
+                  if s[0] == "afleet_prefill"), key=lambda s: s[0] * s[1])
+    rows["flash_attention"] = _time_attention(
+        torch, F, ops, ref, gen, kb, sb, G, qpg, hd, "control fleet prefill")
+
+    # gcn_layer: the balancer's two layers at the serve defaults (the first
+    # is the JSON row) and the paper's 16-node cluster
+    for (n, f, h), relu in (((2, 12, 64), True), ((2, 64, 64), False),
+                            ((16, 36, 64), True)):
+        a, x, w, b = _gcn_inputs(torch, gen, (n, f), (f, h))
+        act = torch.relu if relu else (lambda t: t)
+        n_in = 20
+        ms = _graph_ms(torch, lambda: [ops.gcn_layer(a, x, w, b, relu=relu)
+                                       for _ in range(n_in)], n_in)
+        plain = _graph_ms(torch, lambda: [ref.gcn_layer_ref(a, x, w, b,
+                                                            relu=relu)
+                                          for _ in range(n_in)], n_in)
+        lib = _graph_ms(torch, lambda: [act(torch.addmm(b, a @ x, w))
+                                        for _ in range(n_in)], n_in)
+        nbytes = 4 * (n * n + n * f + f * h + h + n * h)
+        flops = 2 * n * n * f + 2 * n * f * h + n * h
+        bound, by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+        if "gcn_layer" not in rows:
+            rows["gcn_layer"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                     bound_by=by, library_ms=lib)
+        log(f"[times] gcn_layer N={n} F={f} H={h} relu={relu} f32: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, addmm {lib:.4f} ms, bound "
+            f"{bound:.6f} ms ({by}: {nbytes} B, {flops} flop)")
     return rows
 
 
@@ -401,6 +720,121 @@ def phase_step_times(torch, model, params, reps, workload):
         f"(host clock, median of 3)")
 
 
+def _fleet_step_times(torch, model, params, rows: int, max_seq: int):
+    """One fleet decode dispatch at the run's largest slab (``rows`` rows of
+    ``max_seq``, every row 24 positions deep, about a prompt and half its
+    output): host clock ending in a synchronise, and the device time alone
+    from a CUDA-graph replay -- the control loop's idle share."""
+    slab = model.init_serve_state(rows, max_seq, torch.bfloat16,
+                                  device="cuda")
+    tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((rows,), 24, dtype=torch.int32, device="cuda")
+
+    def step():
+        logits, _ = model.decode(params, slab, tok, pos)
+        return torch.argmax(logits, dim=-1)
+
+    device_ms = _graph_ms(torch, step, 1, reps=5)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        step().cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    host_ms = statistics.median(times[1:])
+    log(f"[control] fleet decode dispatch, {rows} slab rows x {max_seq}: "
+        f"{host_ms:.2f} ms host clock (median of 5), device busy "
+        f"{device_ms:.2f} ms (CUDA-graph replay, median of 5): idle share "
+        f"{1 - device_ms / host_ms:.2f}")
+
+
+# ------------------------------------------------------------------ phase 8
+def phase_oracles(torch, cfg, model, params, control, small):
+    """Async against eager in bf16; at full width cut to 2 layers in f32,
+    the fleet path against per-replica decode and the kernel path against
+    the einsum path."""
+    from repro_torch.launch import serve
+
+    out = serve.run_control_loop(_control_args(serve, "--no-async"), cfg,
+                                 model, params, cache_dtype=torch.bfloat16)
+    same = _digest(out["fe"]) == control["digest"]
+    log(f"[oracle] bf16 full width: async vs --no-async digests identical: "
+        f"{same} ({len(control['digest'])} requests; eager syncs "
+        f"{out['fe'].sync_count()})")
+    if not same:
+        raise AssertionError("async and eager control loops differ")
+    del out
+    torch.cuda.empty_cache()
+
+    cfg2, model2, params2 = small
+    runs = {}
+    for name, extra in (("fleet", ()), ("no-fleet", ("--no-fleet",)),
+                        ("einsum", ("--attn-backend", "einsum"))):
+        out = serve.run_control_loop(_control_args(serve, *extra), cfg2,
+                                     model2, params2,
+                                     cache_dtype=torch.float32)
+        runs[name] = (_digest(out["fe"]), sum(t["decode_dispatches"]
+                                              for t in out["ticks"]))
+        del out
+    n_tok = sum(len(r[1]) for r in runs["fleet"][0])
+    log(f"[oracle] f32 full width, 2 layers: {len(runs['fleet'][0])} "
+        f"requests, {n_tok} tokens; digests identical to the fleet kernel "
+        f"run: --no-fleet {runs['no-fleet'][0] == runs['fleet'][0]}, "
+        f"--attn-backend einsum {runs['einsum'][0] == runs['fleet'][0]}; "
+        f"decode dispatches in the ticks: fleet {runs['fleet'][1]}, "
+        f"no-fleet {runs['no-fleet'][1]}")
+    for name in ("no-fleet", "einsum"):
+        if runs[name][0] != runs["fleet"][0]:
+            raise AssertionError(f"the {name} control loop differs from the "
+                                 "fleet kernel run")
+    torch.cuda.empty_cache()
+
+
+def phase_fleet_write(torch, small):
+    """One fleet decode dispatch of a sub-step round (only some fleet rows
+    step) at the control loop's largest slab, f32, 2 layers: the rows that
+    do not step keep their cache bit for bit, the stepping rows change only
+    at their write index, and the kernel path's logits match the einsum
+    path's."""
+    cfg2, model2, params2 = small
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n, S = 32, CONTROL_MAX_SEQ
+    slab = model2.init_serve_state(n, S, torch.float32, device="cuda")
+    for c in slab.values():
+        c.normal_(generator=gen)
+    pos = _ragged_pos(torch, gen, n, *CONTROL_DEPTH)
+    tok = torch.randint(1, cfg2.vocab_size, (n, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    # fleet rows 0 and 2 of four (max_batch 8) step; 1 and 3 do not
+    write = torch.cat([torch.arange(0, 8), torch.arange(16, 24)]).to(
+        device="cuda", dtype=torch.int32)
+    keep = torch.ones(n, dtype=torch.bool, device="cuda")
+    keep[write.long()] = False
+    wl, at = write.long(), pos[write.long()].long()
+    logits = {}
+    for backend in ("kernel", "einsum"):
+        cache = {k: c.clone() for k, c in slab.items()}
+        logits[backend], _ = model2.decode(params2, cache, tok, pos,
+                                           attn_backend=backend,
+                                           write_rows=write)
+        for k, c in cache.items():
+            want = slab[k].clone()
+            want[:, wl, at] = c[:, wl, at]
+            if not (torch.equal(c[:, keep], slab[k][:, keep])
+                    and torch.equal(c, want)
+                    and not torch.equal(c[:, wl, at], slab[k][:, wl, at])):
+                raise AssertionError(f"{backend}: the fleet write of {k} "
+                                     "touched rows or positions it must not")
+    k, e = logits["kernel"], logits["einsum"]
+    rel = ((k - e).abs().max() / e.abs().max()).item()
+    log(f"[fleet] f32 full width, 2 layers, {n} slab rows x {S}, rows "
+        f"{write.tolist()} stepping at pos {pos.tolist()}: non-stepping rows "
+        f"unchanged, stepping rows written only at pos; logits "
+        f"max|kernel-einsum| / max|einsum| = {rel:.3e} (tolerance "
+        f"{F32_PATH_TOL})")
+    if not rel <= F32_PATH_TOL:
+        raise AssertionError(f"fleet decode logits differ by {rel:.3e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -426,6 +860,11 @@ def main() -> int:
 
     cfg = get_config("granite-3-8b")
     model = make_model(cfg)
+    # full width cut to 2 layers, f32: the exact-parity checks' model
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model2 = make_model(cfg2)
+    small = (cfg2, model2, model2.init(seed=SEED, dtype=torch.float32,
+                                       device="cuda"))
     t0 = time.perf_counter()
     params = model.init(seed=SEED, dtype=torch.bfloat16, device="cuda")
     torch.cuda.synchronize()
@@ -437,11 +876,15 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
     workload = prompt_workload(cfg.vocab_size, N_REQUESTS, seed=SEED,
                                max_len=MAX_PROMPT, max_new=MAX_NEW)
-    reps, launches, shapes = phase_serve(torch, ops, cfg, model, params,
-                                         workload)
-    phase_paths(torch, cfg, model, params, workload)
-    rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes)
+    reps, _, shapes = phase_serve(torch, ops, cfg, model, params, workload)
+    phase_paths(torch, cfg, model, params, workload, small)
+    phase_fleet_write(torch, small)
+    control = phase_control(torch, ops, cfg, model, params)
+    launches = control["launches"]
+    rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes,
+                       control)
     phase_step_times(torch, model, params, reps, workload)
+    phase_oracles(torch, cfg, model, params, control, small)
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

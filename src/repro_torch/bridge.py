@@ -7,12 +7,19 @@ one dict per layer. ``params_from_jax`` takes the reference's tree with
 numpy leaves (``jax.tree.map(np.asarray, params)``) and slices it layer by
 layer, so both packages compute with the same weights in the tests. Only
 the dense family's tree (a ``layers`` stack) is mapped.
+
+The control plane's parameters carry across the same way: ``rl_from_jax``
+maps the reference's DDPG state (actor, critic and their targets: the GCN's
+``w[i]``/``b[i]`` lists and the MLP head's ``w1, b1, w2, b2``) and
+``forecaster_from_jax`` the GRU forecaster's tree. Both trees keep their
+structure; only the leaves become f32 tensors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.ddpg import DDPGState
 from repro_torch.device import resolve_device
 
 
@@ -29,6 +36,8 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -43,3 +52,21 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
     out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i], dev))
                      for i in range(n_layers)]
     return out
+
+
+def rl_from_jax(state, device="cuda"):
+    """The reference's ``DDPGState`` (or a dict with its four fields), with
+    numpy leaves, as the port's ``core.ddpg.DDPGState``."""
+    dev = resolve_device(device)
+    fields = ("actor", "critic", "actor_target", "critic_target")
+    get = state.get if isinstance(state, dict) else \
+        (lambda k: getattr(state, k))
+    return DDPGState(*(_map(get(k), lambda a: _tensor(a, dev)
+                            .to(torch.float32)) for k in fields))
+
+
+def forecaster_from_jax(tree: dict, device="cuda") -> dict:
+    """The reference's GRU forecaster params (``init_forecaster`` /
+    ``train_forecaster``), with numpy leaves, as the port's."""
+    dev = resolve_device(device)
+    return _map(tree, lambda a: _tensor(a, dev).to(torch.float32))

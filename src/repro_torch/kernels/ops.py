@@ -16,9 +16,10 @@ import math
 
 import torch
 
-from repro_torch.kernels import decode_attention, flash_attention as fa, ref
+from repro_torch.kernels import decode_attention, flash_attention as fa
+from repro_torch.kernels import gcn_fused, ref
 
-LAUNCHES = {"flash_decode": 0, "flash_attention": 0}
+LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "gcn_layer": 0}
 
 
 def reset_launches() -> None:
@@ -110,3 +111,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fa.launch(q, k, v, out, causal, 1.0 / math.sqrt(hd))
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def gcn_layer(a_hat: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor, *, relu: bool = True) -> torch.Tensor:
+    """One GCN layer, relu?(a_hat . x . w + b), in f32. a_hat: (N, N); x:
+    (N, F) or (Bt, N, F); w: (F, H); b: (H,); all contiguous. Returns
+    (N, H) or (Bt, N, H)."""
+    if not _on_cuda("gcn_layer", a_hat, x, w, b):
+        return ref.gcn_layer_ref(a_hat, x, w, b, relu=relu)
+    for t in (a_hat, x, w, b):
+        if t.dtype != torch.float32:
+            raise TypeError(f"gcn_layer: f32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("gcn_layer: inputs must be contiguous, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+    if x.dim() not in (2, 3) or w.dim() != 2 or b.dim() != 1:
+        raise ValueError(f"gcn_layer: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, b {tuple(b.shape)}")
+    n, f = x.shape[-2:]
+    if tuple(a_hat.shape) != (n, n) or w.shape[0] != f \
+            or b.shape[0] != w.shape[1]:
+        raise ValueError(f"gcn_layer: a_hat {tuple(a_hat.shape)}, x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}, b "
+                         f"{tuple(b.shape)} do not chain")
+    x3 = x.reshape(-1, n, f)
+    out = torch.empty((x3.shape[0], n, w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    gcn_fused.launch(a_hat, x3, w, b, out, relu)
+    LAUNCHES["gcn_layer"] += 1
+    return out.reshape(*x.shape[:-1], w.shape[1])

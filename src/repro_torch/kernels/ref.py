@@ -5,7 +5,7 @@ The CPU tests hold them to the JAX package, ``ops`` runs them for tensors
 on the CPU, and ``chip_smoke.py`` holds each CUDA kernel to them on the
 card. Both take a ragged S (no tile size assumed), and ``flash_decode_ref``
 takes a per-row ``pos`` (B,) -- the serving slot pool, where every slot sits
-at its own fill depth.
+at its own fill depth. ``gcn_layer_ref`` is one layer of the paper's Eq. 6.
 """
 from __future__ import annotations
 
@@ -44,3 +44,12 @@ def flash_attention_ref(q, k, v, *, causal=True):
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgqst,btgh->bsgqh", p, v.float()).to(q.dtype)
+
+
+def gcn_layer_ref(a_hat, x, w, b, *, relu=True):
+    """relu?(a_hat . x . w + b) in f32. a_hat: (N, N); x: (N, F) or
+    (Bt, N, F); w: (F, H); b: (H,). Returns (..., N, H) in x's dtype."""
+    h = torch.matmul(a_hat.float(), x.float()) @ w.float() + b.float()
+    if relu:
+        h = torch.relu(h)
+    return h.to(x.dtype)

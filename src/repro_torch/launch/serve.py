@@ -1,23 +1,41 @@
 """End-to-end serving driver of the port (``repro.launch.serve``'s twin).
 
-Drain mode runs: ``--policy rr|lc|fractions`` with ``--autoscale none`` (the
-default) sends a fixed batch of requests through the static
-``ClusterFrontend`` of standalone ``ReplicaEngine``s and reports throughput,
-TTFT and finish percentiles, decode steps and prefill shapes:
+Two modes, with the reference's flags and defaults:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --policy lc
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 6
+  * **Unified control loop** (the paper's system) -- when ``--autoscale`` is
+    set or ``--policy ours``: an ``ElasticClusterFrontend`` of
+    heterogeneous ``ReplicaEngine``s (cold-start provisioning, graceful
+    drain, failure injection), fleet-batched with the async tick by
+    default, driven by the ``ControlPlane`` (forecast -> balance -> scale)
+    over a bursty synthetic trace:
 
-The flags and their defaults are the reference's. The model is the
-reduced config of ``--arch`` with f32 weights from ``--seed``, as in the
-reference; ``--device`` (default ``cuda``) names where it runs and raises
-when CUDA is asked for and absent. ``--attn-backend kernel`` (the default)
-runs attention through the hand-written CUDA kernels, ``einsum`` through
-the reference's dense path. TF32 is off for every f32 product.
+        PYTHONPATH=src python -m repro_torch.launch.serve --policy ours \
+            --autoscale gpso --ticks 60
+        PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+            --policy ours --autoscale gpso --ticks 10
 
-Not yet ported, and raising when asked for: the control-loop mode
-(``--policy ours``, ``--autoscale``, ``--cells``, ``--hierarchy``),
-``--chunk-len``, ``--devices`` and ``--mesh``.
+    ``--policy ours`` runs the GCN+DDPG balancer acting greedily (both GCN
+    layers through the ``gcn_layer`` kernel); ``--autoscale gpso`` runs the
+    Eq.9-11 GPSO planner. ``--plane-device`` (default: ``--device``) names
+    where the control plane's tensors live; on a card it runs on a CUDA
+    stream of its own.
+
+  * **Drain mode** -- ``--policy rr|lc|fractions`` with ``--autoscale
+    none`` (the default): a fixed batch of requests through the static
+    ``ClusterFrontend`` of standalone replicas, reporting throughput, TTFT
+    and finish percentiles, decode steps and prefill shapes.
+
+The model is the reduced config of ``--arch`` with f32 weights from
+``--seed``, as in the reference; ``--device`` (default ``cuda``) names
+where it runs and raises when CUDA is asked for and absent.
+``--attn-backend kernel`` (the default) runs attention through the
+hand-written CUDA kernels, ``einsum`` through the reference's dense path.
+TF32 is off for every f32 product.
+
+Not yet ported, and raising when asked for: ``--cells > 1`` and
+``--hierarchy`` (the multi-cell routing plane and the two-level control
+hierarchy), ``--clients > 0`` (closed-loop clients), ``--chunk-len > 0``,
+``--decode-block > 1``, ``--devices`` and ``--mesh``.
 """
 from __future__ import annotations
 
@@ -26,6 +44,206 @@ import time
 
 import numpy as np
 import torch
+
+
+def _percentiles(xs, qs=(50, 95)):
+    xs = np.asarray(xs, np.float64)
+    return [float(np.percentile(xs, q)) for q in qs]
+
+
+def unported(args) -> str:
+    """The first flag of ``args`` that asks for a path not yet ported, or
+    an empty string."""
+    for bad, what in ((args.cells > 1, "--cells > 1"),
+                      (args.hierarchy, "--hierarchy"),
+                      (args.clients > 0, "--clients > 0"),
+                      (args.chunk_len > 0, "--chunk-len > 0"),
+                      (args.decode_block > 1, "--decode-block > 1"),
+                      (args.devices > 0 or bool(args.mesh),
+                       "--devices/--mesh")):
+        if bad:
+            return what
+    return ""
+
+
+def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
+                     rl=None, scaler_key=None) -> dict:
+    """The single-cell control loop of ``repro.launch.serve`` over
+    ``model``/``params``: ``--ticks`` ticks of the plane over the trace,
+    then drain. ``rl`` (an ``RLBalancer``) and ``scaler_key`` (a GPSO key,
+    see ``core.gpso``) replace the ones drawn from ``--seed`` (the tests
+    pass the reference's). Prints the reference's report lines plus the
+    plane's; returns {"fe", "plane", "ticks" (per tick: replicas,
+    fractions, dispatch and sync counts, the async tick's sync accounting,
+    host seconds), "wall"}."""
+    from repro_torch.configs.paper_cluster import ClusterConfig
+    from repro_torch.control import ControlPlane
+    from repro_torch.core import balancer as bal
+    from repro_torch.serving.elastic import (ChaosSchedule,
+                                             ElasticClusterFrontend)
+    from repro_torch.serving.engine import ReplicaEngine, Request
+    from repro_torch.workload.trace import (TraceConfig, generate_trace,
+                                            parse_tiers)
+
+    what = unported(args)
+    if what:
+        raise SystemExit(f"[serve] {what} is not yet ported")
+    tiers = parse_tiers(args.tiers)
+    ccfg = ClusterConfig(
+        num_nodes=args.nodes, horizon=8, forecast_window=16,
+        provisioning_delay=args.provision_delay,
+        max_replicas_per_node=args.max_replicas,
+        min_replicas_per_node=1,      # never plan a node to zero capacity
+        scale_interval=5, cooldown=8, straggler_prob=0.0, node_mtbf=1e12)
+    rng = np.random.default_rng(args.seed)
+    plane_device = args.plane_device or args.device
+
+    def make_replica(rid: int) -> ReplicaEngine:
+        # heterogeneous pool: mixed hardware generations + batch budgets
+        speed = float(rng.choice([0.7, 1.0, 1.4]))
+        mb = int(rng.choice([max(2, args.max_batch // 2), args.max_batch]))
+        return ReplicaEngine(model, params, max_batch=mb,
+                             max_seq=args.max_seq, rid=rid, speed=speed,
+                             cache_dtype=cache_dtype,
+                             chunk_len=args.chunk_len, tiers=tiers,
+                             attn_backend=args.attn_backend,
+                             device=args.device)
+
+    def request_factory(rid: int, tick: int) -> Request:
+        plen = int(rng.integers(2, 12))
+        req = Request(rid, rng.integers(1, cfg.vocab_size, plen).tolist(),
+                      max_new_tokens=int(rng.integers(4, 12)))
+        if len(tiers) > 1:     # single-tier: no extra rng draw
+            req.tier = tiers.sample(rng)
+        return req
+
+    est_tokens = 8.0
+    chaos = ChaosSchedule.parse(args.chaos) if args.chaos else None
+    fe = ElasticClusterFrontend(
+        make_replica, args.nodes, initial_replicas=args.replicas,
+        provisioning_delay=args.provision_delay,
+        max_replicas_per_node=args.max_replicas,
+        failure_rate=args.failure_rate, request_factory=request_factory,
+        seed=args.seed, est_tokens=est_tokens,
+        fleet_batch=not args.no_fleet,
+        fleet_prefill=not args.no_fleet_prefill,
+        async_tick=not args.no_async, decode_block=args.decode_block,
+        tiers=tiers, preempt_notice=args.preempt_notice, chaos=chaos)
+
+    balancer = {"ours": "rl", "rr": "rr", "lc": "lc", "wrr": "wrr",
+                "fractions": "wrr"}[args.policy]
+    if balancer != "rl":
+        rl = None
+    elif rl is None:
+        rl = bal.RLBalancer(ccfg, 4 + ccfg.horizon, seed=args.seed,
+                            device=plane_device)
+    unit_cap = args.max_batch / est_tokens     # replica requests/tick
+    trace = generate_trace(TraceConfig(ticks=args.ticks, base_rate=args.rate,
+                                       diurnal_period=max(args.ticks, 2)),
+                           seed=args.seed)
+    arrivals = trace["arrivals"]
+    plane = ControlPlane(ccfg, fe, balancer=balancer, scaler=args.autoscale,
+                         unit_capacity=unit_cap, rl=rl,
+                         forecast_scale=float(arrivals.mean()),
+                         seed=args.seed,
+                         init_arrival=float(arrivals[:5].mean()),
+                         device=plane_device)
+    if scaler_key is not None:
+        plane.scaler.key = scaler_key
+
+    print(f"[serve] unified loop: balancer={balancer} "
+          f"autoscale={args.autoscale} nodes={args.nodes} "
+          f"ticks={args.ticks} device={args.device} "
+          f"plane-device={plane_device}"
+          + (f" chaos={args.chaos!r}" if chaos else ""))
+    ticks = []
+    t0 = time.time()
+    for t in range(args.ticks):
+        t1 = time.perf_counter()
+        m = plane.step(float(arrivals[t]))
+        ticks.append({"s": time.perf_counter() - t1,
+                      "replicas": m["active_replicas"].tolist(),
+                      "fractions": plane.fractions.copy(),
+                      "decode_dispatches": m["decode_dispatches"],
+                      "prefill_dispatches": m["prefill_dispatches"],
+                      "syncs": m["syncs"], "reconciles": m["reconciles"],
+                      "last_round_dispatches": m["last_round_dispatches"],
+                      "in_flight_groups": m["in_flight_groups"]})
+        if t % 10 == 0 or t == args.ticks - 1:
+            print(f"[serve] t={t:3d} arrivals={arrivals[t]:5.1f}/tick "
+                  f"replicas={m['active_replicas'].tolist()} "
+                  f"queue={m['queue'].astype(int).tolist()} "
+                  f"util={m['mean_utilization']:.2f} "
+                  f"resp={m['response_time']:.1f}t "
+                  f"goodput={m['goodput']:.0f}")
+    fe.run_until_drained()
+    wall = time.time() - t0
+
+    done = fe.finished
+    toks = sum(len(r.output) for r in done)
+    print(f"[serve] {len(done)} requests, {toks} tokens in {wall:.2f}s "
+          f"({toks / max(wall, 1e-9):.1f} tok/s); "
+          f"replicas spawned={fe.replicas_spawned} "
+          f"failed={fe.failed_replicas} "
+          f"replica-ticks={fe.replica_ticks} "
+          f"decode-dispatches={fe.decode_dispatches()} "
+          f"prefill-dispatches={fe.prefill_dispatches()} "
+          f"syncs={fe.sync_count()} "
+          f"sync-wait={fe.sync_wait_s():.2f}s")
+    # queue-culled deadline expiries land in fe.finished with NO first
+    # token -- latency stats are over requests that were actually served
+    served = [r for r in done if r.first_token_time is not None]
+    if served:
+        ttft = _percentiles([r.first_token_time - r.arrival
+                             for r in served])
+        lat = _percentiles([r.finish_time - r.arrival for r in served])
+        print(f"[serve] TTFT p50={ttft[0]:.1f} p95={ttft[1]:.1f} ticks; "
+              f"latency p50={lat[0]:.1f} p95={lat[1]:.1f} ticks; "
+              f"prefill shapes={fe.prefill_retraces()}")
+        if len(tiers) > 1:
+            for spec in tiers.specs:
+                sub = [r for r in served if tiers.index(r.tier)
+                       == tiers.index(spec.name)]
+                if not sub:
+                    continue
+                tt = _percentiles([r.first_token_time - r.arrival
+                                   for r in sub])
+                att = ""
+                if np.isfinite(spec.ttft_target):
+                    ok = np.mean([r.first_token_time - r.arrival
+                                  <= spec.ttft_target for r in sub])
+                    att = f" SLO({spec.ttft_target:g}t)={ok:.0%}"
+                print(f"[serve]   tier {spec.name:<10} n={len(sub):4d} "
+                      f"TTFT p50={tt[0]:.1f} p95={tt[1]:.1f}{att}")
+    n = max(len(ticks), 1)
+    hs = plane.host_s
+    print(f"[serve] plane host ms/tick: forecast={hs['forecast'] / n * 1e3:.2f}"
+          f" balance={hs['balance'] / n * 1e3:.2f} "
+          f"scale={hs['scale'] / n * 1e3:.2f}; fetches={plane.fetches} "
+          f"fetch-wait={plane.fetch_wait:.3f}s")
+
+    led = fe.ledger
+    states = led.balance()
+    print(f"[serve] ledger: submitted={led.submitted} "
+          f"finished={states['finished']} timed_out={states['timed_out']} "
+          f"abandoned={states['abandoned']} rejected={states['rejected']} "
+          f"shed={states['shed']} "
+          f"retries={led.retries} duplicates={led.duplicates} "
+          f"wasted={led.wasted} double_served={led.double_served} "
+          f"balanced={led.balanced()}")
+    for tname, row in sorted(led.per_tier.items()):
+        total = max(row["finished"] + row["timed_out"]
+                    + row["abandoned"] + row["rejected"], 1)
+        print(f"[serve]   ledger tier {tname:<10} "
+              f"goodput={row['finished']}/{total} "
+              f"({row['finished'] / total:.0%}) "
+              f"timed_out={row['timed_out']} abandoned={row['abandoned']} "
+              f"rejected={row['rejected']} shed={row['shed']} "
+              f"retries={row['retries']}")
+    if fe.preempted_nodes or fe.preempted_replicas:
+        print(f"[serve] preemptions: nodes={fe.preempted_nodes} "
+              f"replicas={fe.preempted_replicas}")
+    return {"fe": fe, "plane": plane, "ticks": ticks, "wall": wall}
 
 
 def run_drain_mode(args, cfg, model, params, cache_dtype=torch.float32,
@@ -200,6 +418,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device the replicas run on; 'cuda' raises "
                          "when no CUDA device is present (pass 'cpu' to run "
                          "on the CPU)")
+    ap.add_argument("--plane-device", default=None,
+                    help="torch device of the control plane's tensors (the "
+                         "GCN actor, GPSO); default: --device. 'cpu' beside "
+                         "a 'cuda' --device runs the GCN layers through "
+                         "gcn_layer's plain version on the host")
     return ap
 
 
@@ -208,12 +431,9 @@ def main(argv=None):
     control_mode = (args.policy == "ours"
                     or (args.autoscale or "none") != "none"
                     or args.cells > 1 or args.hierarchy)
-    if control_mode:
-        raise SystemExit("[serve] the control-loop mode (--policy ours, "
-                         "--autoscale, --cells, --hierarchy) is not yet "
-                         "ported; drain mode is --policy rr|lc|fractions")
-    if args.devices > 0 or args.mesh:
-        raise SystemExit("[serve] --devices/--mesh are not yet ported")
+    what = unported(args)
+    if what:
+        raise SystemExit(f"[serve] {what} is not yet ported")
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import make_model
@@ -226,6 +446,11 @@ def main(argv=None):
                         device=args.device)
     print(f"[serve] arch={cfg.name} policy={args.policy} "
           f"device={args.device} attn-backend={args.attn_backend}")
+    if control_mode:
+        if args.autoscale is None:
+            args.autoscale = "gpso" if args.policy == "ours" else "none"
+        run_control_loop(args, cfg, model, params)
+        return
     if args.policy == "wrr":
         args.policy = "fractions"
     run_drain_mode(args, cfg, model, params)

@@ -122,13 +122,18 @@ def project_decode_qkv(params, x, dims: PaddedDims, pos, rope_theta):
     return q, k_new, v_new
 
 
-def write_kv(k_cache, v_cache, k_new, v_new, pos):
+def write_kv(k_cache, v_cache, k_new, v_new, pos, rows=None):
     """Write one token's k/v into the (B, S, G, hd) caches in place, row b
-    at pos[b] ((B,) int tensor)."""
-    rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+    at pos[b] ((B,) int tensor). ``rows`` (an int index tensor) limits the
+    write to those rows; every other row keeps its cache bit for bit."""
+    if rows is None:
+        rows = torch.arange(k_cache.shape[0], device=k_cache.device)
+        k_new, v_new = k_new[:, 0], v_new[:, 0]
+    else:
+        k_new, v_new, pos = k_new[rows, 0], v_new[rows, 0], pos[rows]
     idx = pos.long()
-    k_cache[rows, idx] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, idx] = v_new[:, 0].to(v_cache.dtype)
+    k_cache[rows, idx] = k_new.to(k_cache.dtype)
+    v_cache[rows, idx] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
 
 

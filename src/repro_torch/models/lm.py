@@ -89,17 +89,19 @@ def lm_init_cache(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
-              *, attn_backend: str = "kernel"):
+              *, attn_backend: str = "kernel", write_rows=None):
     """One decode step. tokens: (B,1) int; pos: (B,) int32 tensor -- the
     cache write index of each row. Writes the new K/V into ``cache`` in
-    place and returns (logits (B, V), cache)."""
+    place (only rows ``write_rows``, an int index tensor, when given: the
+    fleet's non-stepping rows keep their cache) and returns
+    (logits (B, V), cache)."""
     h = params["embed"][tokens]                              # (B,1,d)
     for li, lp in enumerate(params["layers"]):
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = attn.project_decode_qkv(lp["attn"], x, dims, pos,
                                                   cfg.rope_theta)
         kc, vc = attn.write_kv(cache["k"][li], cache["v"][li], k_new, v_new,
-                               pos)
+                               pos, write_rows)
         h = h + attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
                                    backend=attn_backend)
         h = _ffn_sublayer(lp, h, cfg)

@@ -49,11 +49,13 @@ class Model:
                              cache_len=cache_len, cache_dtype=cache_dtype,
                              attn_backend=attn_backend)
 
-    def decode(self, params, state, tokens, pos, attn_backend: str = "kernel"):
+    def decode(self, params, state, tokens, pos, attn_backend: str = "kernel",
+               write_rows=None):
         """``attn_backend="kernel"`` decodes through the flash-decode kernel;
-        ``"einsum"`` keeps the reference's dense path."""
+        ``"einsum"`` keeps the reference's dense path. ``write_rows`` limits
+        the cache write to those rows (see ``lm.lm_decode``)."""
         return lm.lm_decode(params, state, tokens, pos, self.cfg, self.dims,
-                            attn_backend=attn_backend)
+                            attn_backend=attn_backend, write_rows=write_rows)
 
 
 def make_model(cfg: ArchConfig, tp: int = 1) -> Model:

@@ -1,1 +1,2 @@
-"""Request-level serving engine (standalone replicas, drain mode)."""
+"""Request-level serving: the engine (standalone replicas, the fleet slab,
+the async tick) and the elastic frontend the control plane drives."""

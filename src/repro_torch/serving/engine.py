@@ -1,5 +1,5 @@
 """Request-level serving engine: continuous batching over real model forwards
-(the port of the standalone half of ``repro.serving.engine``).
+(the port of ``repro.serving.engine``, dense family).
 
 ``ReplicaEngine`` runs one model replica: a slot-based KV pool on the
 device, per-slot positions (the vector-``pos`` decode path),
@@ -16,21 +16,57 @@ admission (the KV pool can never overflow).
 per priority class (``workload.trace.TierSet``), drained in weighted-deficit
 round-robin order. The default single tier is a plain FIFO.
 
-``ClusterFrontend`` stitches several standalone replicas together behind a
-balancer policy (``rr``, ``lc`` or ``fractions``): the reference's drain
-mode with ``fleet_batch=False``. Each ``step`` admits and decodes every
-replica once, with one blocking host sync per dispatch
-(``syncs`` / ``sync_wait`` account for them).
+**Fleet-batched decode and admission.** Slot bookkeeping (the ``Request``
+objects, host ``pos``/``last_tok`` mirrors, queues, clocks) lives on the
+engine; the device cache lives either on the engine (standalone) or in a
+``FleetGroup`` shared by every replica of the same ``(model, params,
+max_batch, max_seq, cache_dtype, attn_backend, device)``. The reference
+stacks the members' caches on a leading fleet axis and ``vmap``s one
+replica's decode over it. Here the slab is *flat*: member f's slot s is
+row ``f * max_batch + s`` of one ``(L, cap * max_batch, S, G, hd)`` cache,
+so one ``lm_decode`` over ``cap * max_batch`` rows advances every member
+at once -- one ``flash_decode`` launch per layer for the whole fleet. The
+greedy argmax and the retire rule (max-tokens / EOS / cache-full) run on
+the device and come back as one small ``(cap, max_batch)`` pair. Members
+of a group admit together: rows of one pow2 length bucket across all
+members flatten into ONE prefill per distinct bucket shape, which writes
+each row's K/V straight into its slab row.
 
-Not yet ported: chunked prefill (``chunk_len > 0``), the int8 KV codec,
-the fleet-batched slab (``FleetGroup``, ``fleet_batch=True``), the async
-tick, the elastic frontend, and families other than dense. Asking for any
-of them raises.
+The slab is preallocated and updated in place -- the stand-in for the
+reference's jit buffer donation. Capacity grows in pow2 steps (a grow
+allocates a new slab and copies the live rows once); a removed member's
+rows are backfilled with the last member's rows in one copy per cache.
+Rows that do not step in a round (heterogeneous speeds) are excluded from
+the cache write by index, so they keep their K/V bit for bit; the
+prefill scatter writes only the real rows of a pow2-padded batch (the
+reference drops the pad rows' out-of-range indices; here they are never
+formed).
 
-The device pool is updated in place: prefill writes a bucket-length cache
-whose rows ``_insert_slot`` copies into the pool slot (positions past the
-bucket keep stale K/V from the slot's earlier occupant, which no read
-reaches: both attention backends mask positions past ``pos``).
+``ReplicaEngine.step()`` remains the standalone per-replica path and is the
+parity oracle for the fleet path.
+
+**Async tick contract.** With ``async_mode`` the fleet dispatch methods
+never block on the device. The decode operands (``toks``/``pos``/``rem``/
+``eos``/``active``, ``(cap, max_batch)`` each) live on the device next to
+the slab and are advanced in place by the same dispatch (``ops``); a
+dispatch's small outputs (next tokens, fused retire mask, stepped mask,
+prefill first tokens) start their copy to pinned host memory right behind
+it, and the host bookkeeping captured at dispatch time waits on
+``pending``. All of it applies at ONE reconcile point per tick
+(``FleetGroup.reconcile``: one wait, counted by ``syncs``), so the host's
+work for tick t overlaps the device computing tick t's decode. Per-dispatch
+operands built on the host go through one pinned staging copy
+(``non_blocking``); nothing in the tick calls ``.item()``, ``.tolist()``
+or ``.cpu()`` on a device tensor outside ``reconcile``. Token streams and
+finish ticks are bit-identical to the eager oracle (``async_mode=False``),
+only the host-side observation is one tick late. Membership churn
+(scale-up joins, drain retire, failure) force-flushes pending results
+first.
+
+Not yet ported, and raising when asked for: chunked prefill
+(``chunk_len > 0``), the int8 KV codec, fused decode windows
+(``decode_block > 1``), fleet-mesh sharding (``mesh``) and families other
+than dense.
 """
 from __future__ import annotations
 
@@ -43,7 +79,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import host_to_device, resolve_device
 from repro_torch.models.model import Model
 from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
 
@@ -84,6 +120,68 @@ def _timed_get(owner, tensors) -> list:
     owner.sync_wait += time.perf_counter() - t0
     owner.syncs += 1
     return out
+
+
+def _stage(device: torch.device, *arrays) -> list:
+    """Host integer/bool arrays as int32 tensors on ``device``, through ONE
+    pinned staging copy (one host-to-device copy per dispatch rather than
+    one per operand). Returns views of the staged buffer in ``arrays``'
+    shapes."""
+    flat = np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays])
+    buf = host_to_device(flat, device)
+    out, o = [], 0
+    for a in arrays:
+        n = int(np.size(a))
+        out.append(buf[o:o + n].view(tuple(np.shape(a))))
+        o += n
+    return out
+
+
+class _Pending:
+    """A dispatched device result not yet applied on the host. ``host``
+    holds the small outputs: on a card, pinned host tensors whose copy was
+    enqueued right behind the dispatch, with ``ready`` recorded after it;
+    on the CPU, the outputs themselves. ``meta`` is the host bookkeeping
+    context captured at dispatch time (engines, slots, requests and the
+    dispatch-time clocks that stamp TTFT/finish)."""
+
+    def __init__(self, kind: str, arrays, meta: list):
+        self.kind = kind                # "decode" | "prefill"
+        self.meta = meta
+        self.ready = None
+        if arrays[0].device.type == "cuda":
+            self.host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                         for a in arrays]
+            for h, a in zip(self.host, arrays):
+                h.copy_(a, non_blocking=True)
+            self.ready = torch.cuda.Event()
+            self.ready.record()
+        else:
+            self.host = list(arrays)
+
+
+def _timed_wait(owner, pend: list) -> list:
+    """The reconcile's one blocking wait: every pending result's host copy,
+    as numpy, accounted on ``owner`` like ``_timed_get`` (one sync)."""
+    t0 = time.perf_counter()
+    for p in pend:
+        if p.ready is not None:
+            p.ready.synchronize()
+    out = [[h.numpy() for h in p.host] for p in pend]
+    owner.sync_wait += time.perf_counter() - t0
+    owner.syncs += 1
+    return out
+
+
+def _init_ops(cap: int, batch: int, device: torch.device) -> dict:
+    """Fresh device-resident decode operands for an async fleet slab:
+    per-slot next-token / cache-position / remaining-budget / eos-id /
+    active-mask, (cap, batch) each. Inactive rows are never read through
+    (``active`` masks them)."""
+    full = lambda v, dt: torch.full((cap, batch), v, dtype=dt, device=device)
+    return {"toks": full(0, torch.int32), "pos": full(0, torch.int32),
+            "rem": full(1, torch.int32), "eos": full(-1, torch.int32),
+            "active": full(False, torch.bool)}
 
 
 @dataclasses.dataclass
@@ -268,12 +366,14 @@ class Request:
 class ReplicaEngine:
     """One model replica: a ``max_batch``-slot KV pool of ``max_seq``
     positions on ``device``, its tiered queue, and the admit / decode /
-    retire loop (``step``). ``attn_backend`` is ``"kernel"`` (the CUDA
-    kernels; their plain versions on the CPU) or ``"einsum"``."""
+    retire loop (``step``). ``speed`` is its relative decode speed (the
+    elastic frontend runs speed>1 replicas several sub-steps per tick).
+    ``attn_backend`` is ``"kernel"`` (the CUDA kernels; their plain versions
+    on the CPU) or ``"einsum"``."""
 
     def __init__(self, model: Model, params, *, max_batch: int = 4,
                  max_seq: int = 256, cache_dtype=torch.float32, rid: int = 0,
-                 min_bucket: int = 8,
+                 speed: float = 1.0, min_bucket: int = 8,
                  bucket_prompts: Optional[bool] = None, chunk_len: int = 0,
                  tiers: Optional[TierSet] = None,
                  attn_backend: str = "kernel", device="cuda"):
@@ -293,7 +393,9 @@ class ReplicaEngine:
         self.cache_dtype = cache_dtype
         self.attn_backend = attn_backend
         self.rid = rid
+        self.speed = speed
         self.min_bucket = min_bucket
+        self.draining = False         # drained replicas admit nothing new
         self.cache = model.init_serve_state(max_batch, max_seq, cache_dtype,
                                             device=self.device)
         self.pos = np.zeros(max_batch, np.int32)       # next cache index
@@ -306,11 +408,20 @@ class ReplicaEngine:
         self.syncs = 0                # blocking host syncs performed
         self.sync_wait = 0.0          # seconds spent blocked on the device
         self.prefill_dispatches = 0   # admission prefill calls issued
+        self._fleet: Optional["FleetGroup"] = None  # device state owner
+        self._fleet_row = -1                        # when fleet-batched
         if bucket_prompts is None:
             bucket_prompts = model.cfg.family in _BUCKET_FAMILIES
         self.bucket_prompts = bucket_prompts
         self._shapes = get_prefill_shapes(model, max_seq, cache_dtype,
                                           attn_backend)
+
+    @property
+    def fleet_key(self) -> tuple:
+        """Replicas with equal keys can share one fleet slab."""
+        return (id(self.model), id(self.params), self.max_batch,
+                self.max_seq, str(self.cache_dtype), self.attn_backend,
+                str(self.device))
 
     @property
     def prefill_traces(self) -> int:
@@ -323,18 +434,47 @@ class ReplicaEngine:
         return sum(s is not None for s in self.slots)
 
     @property
+    def n_decoding(self) -> int:
+        """Slots in the decode phase (every occupied slot: chunked prefill,
+        whose mid-chunk slots do not decode, is not yet ported)."""
+        return self.n_active
+
+    @property
     def load(self) -> int:
         return self.n_active + len(self.queue)
+
+    def tier_load(self) -> list:
+        """Per-tier unfinished count on this replica (declaration order):
+        queued + in-flight slots."""
+        counts = self.queue.depths()
+        for req in self.slots:
+            if req is not None:
+                counts[self.tiers.index(req.tier)] += 1
+        return counts
 
     def submit(self, req: Request):
         self.queue.append(req)
 
+    def evacuate(self) -> list:
+        """Failure path: pull every in-flight + queued request off this
+        replica (generation progress is lost) so the caller can re-queue."""
+        lost = [r for r in self.slots if r is not None] + list(self.queue)
+        self.slots = [None] * self.max_batch
+        self.queue.clear()
+        for r in lost:
+            r.reset_progress()
+        return lost
+
     # ------------------------------------------------------------- plumbing
     def _insert_slot(self, slot: int, small_state, row: int, prompt_len: int,
                      first_tok: int, req: Request):
-        for name, big in self.cache.items():
-            small = small_state[name]
-            big[:, slot, :small.shape[2]].copy_(small[:, row])
+        if self._fleet is not None:
+            self._fleet.write_slot(self._fleet_row, slot, small_state, row,
+                                   req=req, prompt_len=prompt_len)
+        else:
+            for name, big in self.cache.items():
+                small = small_state[name]
+                big[:, slot, :small.shape[2]].copy_(small[:, row])
         self.pos[slot] = prompt_len
         self.last_tok[slot] = first_tok
         self.slots[slot] = req
@@ -353,8 +493,8 @@ class ReplicaEngine:
             for i, p in enumerate(prompts):
                 toks[i, :len(p)] = p
                 lengths[i] = len(p)
-            batch = {"tokens": torch.from_numpy(toks).to(self.device),
-                     "lengths": torch.from_numpy(lengths).to(self.device)}
+            toks, lengths = _stage(self.device, toks, lengths)
+            batch = {"tokens": toks, "lengths": lengths}
             self._shapes.add(("bucketed", kb, sb))
         else:
             req = reqs[0]
@@ -364,8 +504,7 @@ class ReplicaEngine:
                                           "yet ported")
             # same overflow guard as the bucketed path
             prompt = req.prompt[-(self.max_seq - 1):]
-            batch = {"tokens": torch.tensor([prompt], dtype=torch.int32,
-                                            device=self.device)}
+            batch = {"tokens": _stage(self.device, [prompt])[0]}
             self._shapes.add(("single", 1, len(prompt)))
         sb = batch["tokens"].shape[1]
         logits, small, plen = self.model.prefill(
@@ -384,14 +523,37 @@ class ReplicaEngine:
                 continue
             self._insert_slot(slot, small, i, int(plen[i]), tok, req)
 
+    def commit_admit(self, slots: list, reqs: list, first, plen,
+                     finished: list):
+        """Apply a fleet-prefill result: the slab rows were already written
+        on the device, so only the host bookkeeping (first token, TTFT,
+        retire or register) remains. A request that finishes at prefill
+        time leaves stale state in the slab -- harmless, like slot reuse."""
+        for i, (slot, req) in enumerate(zip(slots, reqs)):
+            tok = int(first[i])
+            req.output.append(tok)
+            req.first_token_time = self.clock
+            if len(req.output) >= req.max_new_tokens or tok == req.eos_id \
+                    or req.out_of_time(self.clock):
+                req.finish_time = self.clock
+                finished.append(req)
+                continue
+            self.pos[slot] = int(plen[i])
+            self.last_tok[slot] = tok
+            self.slots[slot] = req
+
     # ------------------------------------------------------------ admission
     def plan_admission(self) -> _AdmitPlans:
         """Pop admittable queue heads into reserved slots without
-        dispatching. Queue heads come out in the tiered weighted-deficit
-        order (see ``TieredQueue``); consecutive bucketable heads group
-        into one bucketed prefill, others become exact-length single
-        admits, and heads past their deadline retire unserved."""
+        dispatching -- the shared host half of the standalone and the
+        fleet-batched admission paths. Queue heads come out in the tiered
+        weighted-deficit order (see ``TieredQueue``); consecutive bucketable
+        heads group into one bucketed prefill, others become exact-length
+        single admits, and heads past their deadline retire unserved. A
+        draining replica admits nothing."""
         plans = _AdmitPlans([], [])
+        if self.draining:
+            return plans
         free = [i for i in range(self.max_batch) if self.slots[i] is None]
         while free:
             picked = self.queue.peek()
@@ -429,7 +591,9 @@ class ReplicaEngine:
     # ------------------------------------------------------------- stepping
     def begin_step(self, dt: float = 1.0, admit: bool = True) -> list:
         """Tick phase 1: advance the clock and admit from the queue. Returns
-        requests that completed at prefill time."""
+        requests that completed at prefill time. With ``admit=False`` only
+        the clock moves -- the caller batches admission across the fleet via
+        ``FleetGroup.admit_round``."""
         self.clock += dt
         finished: list = []
         if admit:
@@ -439,10 +603,11 @@ class ReplicaEngine:
     def finish_step(self) -> list:
         """Tick phase 2: one decode step for all active slots (empty slots
         decode garbage at their stale position, which nothing reads)."""
+        if self._fleet is not None:    # device state lives in the fleet slab
+            return self._fleet.decode_round({id(self)})
         if self.n_active == 0:
             return []
-        toks = torch.from_numpy(self.last_tok[:, None].copy()).to(self.device)
-        pos = torch.from_numpy(self.pos.copy()).to(self.device)
+        toks, pos = _stage(self.device, self.last_tok[:, None], self.pos)
         logits, self.cache = self.model.decode(
             self.params, self.cache, toks, pos,
             attn_backend=self.attn_backend)
@@ -464,12 +629,452 @@ class ReplicaEngine:
                 self.slots[slot] = None
         return finished
 
+    def commit_decode(self, next_toks: np.ndarray, done: np.ndarray) -> list:
+        """Apply one eager fleet decode result to the host bookkeeping.
+        ``next_toks``/``done`` are this engine's (B,) rows of the batched
+        fetch; the retire mask was computed on the device."""
+        finished: list = []
+        stepped = False
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            stepped = True
+            tok = int(next_toks[slot])
+            req.output.append(tok)
+            self.pos[slot] += 1
+            self.last_tok[slot] = tok
+            if done[slot]:
+                req.finish_time = self.clock
+                finished.append(req)
+                self.slots[slot] = None
+        if stepped:
+            self.steps += 1
+        return finished
+
+    def apply_decode(self, nxt: np.ndarray, done: np.ndarray,
+                     stepped: np.ndarray, clock: float) -> list:
+        """Apply one *async* fleet decode result at reconcile time: the
+        device's ``stepped`` mask (not the possibly-stale host view) says
+        which slots advanced, and ``clock`` is the dispatch-time clock that
+        stamps finishes."""
+        idx = np.flatnonzero(stepped)
+        if idx.size == 0:
+            return []
+        self.pos[idx] += 1
+        self.last_tok[idx] = nxt[idx]
+        self.steps += 1
+        finished: list = []
+        for s in idx:
+            req = self.slots[s]
+            req.output.append(int(nxt[s]))
+            if done[s]:
+                req.finish_time = clock
+                finished.append(req)
+                self.slots[s] = None
+        return finished
+
     def step(self, dt: float = 1.0) -> list:
         """Admit + one decode step for all active slots. Returns finished
         (including requests that completed at prefill time)."""
         finished = self.begin_step(dt)
         finished.extend(self.finish_step())
         return finished
+
+
+class FleetGroup:
+    """The device state of same-shape replicas in one flat slab, advanced
+    with one decode dispatch per round (see the module docstring).
+
+    ``slab`` holds ``k`` and ``v`` of shape (L, cap * max_batch, S, G, hd):
+    member f (``members[f]``, its ``_fleet_row``) owns rows
+    [f * max_batch, (f + 1) * max_batch). ``cap`` grows in pow2 steps;
+    rows past the members are pad rows that decode throwaway state in a
+    full round and are overwritten when a replica joins. Removing a member
+    backfills its rows with the last member's rows, so live rows stay dense.
+
+    ``admit_round`` is the admission twin of ``decode_round``: members'
+    bucketed admit rows of the same pow2 length bucket flatten into ONE
+    prefill per distinct bucket, writing K/V straight into the slab.
+    ``prefill_dispatches`` mirrors ``dispatches``.
+
+    With ``async_mode`` the dispatch methods never block: device results
+    queue on ``pending`` and the deferred host bookkeeping applies at the
+    next ``reconcile()`` -- one blocking sync per tick (``syncs``), with
+    the decode operands persistent on the device (``ops``).
+    ``decode_block > 1`` and ``mesh`` are not yet ported."""
+
+    def __init__(self, model: Model, params, *, max_batch: int, max_seq: int,
+                 cache_dtype=torch.float32, async_mode: bool = False,
+                 decode_block: int = 1, attn_backend: str = "kernel",
+                 mesh=None, device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
+                                      "yet ported")
+        if int(decode_block) > 1:
+            raise NotImplementedError("fused decode windows (decode_block "
+                                      "> 1) are not yet ported")
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.cache_dtype = cache_dtype
+        self.attn_backend = attn_backend
+        self.members: list = []     # ReplicaEngine; fleet row == list index
+        self.cap = 0                # allocated fleet rows (power of two)
+        self.slab = None            # {"k", "v"}: (L, cap * max_batch, ...)
+        self.peak_rows = 0          # most slab rows ever allocated
+        self.dispatches = 0         # fleet decode dispatches issued
+        self.prefill_dispatches = 0  # fleet admission dispatches issued
+        self.async_mode = bool(async_mode)
+        self.ops = None             # device decode operands (async mode)
+        self.pending: list = []     # _Pending device results, unapplied
+        self._stash: list = []      # finishes from forced flushes (churn)
+        self.syncs = 0              # blocking host syncs performed
+        self.sync_wait = 0.0        # seconds spent blocked on the device
+        self._shapes = get_prefill_shapes(model, max_seq, cache_dtype,
+                                          attn_backend)
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    def _rows(self, f: int) -> slice:
+        """Slab rows of fleet row ``f``."""
+        return slice(f * self.max_batch, (f + 1) * self.max_batch)
+
+    # -------------------------------------------------------------- members
+    def add(self, eng: ReplicaEngine):
+        """Copy ``eng``'s cache into the slab (any in-flight slot state
+        rides along, so replicas can join mid-generation). Pending results
+        apply first so the operand seed sees current host state."""
+        assert eng._fleet is None, "engine already belongs to a fleet"
+        if self.pending:
+            self._stash += self.reconcile(force=True)
+        row = len(self.members)
+        B = self.max_batch
+        if row >= self.cap:
+            new_cap = pow2_bucket(row + 1)
+            if self.slab is None:
+                self.slab = {n: c.new_zeros((c.shape[0], new_cap * B)
+                                            + tuple(c.shape[2:]))
+                             for n, c in eng.cache.items()}
+                if self.async_mode:
+                    self.ops = _init_ops(new_cap, B, self.device)
+            else:
+                old, self.slab = self.slab, {}
+                for n, s in old.items():
+                    grown = s.new_zeros((s.shape[0], new_cap * B)
+                                        + tuple(s.shape[2:]))
+                    grown[:, :self.cap * B].copy_(s)
+                    self.slab[n] = grown
+                if self.async_mode:
+                    self.ops = {n: torch.cat([o, o.new_zeros(
+                        (new_cap - self.cap, B))]) for n, o in
+                        self.ops.items()}
+            self.cap = new_cap
+            self.peak_rows = max(self.peak_rows, new_cap * B)
+        for n, s in self.slab.items():
+            s[:, self._rows(row)].copy_(eng.cache[n])
+        if self.async_mode:
+            self._seed_ops_row(row, eng)
+        eng.cache = None
+        eng._fleet, eng._fleet_row = self, row
+        self.members.append(eng)
+
+    def _seed_ops_row(self, row: int, eng: ReplicaEngine):
+        """Initialize the device operands of a joining member from its host
+        mirrors (it may carry in-flight slots mid-generation)."""
+        B = self.max_batch
+        rem = np.zeros(B, np.int32)
+        eos = np.full(B, -1, np.int32)
+        act = np.zeros(B, np.int32)
+        for s, req in enumerate(eng.slots):
+            if req is not None:
+                act[s] = 1
+                rem[s] = req.rem_tokens(eng.clock)
+                eos[s] = req.eos_id
+        vals = _stage(self.device, eng.last_tok, eng.pos, rem, eos, act)
+        for name, v in zip(("toks", "pos", "rem", "eos", "active"), vals):
+            self.ops[name][row] = v.to(self.ops[name].dtype)
+
+    def remove(self, eng: ReplicaEngine, restore: bool = True):
+        """Detach ``eng``; with ``restore`` its slab rows are copied back
+        onto the engine (drain hand-back), otherwise dropped (failure).
+        Pending results apply first (host mirrors must be current before a
+        row moves)."""
+        if self.pending:
+            self._stash += self.reconcile(force=True)
+        row = eng._fleet_row
+        assert eng._fleet is self and self.members[row] is eng
+        if restore:
+            eng.cache = {n: s[:, self._rows(row)].clone()
+                         for n, s in self.slab.items()}
+        last = self.members.pop()
+        if last is not eng:          # backfill the hole with the last rows
+            src, dst = self._rows(len(self.members)), self._rows(row)
+            for s in self.slab.values():
+                s[:, dst].copy_(s[:, src])
+            if self.async_mode:
+                for o in self.ops.values():
+                    o[row].copy_(o[len(self.members)])
+            last._fleet_row = row
+            self.members[row] = last
+        eng._fleet, eng._fleet_row = None, -1
+
+    # -------------------------------------------------------------- slots
+    def write_slot(self, f: int, slot: int, small_state, row: int,
+                   req: Optional[Request] = None, prompt_len: int = 0):
+        """Copy prefill output row ``row`` into member ``f``'s slot (the
+        per-replica admission path; fleet admission scatters inside
+        ``_dispatch_fleet_prefill`` instead). In async mode the slot also
+        registers in the device operands (``req``'s first token was already
+        fetched by that path)."""
+        r = f * self.max_batch + slot
+        for name, s in self.slab.items():
+            small = small_state[name]
+            s[:, r, :small.shape[2]].copy_(small[:, row])
+        if self.async_mode and req is not None:
+            o = self.ops
+            o["toks"][f, slot] = int(req.output[-1])
+            o["pos"][f, slot] = int(prompt_len)
+            o["rem"][f, slot] = req.rem_tokens(self.members[f].clock)
+            o["eos"][f, slot] = int(req.eos_id)
+            o["active"][f, slot] = True
+
+    # -------------------------------------------------------------- admit
+    def admit_round(self, stepping_ids=None) -> list:
+        """One fused admission step for every member (or the ``id(engine)``
+        subset in ``stepping_ids``): plan each member's admissions on the
+        host, then flatten same-length-bucket admit rows into one prefill
+        per distinct bucket. Exact-length single admits keep the
+        per-request path. Returns requests finished at prefill time."""
+        movers = [e for e in self.members
+                  if stepping_ids is None or id(e) in stepping_ids]
+        finished: list = []
+        buckets: dict = {}       # sb -> [(engine, slot, req, prompt)] rows
+        for e in movers:
+            plans = e.plan_admission()
+            finished.extend(plans.expired)
+            for slot, req in plans.singles:
+                e._admit_batch([slot], [req], finished, bucketed=False)
+            for slots, reqs in plans.bucketed:
+                prompts = [r.prompt[-(self.max_seq - 1):] for r in reqs]
+                # the length bucket is chosen per member group exactly like
+                # the standalone path; rows of the same bucket then flatten
+                # into one fleet-wide batch
+                sb = min(pow2_bucket(max(len(p) for p in prompts),
+                                     e.min_bucket), self.max_seq)
+                buckets.setdefault(sb, []).extend(
+                    (e, s, r, p) for s, r, p in zip(slots, reqs, prompts))
+        for sb, entries in sorted(buckets.items()):
+            self._dispatch_fleet_prefill(sb, entries, finished)
+        return finished
+
+    def _dispatch_fleet_prefill(self, sb: int, entries: list,
+                                finished: list):
+        """ONE prefill for every same-bucket admit across the fleet: the
+        (K, sb) batch (K pow2-padded with length-1 dummy rows) runs the
+        same row-independent prefill as the standalone path, and the n
+        real rows' K/V scatter into their slab rows (member row * B +
+        slot). Async: the admitted slots also activate in the device
+        operands, so this tick's decode consumes their first token without
+        a host sync."""
+        n, K, B = len(entries), pow2_bucket(len(entries)), self.max_batch
+        toks = np.zeros((K, sb), np.int32)
+        lens = np.ones(K, np.int32)             # pad rows: length-1 dummies
+        flat = np.zeros(n, np.int32)
+        rems = np.zeros(n, np.int32)
+        eoss = np.full(n, -1, np.int32)
+        for i, (e, slot, req, p) in enumerate(entries):
+            toks[i, :len(p)] = p
+            lens[i] = len(p)
+            flat[i] = e._fleet_row * B + slot
+            rems[i] = req.rem_tokens(e.clock) - 1
+            eoss[i] = req.eos_id
+        toks, lens, idx, rems, eoss = _stage(self.device, toks, lens, flat,
+                                             rems, eoss)
+        logits, small, plen = self.model.prefill(
+            self.params, {"tokens": toks, "lengths": lens}, cache_len=sb,
+            cache_dtype=self.cache_dtype, attn_backend=self.attn_backend)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        for name, s in self.slab.items():
+            s[:, idx, :sb] = small[name][:, :n]
+        self.prefill_dispatches += 1
+        self._shapes.add(("afleet_prefill" if self.async_mode
+                          else "fleet_prefill", K, sb, self.cap, B))
+        if self.async_mode:
+            head = first[:n]
+            for name, v in (("toks", head), ("pos", plen[:n]), ("rem", rems),
+                            ("eos", eoss),
+                            ("active", (rems >= 1) & (head != eoss))):
+                self.ops[name].view(-1)[idx] = v.to(self.ops[name].dtype)
+            meta = []
+            for i, (e, slot, req, p) in enumerate(entries):
+                e.slots[slot] = req      # reserve now; commit at reconcile
+                meta.append((i, e, slot, req, len(p), e.clock))
+            self.pending.append(_Pending("prefill", (first,), meta))
+            return
+        first, plen = _timed_get(self, (first, plen))
+        for i, (e, slot, req, p) in enumerate(entries):
+            e.commit_admit([slot], [req], first[i:i + 1], plen[i:i + 1],
+                           finished)
+
+    # -------------------------------------------------------------- decode
+    def _fleet_core(self, toks, pos, rem, eos, active, rows=None,
+                    write=None):
+        """One decode of every slab row: toks/pos/rem/eos/active (cap, B)
+        device tensors. Returns the next greedy token per slot and the
+        fused retire mask, the device twin of the host rule in
+        ``ReplicaEngine.finish_step``: after this token a slot is done when
+        it reached max_new_tokens (rem <= 1), emitted EOS, or its next
+        write index would hit the end of the cache. With ``rows`` (cap,)
+        only those fleet rows step: ``write`` (their slab rows) limits the
+        K/V write, so the others keep their cache."""
+        cap, B = self.cap, self.max_batch
+        logits, _ = self.model.decode(
+            self.params, self.slab, toks.reshape(-1, 1), pos.reshape(-1),
+            attn_backend=self.attn_backend, write_rows=write)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).view(cap, B)
+        done = active & ((rem <= 1) | (nxt == eos)
+                         | (pos + 1 >= self.max_seq - 1))
+        if rows is not None:
+            done = done & rows[:, None]
+        return nxt, done
+
+    def _row_masks(self, movers: list) -> tuple:
+        """Host (cap,) stepping-row mask and the movers' slab rows."""
+        rows = np.zeros(self.cap, np.int32)
+        write = []
+        for e in movers:
+            rows[e._fleet_row] = 1
+            write.extend(range(e._fleet_row * self.max_batch,
+                               (e._fleet_row + 1) * self.max_batch))
+        return rows, np.asarray(write, np.int32)
+
+    def decode_round(self, stepping_ids=None) -> list:
+        """One fused decode step for every member (or the ``id(engine)``
+        subset in ``stepping_ids``). Returns finished requests. Eager: one
+        dispatch plus one small (cap, B) host fetch. Async: one dispatch,
+        no sync (results apply at the next ``reconcile``)."""
+        movers = [e for e in self.members
+                  if stepping_ids is None or id(e) in stepping_ids]
+        if self.async_mode:
+            return self._decode_round_async(movers)
+        if not movers or not any(e.n_decoding for e in movers):
+            return []
+        cap, B = self.cap, self.max_batch
+        toks = np.zeros((cap, B), np.int32)
+        pos = np.zeros((cap, B), np.int32)
+        rem = np.ones((cap, B), np.int32)
+        eos = np.full((cap, B), -1, np.int32)
+        active = np.zeros((cap, B), np.int32)
+        for e in movers:
+            f = e._fleet_row
+            toks[f] = e.last_tok
+            pos[f] = e.pos
+            for s, req in enumerate(e.slots):
+                if req is not None:
+                    active[f, s] = 1
+                    rem[f, s] = req.rem_tokens(e.clock)
+                    eos[f, s] = req.eos_id
+        host = [toks, pos, rem, eos, active]
+        full = len(movers) == len(self.members)
+        if not full:
+            host += self._row_masks(movers)
+        dev = _stage(self.device, *host)
+        rows = write = None
+        if not full:
+            rows, write = dev[5].bool(), dev[6]
+        nxt, done = self._fleet_core(*dev[:4], dev[4].bool(), rows, write)
+        self.dispatches += 1
+        nxt, done = _timed_get(self, (nxt, done))   # ONE small host fetch
+        finished: list = []
+        for e in movers:
+            f = e._fleet_row
+            finished.extend(e.commit_decode(nxt[f], done[f]))
+        return finished
+
+    def _decode_round_async(self, movers: list) -> list:
+        """Sync-free decode round: the operands already live on the device
+        and advance in place; only the stepping-row masks (heterogeneous
+        speeds) go up, through the staging copy. Results queue on
+        ``pending``."""
+        if not movers or not any(e.n_decoding for e in movers):
+            return []
+        o = self.ops
+        rows = write = None
+        if len(movers) != len(self.members):
+            rows, write = _stage(self.device, *self._row_masks(movers))
+            rows = rows.bool()
+        meta = [(e, e._fleet_row, e.clock) for e in movers]
+        nxt, done = self._fleet_core(o["toks"], o["pos"], o["rem"], o["eos"],
+                                     o["active"], rows, write)
+        stepped = o["active"].clone() if rows is None else \
+            o["active"] & rows[:, None]
+        inc = stepped.to(torch.int32)
+        o["toks"].copy_(torch.where(stepped, nxt, o["toks"]))
+        o["pos"].add_(inc)
+        o["rem"].sub_(inc)
+        o["active"].logical_and_(~done)
+        self.dispatches += 1
+        self.pending.append(_Pending("decode", (nxt, done, stepped), meta))
+        return []
+
+    # ----------------------------------------------------------- reconcile
+    def take_stash(self) -> list:
+        """Drain finishes produced by forced mid-tick flushes (membership
+        churn) without touching still-pending results."""
+        out = list(self._stash)
+        self._stash.clear()
+        return out
+
+    def reconcile(self, force: bool = False) -> list:
+        """The ONE blocking host sync per tick: wait for every pending
+        result together and apply the deferred host bookkeeping in dispatch
+        order (prefill first tokens before the same tick's decode tokens --
+        the exact replay of the eager host effects, one tick late). Returns
+        newly finished requests, stamped with their dispatch-time clocks.
+        ``force`` is the churn flush (there are no fused blocks to defer
+        for)."""
+        # mutate the stash in place: callers flush via
+        # ``self._stash += self.reconcile(...)`` and a reassignment here
+        # would strand their appends on the orphaned old list (the in-place
+        # target resolves BEFORE this call runs)
+        finished: list = list(self._stash)
+        self._stash.clear()
+        if not self.pending:
+            return finished
+        pend, self.pending = self.pending, []
+        for p, vals in zip(pend, _timed_wait(self, pend)):
+            if p.kind == "decode":
+                self._apply_decode(vals, p.meta, finished)
+            else:
+                self._apply_admit(vals[0], p.meta, finished)
+        return finished
+
+    def _apply_decode(self, arrays, meta: list, finished: list):
+        nxt, done, stepped = arrays
+        for e, row, clock in meta:
+            finished.extend(e.apply_decode(nxt[row], done[row], stepped[row],
+                                           clock))
+
+    def _apply_admit(self, first, meta: list, finished: list):
+        """Deferred ``commit_admit``: the slot was reserved at dispatch; now
+        the first generated token, the TTFT stamp and the
+        finish-at-prefill rule apply. ``pos`` in the meta is the prompt
+        length."""
+        for i, e, slot, req, pos, clock in meta:
+            tok = int(first[i])
+            req.output.append(tok)
+            req.first_token_time = clock
+            if len(req.output) >= req.max_new_tokens or tok == req.eos_id \
+                    or req.out_of_time(clock):
+                req.finish_time = clock
+                finished.append(req)
+                e.slots[slot] = None
+                continue
+            e.pos[slot] = pos
+            e.last_tok[slot] = tok
 
 
 def normalize_fractions(fr: np.ndarray, mask: Optional[np.ndarray] = None
@@ -499,16 +1104,20 @@ def normalize_fractions(fr: np.ndarray, mask: Optional[np.ndarray] = None
 
 
 class ClusterFrontend:
-    """Routes requests to standalone replicas via balancer fractions (or
-    queue depth). ``fleet_batch=True`` (the reference's stacked fleet slab)
-    and ``mesh`` are not yet ported and raise."""
+    """Routes requests to replicas via balancer fractions (or queue depth).
+
+    ``fleet_batch=True`` stacks same-shape replicas into ``FleetGroup``s so a
+    ``step`` issues one decode dispatch per group instead of one per replica.
+    ``fleet_prefill`` (default: follows ``fleet_batch``) batches admission
+    the same way; set it False to keep per-replica admission as the parity
+    oracle. ``mesh`` is not yet ported."""
 
     def __init__(self, replicas: list, policy: str = "lc",
                  fractions_fn=None, seed: int = 0, fleet_batch: bool = False,
                  fleet_prefill: Optional[bool] = None, mesh=None):
-        if fleet_batch or fleet_prefill or mesh is not None:
-            raise NotImplementedError("fleet-batched serving (FleetGroup) "
-                                      "and mesh sharding are not yet ported")
+        if mesh is not None:
+            raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
+                                      "yet ported")
         self.replicas = replicas
         self.policy = policy
         self.fractions_fn = fractions_fn
@@ -516,6 +1125,18 @@ class ClusterFrontend:
         self.pending: deque = deque()
         self.finished: list = []
         self._rr = itertools.cycle(range(len(replicas)))
+        self.fleets: dict = {}
+        self.fleet_prefill = fleet_batch if fleet_prefill is None \
+            else (fleet_prefill and fleet_batch)
+        if fleet_batch:
+            for eng in replicas:
+                g = self.fleets.get(eng.fleet_key)
+                if g is None:
+                    g = self.fleets[eng.fleet_key] = FleetGroup(
+                        eng.model, eng.params, max_batch=eng.max_batch,
+                        max_seq=eng.max_seq, cache_dtype=eng.cache_dtype,
+                        attn_backend=eng.attn_backend, device=eng.device)
+                g.add(eng)
 
     def submit(self, req: Request):
         self.pending.append(req)
@@ -537,8 +1158,21 @@ class ClusterFrontend:
 
     def step(self, dt: float = 1.0):
         self._route()
+        if not self.fleets:
+            for r in self.replicas:
+                self.finished.extend(r.step(dt))
+            return
         for r in self.replicas:
-            self.finished.extend(r.step(dt))
+            self.finished.extend(r.begin_step(
+                dt, admit=r._fleet is None or not self.fleet_prefill))
+        if self.fleet_prefill:
+            for g in self.fleets.values():
+                self.finished.extend(g.admit_round())
+        for g in self.fleets.values():
+            self.finished.extend(g.decode_round())
+        for r in self.replicas:          # replicas outside any fleet
+            if r._fleet is None:
+                self.finished.extend(r.finish_step())
 
     def run_until_drained(self, max_steps: int = 10_000):
         for _ in range(max_steps):

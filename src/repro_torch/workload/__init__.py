@@ -1,1 +1,2 @@
-"""SLO tier specs (a copy of ``repro.workload.trace``'s tier part)."""
+"""SLO tier specs and the synthetic arrival trace (copies of
+``repro.workload.trace``)."""

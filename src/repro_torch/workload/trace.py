@@ -1,4 +1,6 @@
-"""SLO tiers (a copy of the tier half of ``repro.workload.trace``).
+"""SLO tiers and the synthetic arrival trace (copies of
+``repro.workload.trace``'s ``TierSet``/``parse_tiers`` and
+``TraceConfig``/``generate_trace``; numpy only).
 
 Real inference fleets serve several QoS classes over one pool
 (interactive premium traffic, default standard traffic, throughput-oriented
@@ -121,3 +123,58 @@ def parse_tiers(spec: str) -> TierSet:
         tiers.append(TierSpec(name, share=share, weight=weight,
                               ttft_target=ttft))
     return TierSet(tiers)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceConfig:
+    ticks: int = 2000
+    base_rate: float = 400.0        # requests/sec at the diurnal mean
+    diurnal_period: int = 600       # ticks per "day"
+    diurnal_amp: float = 0.45       # relative amplitude
+    ar_rho: float = 0.9             # AR(1) coefficient
+    ar_sigma: float = 0.05          # AR(1) innovation (relative)
+    burst_rate: float = 1 / 300.0   # bursts per tick (exp inter-arrival)
+    burst_pareto_alpha: float = 1.5
+    burst_scale: float = 0.8        # burst magnitude (x base rate)
+    burst_decay: float = 0.92       # per-tick burst decay
+    dip_rate: float = 1 / 900.0
+    dip_depth: float = 0.5
+    dip_len: int = 40
+    cost_lognorm_sigma: float = 0.6  # per-request cost multiplier spread
+
+
+def generate_trace(cfg: TraceConfig = TraceConfig(), seed: int = 0,
+                   load_scale: float = 1.0) -> dict:
+    """Returns {"arrivals": (T,) req/s, "cost_mult": (T,) mean cost mult}."""
+    rng = np.random.default_rng(seed)
+    T = cfg.ticks
+    t = np.arange(T)
+    diurnal = 1.0 + cfg.diurnal_amp * np.sin(2 * np.pi * t / cfg.diurnal_period
+                                             - np.pi / 2)
+    # AR(1) noise
+    ar = np.zeros(T)
+    innov = rng.normal(0, cfg.ar_sigma, T)
+    for i in range(1, T):
+        ar[i] = cfg.ar_rho * ar[i - 1] + innov[i]
+    # bursts
+    burst = np.zeros(T)
+    level = 0.0
+    for i in range(T):
+        if rng.random() < cfg.burst_rate:
+            level += (rng.pareto(cfg.burst_pareto_alpha) + 1) * cfg.burst_scale
+        burst[i] = level
+        level *= cfg.burst_decay
+    # dips
+    dip = np.ones(T)
+    i = 0
+    while i < T:
+        if rng.random() < cfg.dip_rate:
+            dip[i:i + cfg.dip_len] *= cfg.dip_depth
+            i += cfg.dip_len
+        i += 1
+    arrivals = cfg.base_rate * load_scale * np.maximum(
+        diurnal * (1 + ar) * dip + burst, 0.02)
+    cost = np.exp(rng.normal(0, cfg.cost_lognorm_sigma, T)
+                  - cfg.cost_lognorm_sigma ** 2 / 2)
+    return {"arrivals": arrivals.astype(np.float32),
+            "cost_mult": cost.astype(np.float32)}

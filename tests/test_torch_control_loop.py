@@ -1,0 +1,223 @@
+"""The port's single-cell control loop against the reference, in one process.
+
+The reference's stack is built exactly as ``repro.launch.serve.
+run_control_loop`` builds it (``--policy ours --autoscale gpso``: the
+elastic frontend of heterogeneous replicas with fleet batching and the
+async tick, the GCN+DDPG balancer, the GPSO autoscaler, the bursty trace)
+and driven for ``TICKS`` ticks, then drained. The port runs its own
+``run_control_loop`` with the same flags, the reference's model and actor
+weights bridged in, and GPSO drawing through ``JaxKey``. The digest over
+(rid, tier, output, arrival, first_token_time, finish_time) is computed
+live on both sides and must be equal, as must the per-tick replica counts,
+dispatch and sync counts; the routing fractions agree within 1e-6.
+"""
+import hashlib
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs.paper_cluster import ClusterConfig as JaxClusterConfig
+from repro.control.plane import ControlPlane as JaxPlane
+from repro.core import balancer as jbal
+from repro.models import make_model as jax_make_model
+from repro.serving import ElasticClusterFrontend as JaxElastic
+from repro.serving import ReplicaEngine as JaxReplica
+from repro.serving import Request as JaxRequest
+from repro.workload import TraceConfig, generate_trace
+from repro_torch.bridge import params_from_jax, rl_from_jax
+from repro_torch.configs import get_config
+from repro_torch.configs.paper_cluster import ClusterConfig
+from repro_torch.core.balancer import RLBalancer
+from repro_torch.launch import serve
+from repro_torch.models.model import make_model
+from repro_torch.serving.elastic import async_tick_violations
+from test_torch_control import JaxKey, _np
+
+ROOT = Path(__file__).resolve().parent.parent
+TICKS = 25
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = jax_make_model(jax_get_config("granite-3-8b").reduced(), tp=1)
+    jp = jm.init(jax.random.PRNGKey(0), jnp.float32)
+    tm = make_model(get_config("granite-3-8b").reduced(), tp=1)
+    return jm, jp, tm, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _cluster(cls, args):
+    return cls(num_nodes=args.nodes, horizon=8, forecast_window=16,
+               provisioning_delay=args.provision_delay,
+               max_replicas_per_node=args.max_replicas,
+               min_replicas_per_node=1, scale_interval=5, cooldown=8,
+               straggler_prob=0.0, node_mtbf=1e12)
+
+
+def _reference(jm, jp, args):
+    """``repro.launch.serve.run_control_loop`` (single cell, open loop),
+    returning the frontend and the per-tick record."""
+    ccfg = _cluster(JaxClusterConfig, args)
+    rng = np.random.default_rng(args.seed)
+
+    def make_replica(rid):
+        speed = float(rng.choice([0.7, 1.0, 1.4]))
+        mb = int(rng.choice([max(2, args.max_batch // 2), args.max_batch]))
+        return JaxReplica(jm, jp, max_batch=mb, max_seq=args.max_seq,
+                          rid=rid, speed=speed)
+
+    def request_factory(rid, tick):
+        plen = int(rng.integers(2, 12))
+        return JaxRequest(rid, rng.integers(1, jm.cfg.vocab_size,
+                                            plen).tolist(),
+                          max_new_tokens=int(rng.integers(4, 12)))
+
+    fe = JaxElastic(make_replica, args.nodes, initial_replicas=args.replicas,
+                    provisioning_delay=args.provision_delay,
+                    max_replicas_per_node=args.max_replicas,
+                    failure_rate=args.failure_rate,
+                    request_factory=request_factory, seed=args.seed,
+                    est_tokens=8.0, preempt_notice=args.preempt_notice)
+    rl = jbal.RLBalancer(ccfg, 4 + ccfg.horizon, seed=args.seed)
+    arrivals = generate_trace(TraceConfig(
+        ticks=args.ticks, base_rate=args.rate,
+        diurnal_period=max(args.ticks, 2)), seed=args.seed)["arrivals"]
+    plane = JaxPlane(ccfg, fe, balancer="rl", scaler="gpso",
+                     unit_capacity=args.max_batch / 8.0, rl=rl,
+                     forecast_scale=float(arrivals.mean()), seed=args.seed,
+                     init_arrival=float(arrivals[:5].mean()))
+    ticks = []
+    for t in range(args.ticks):
+        m = plane.step(float(arrivals[t]))
+        ticks.append({"replicas": m["active_replicas"].tolist(),
+                      "fractions": plane.fractions.copy(),
+                      "decode_dispatches": m["decode_dispatches"],
+                      "prefill_dispatches": m["prefill_dispatches"],
+                      "syncs": m["syncs"]})
+    fe.run_until_drained()
+    return fe, rl, ticks
+
+
+def _digest(fe):
+    rows = sorted((r.rid, r.tier, tuple(r.output), r.arrival,
+                   r.first_token_time, r.finish_time) for r in fe.finished)
+    return hashlib.sha256(repr(rows).encode()).hexdigest(), len(rows)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--seed", "1", "--failure-rate", "0.1", "--provision-delay", "1"]],
+    ids=["defaults", "failures"])
+def test_control_loop_matches_reference(models, extra):
+    jm, jp, tm, tp = models
+    args = serve.build_parser().parse_args(
+        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+         "--ticks", str(TICKS)] + extra)
+    jfe, jrl, jticks = _reference(jm, jp, args)
+    rl = RLBalancer(_cluster(ClusterConfig, args), 4 + 8, seed=args.seed,
+                    device="cpu", state=rl_from_jax(_np(jrl.state), "cpu"))
+    out = serve.run_control_loop(
+        args, tm.cfg, tm, tp, rl=rl,
+        scaler_key=JaxKey(jax.random.PRNGKey(args.seed)))
+    fe, ticks = out["fe"], out["ticks"]
+    assert _digest(fe) == _digest(jfe)
+    for got, want in zip(ticks, jticks):
+        np.testing.assert_allclose(got["fractions"], want["fractions"],
+                                   atol=1e-6)
+        for k in ("replicas", "decode_dispatches", "prefill_dispatches",
+                  "syncs"):
+            assert got[k] == want[k], k
+    assert len(ticks) == len(jticks) == TICKS
+    assert (fe.decode_dispatches(), fe.prefill_dispatches(),
+            fe.sync_count(), fe.replicas_spawned, fe.failed_replicas) == (
+        jfe.decode_dispatches(), jfe.prefill_dispatches(),
+        jfe.sync_count(), jfe.replicas_spawned, jfe.failed_replicas)
+    assert fe.prefill_retraces() == jfe.prefill_retraces()
+    assert fe.ledger.balanced() and fe.ledger.balance() == \
+        jfe.ledger.balance()
+    assert fe.replicas_spawned > 2 * args.replicas     # GPSO scaled up
+
+
+def test_cli_control_loop_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--policy", "ours", "--autoscale", "gpso", "--ticks", "10"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "balanced=True" in out.stdout and "plane host ms/tick" \
+        in out.stdout
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cells", "2"], ["--cells", "2", "--hierarchy"], ["--clients", "4"],
+    ["--chunk-len", "8"], ["--decode-block", "4"], ["--devices", "2"],
+    ["--mesh", "2:fleet"]])
+def test_unported_control_flags_raise(flags):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        serve.main(["--device", "cpu", "--policy", "ours"] + flags)
+
+
+def _control_args(*extra):
+    return serve.build_parser().parse_args(
+        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+         "--nodes", "2", "--replicas", "1", "--max-replicas", "4",
+         "--provision-delay", "3", "--ticks", "40", "--rate", "2",
+         "--max-batch", "8", "--max-seq", "256"] + list(extra))
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--seed", "2", "--failure-rate", "0.1"],
+    ["--seed", "3", "--chaos", "preempt@8:n0:k3,recover@18:n0"]],
+    ids=["defaults", "failures", "preempt"])
+def test_async_tick_keeps_its_sync_contract(models, extra):
+    """The flags of the full-width control loop on the card, at reduced
+    width: every sync of the async tick consumes one fleet dispatch's
+    results and each tick leaves its last round in flight; the eager
+    oracle, which waits on every dispatch, breaks that contract."""
+    _, _, tm, tp = models
+    ticks = serve.run_control_loop(_control_args(*extra), tm.cfg, tm,
+                                   tp)["ticks"]
+    assert async_tick_violations(ticks) == []
+    assert sum(t["in_flight_groups"] > 0 for t in ticks) > len(ticks) // 2
+    eager = serve.run_control_loop(_control_args("--no-async", *extra),
+                                   tm.cfg, tm, tp)["ticks"]
+    assert async_tick_violations(eager)
+
+
+def test_sync_contract_catches_a_wait_after_every_dispatch():
+    """A tick that reconciles each dispatch as it is made pays the same
+    total syncs but leaves nothing in flight: the contract refuses it."""
+    tick = {"syncs": 2, "reconciles": 2, "decode_dispatches": 2,
+            "last_round_dispatches": 2}
+    deferred = [dict(tick, syncs=0, reconciles=0, in_flight_groups=2)] + \
+        [dict(tick, in_flight_groups=2)] * 3
+    assert async_tick_violations(deferred) == []
+    waited = [dict(tick, in_flight_groups=0)] * 4
+    assert len(async_tick_violations(waited)) == 4
+    doubled = deferred[:1] + [dict(tick, syncs=4, reconciles=4,
+                                   in_flight_groups=2)]
+    assert async_tick_violations(doubled)
+
+
+def test_plane_device_flag_places_the_control_plane(models):
+    """``--plane-device`` puts the plane's tensors (GCN actor, GPSO) on its
+    own device, apart from the replicas' ``--device``."""
+    _, _, tm, tp = models
+    out = serve.run_control_loop(_control_args("--ticks", "6",
+                                               "--plane-device", "cpu"),
+                                 tm.cfg, tm, tp)
+    plane = out["plane"]
+    assert plane.device.type == plane.scaler.device.type == "cpu"
+    assert plane.rl.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda.is_available"):
+            serve.run_control_loop(_control_args("--ticks", "6",
+                                                 "--plane-device", "cuda"),
+                                   tm.cfg, tm, tp)

@@ -22,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(" ".join(names))
+print(bad)
 sys.exit(1 if bad else 0)
 """
 
@@ -32,8 +33,16 @@ def test_import_pulls_in_no_jax_and_no_repro():
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20
+    imported = set(out.stdout.splitlines()[0].split())
+    # every module file of the package was imported by the probe
+    on_disk = {"repro_torch." + ".".join(p.relative_to(PORT).with_suffix("")
+                                         .parts).replace(".__init__", "")
+               for p in PORT.rglob("*.py") if p.name != "__init__.py"
+               or p.parent != PORT}
+    assert on_disk <= imported, sorted(on_disk - imported)
+    assert {"repro_torch.core.gpso", "repro_torch.control.plane",
+            "repro_torch.serving.elastic",
+            "repro_torch.kernels.gcn_fused"} <= imported
 
 
 @pytest.mark.parametrize(

@@ -128,8 +128,10 @@ def test_cli_drain_mode_runs_on_cpu():
 
 
 def test_cli_control_mode_not_yet_ported():
+    """The control loop itself is ported (tests/test_torch_control_loop.py);
+    its multi-cell federation is not, and asking for it raises."""
     with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--device", "cpu", "--policy", "ours"])
+        serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2"])
 
 
 def test_cuda_requested_without_cuda_raises(models, monkeypatch):
