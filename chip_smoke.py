@@ -15,50 +15,61 @@ the script exits non-zero:
      flash_decode and flash_attention in f32 (atol/rtol 2e-5) and bf16
      (3e-2), at the drain mode's shapes and at the control loop's (decode
      over fleet slabs of 16 and 32 rows x max_seq 256 with ragged depths,
-     fleet prefills of K in {1,2,4,8} prompts of bucket 4, 8 or 16);
-     gcn_layer in f32 (1e-5, the reference's tolerance) at the control
-     plane's shapes and beyond, relu on and off, and batched;
-  4. drain mode (the first slice's path): full-width granite-3-8b (random
-     bf16 weights from a seed, bf16 KV cache) served by 2 replicas
-     (max_batch 8, max_seq 1024) behind ``ClusterFrontend(policy="lc")``,
-     16 requests with prompts up to 512 tokens and up to 64 new tokens.
-     Launch counts are zeroed just before and read just after: every
-     decode step runs flash_decode once per layer, every prefill dispatch
-     runs flash_attention once per layer;
-  5. the kernel path against the einsum path: full-width bf16 prefill
-     last-token logits and first decode logits within a stated tolerance,
-     and identical greedy streams at full width cut to 2 layers in f32;
-     then one fleet decode dispatch of a sub-step round (some slab rows
-     step, the others must keep their cache bit for bit) at 32 rows, f32,
-     2 layers, kernel logits against einsum logits;
-  6. the control loop (this slice's main path): ``run_control_loop`` with
-     ``--policy ours --autoscale gpso`` over the same full-width bf16
-     model -- the elastic frontend with fleet-batched decode and admission
-     and the async tick, the GCN+DDPG balancer and GPSO on the plane's own
-     stream -- for 40 ticks, then drained. Counts zeroed just before and
-     read just after: gcn_layer twice per plane tick, flash_decode once per
-     layer per fleet decode dispatch, flash_attention once per layer per
-     fleet prefill dispatch; every request finishes, the ledger balances,
-     GPSO scales up, no host sync hides in the engine (torch's sync debug
-     mode), and every tick keeps the async tick's sync contract
-     (``async_tick_violations``). Then one GPSO plan's host time, split
-     into the random key's own work and the rest;
+     fleet prefills of K in {1,2,4,8} prompts of bucket 4, 8 or 16), at
+     granite-3-8b's head layout (8 kv x 4 q heads, hd 128) and
+     zamba2-2.7b's shared block (32 x 1, hd 80); gcn_layer in f32 (1e-5,
+     the reference's tolerance) at the control plane's shapes and beyond,
+     relu on and off, and batched; ssd_scan in f32 (1e-4, the reference's
+     tolerance) at mamba2-1.3b's and zamba2-2.7b's heads, at the drain
+     mode's prefills (8 x 512, 2 x 96) and the control loop's (K x 8 or
+     16), with ragged lengths;
+  4.-8. for each served architecture in turn -- granite-3-8b (dense),
+     then mamba2-1.3b (ssm) and zamba2-2.7b (hybrid), each at full width
+     with random bf16 weights from a seed (bf16 KV and conv state, f32 SSM
+     state), depth not cut:
+  4. drain mode: 2 replicas (max_batch 8, max_seq 1024) behind
+     ``ClusterFrontend(policy="lc")``, 16 requests with prompts up to 512
+     tokens and up to 64 new tokens. Launch counts are zeroed just before
+     and read just after: every decode step runs flash_decode once per
+     attention layer (the hybrid's shared block once per invocation),
+     every prefill dispatch runs flash_attention as often and ssd_scan
+     once per mamba layer; ssd_scan never runs in decode;
+  5. the kernel path against the einsum path: full-width prefill
+     last-token logits and first decode logits within a stated tolerance
+     (granite in bf16; the ssm family in f32, its bf16 gap reported), and
+     identical greedy streams at full width cut to 2 layers in f32; for
+     granite then one fleet decode dispatch of a sub-step round (some slab
+     rows step, the others must keep their cache bit for bit) at 32 rows,
+     f32, 2 layers, kernel logits against einsum logits;
+  6. the control loop: ``run_control_loop`` with ``--policy ours
+     --autoscale gpso`` -- the elastic frontend with fleet-batched decode
+     and admission and the async tick, the GCN+DDPG balancer and GPSO on
+     the plane's own stream -- for 40 ticks, then drained. Counts zeroed
+     just before and read just after: gcn_layer twice per plane tick, the
+     model's kernels per fleet dispatch as in drain mode; every request
+     finishes, the ledger balances, GPSO scales up, no host sync hides in
+     the engine (torch's sync debug mode), and every tick keeps the async
+     tick's sync contract (``async_tick_violations``). For granite, one
+     GPSO plan's host time, split into the random key's own work and the
+     rest;
   7. times (CUDA-event medians over CUDA-graph replays): each kernel, its
      plain version, the one PyTorch call that computes the same function
-     (timed here only -- the port never calls it) and the bound, the
-     larger of bytes / 3.35 TB/s and operations over the peak rate of
-     their type (989 TFLOP/s bf16, 67 TFLOP/s f32). The JSON rows are
-     timed at the control loop's shapes (its largest slab, its largest
-     fleet prefill, the balancer's first GCN layer); the drain mode's
-     shapes are timed and printed beside them. Then the drain-mode decode
-     step's host and device times;
+     where there is one (timed here only -- the port never calls it) and
+     the bound, the larger of bytes / 3.35 TB/s and operations over the
+     peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s f32). The JSON
+     rows are timed at the control loop's shapes (granite's largest slab
+     and fleet prefill, the balancer's first GCN layer, mamba2's largest
+     fleet prefill for ssd_scan); the drain mode's shapes, zamba2's and
+     head dim 80 are timed and printed beside them. Then each model's
+     drain-mode decode step's host and device times and its prefill;
   8. the control loop's oracles: the same run with ``--no-async`` gives
      the same digest of (rid, output, first-token and finish ticks) in
      bf16, and at full width cut to 2 layers in f32 the fleet kernel run,
      ``--no-fleet`` and ``--attn-backend einsum`` do too.
 
 The line before the last is the JSON table of kernels (launches from the
-control loop of phase 6); the last line is ``{"ok": true, "device":
+control loop of phase 6: granite's for the attention kernels and
+gcn_layer, mamba2's for ssd_scan); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -98,7 +109,16 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attention.py:29"),
     "gcn_layer": dict(source="src/repro_torch/csrc/gcn_layer.cu",
                       replaces="src/repro/kernels/gcn_fused.py:17"),
+    "ssd_scan": dict(source="src/repro_torch/csrc/ssd_scan.cu",
+                     replaces="src/repro/kernels/ssd_scan.py:24"),
 }
+# the ssm/hybrid family, served at full width after granite-3-8b
+SSM_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_kernels.py's tolerance
+SSD_SUBCHUNK = 64     # csrc/ssd_scan.cu's kQ: the block length it computes
+# attention head layouts (G kv heads, qpg q heads a group, head dim) at
+# full width: granite-3-8b's layers and zamba2-2.7b's shared block
+HEAD_LAYOUTS = ((8, 4, 128), (32, 1, 80))
 GCN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py's tolerance
 # (N, F, H): the serve path's two layers (2 nodes, horizon 8, gcn_hidden
 # 64), the paper's 16-node cluster (horizon 32), the reference's sweep, and
@@ -164,11 +184,11 @@ def _ragged_pos(torch, gen, n: int, lo: int, hi: int):
 
 def phase_parity(torch, ops, ref) -> dict:
     """Each kernel against its plain version on the same card inputs, at
-    the drain mode's shapes and at the control loop's."""
+    the drain mode's shapes and at the control loop's, for every served
+    architecture."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs = {"flash_decode": 0.0, "flash_attention": 0.0}
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    G, qpg, hd = 8, 4, 128        # the serve pool's head layout
     # flash_decode: the drain pool (8 slots, long cache) and the control
     # loop's fleet slab (up to 32 rows x max_seq 256), ragged pos
     pos_drain = torch.tensor([0, 4095, 100, 1000, 2047, 777, 3000, 64],
@@ -177,42 +197,102 @@ def phase_parity(torch, ops, ref) -> dict:
         (rows, CONTROL_MAX_SEQ, _ragged_pos(torch, gen, rows, 0,
                                             CONTROL_MAX_SEQ - 1))
         for rows in (16, 32)]
-    for B, S, pos in decode_cases:
-        for dname, dt in dtypes.items():
-            q = torch.randn(B, G, qpg, hd, generator=gen,
-                            device="cuda").to(dt)
-            k = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
-            v = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
-            got = ops.flash_decode(q, k, v, pos)
-            torch.cuda.synchronize()
-            err = _close("flash_decode", got,
-                         ref.flash_decode_ref(q, k, v, pos), dname, torch)
-            errs["flash_decode"] = max(errs["flash_decode"], err)
-            log(f"[parity] flash_decode B={B} Hq={G * qpg} Hkv={G} hd={hd} "
-                f"S={S} pos={pos.tolist()} {dname}: max|err|={err:.3e} "
-                f"(atol/rtol {TOLS[dname]['atol']})")
     # flash_attention: ragged and long S (drain mode, causal and full), and
     # the control loop's fleet prefill (K prompts of one pow2 bucket sb)
     attn_cases = [(2, S, causal) for S in (8, 100, 2048)
                   for causal in (True, False)] + \
         [(K, sb, True) for K in (1, 2, 4, 8) for sb in (4, 8, 16)]
-    for B, S, causal in attn_cases:
-        for dname, dt in dtypes.items():
-            q = torch.randn(B, S, G, qpg, hd, generator=gen,
-                            device="cuda").to(dt)
-            k = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
-            v = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
-            got = ops.flash_attention(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            err = _close("flash_attention", got,
-                         ref.flash_attention_ref(q, k, v, causal=causal),
-                         dname, torch)
-            errs["flash_attention"] = max(errs["flash_attention"], err)
-            log(f"[parity] flash_attention B={B} Hq={G * qpg} Hkv={G} "
-                f"hd={hd} S={S} causal={causal} {dname}: "
-                f"max|err|={err:.3e} (atol/rtol {TOLS[dname]['atol']})")
+    for G, qpg, hd in HEAD_LAYOUTS:
+        for B, S, pos in decode_cases:
+            for dname, dt in dtypes.items():
+                q = torch.randn(B, G, qpg, hd, generator=gen,
+                                device="cuda").to(dt)
+                k = torch.randn(B, S, G, hd, generator=gen,
+                                device="cuda").to(dt)
+                v = torch.randn(B, S, G, hd, generator=gen,
+                                device="cuda").to(dt)
+                got = ops.flash_decode(q, k, v, pos)
+                torch.cuda.synchronize()
+                err = _close("flash_decode", got,
+                             ref.flash_decode_ref(q, k, v, pos), dname, torch)
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+                log(f"[parity] flash_decode B={B} Hq={G * qpg} Hkv={G} "
+                    f"hd={hd} S={S} pos={pos.tolist()} {dname}: "
+                    f"max|err|={err:.3e} (atol/rtol {TOLS[dname]['atol']})")
+        for B, S, causal in attn_cases:
+            for dname, dt in dtypes.items():
+                q = torch.randn(B, S, G, qpg, hd, generator=gen,
+                                device="cuda").to(dt)
+                k = torch.randn(B, S, G, hd, generator=gen,
+                                device="cuda").to(dt)
+                v = torch.randn(B, S, G, hd, generator=gen,
+                                device="cuda").to(dt)
+                got = ops.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = _close("flash_attention", got,
+                             ref.flash_attention_ref(q, k, v, causal=causal),
+                             dname, torch)
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                log(f"[parity] flash_attention B={B} Hq={G * qpg} Hkv={G} "
+                    f"hd={hd} S={S} causal={causal} {dname}: "
+                    f"max|err|={err:.3e} (atol/rtol {TOLS[dname]['atol']})")
     errs["gcn_layer"] = phase_parity_gcn(torch, ops, ref, gen)
+    errs["ssd_scan"] = phase_parity_ssd(torch, ops, ref, gen)
     return errs
+
+
+def _ssd_inputs(torch, gen, B, T, H, P, N, lengths=None):
+    """SSD scan inputs in the model's range: dt in [1e-3, 1e-1] (0 on the
+    steps past each row's ``lengths``, as a bucketed prefill pads), A in
+    [-16, -1] (mamba2's init), x ~ N(0, 1) weighted by dt, B and C ~
+    N(0, 1). Returns contiguous f32 (x * dt, dt * A, B, C)."""
+    import math
+    dt = torch.empty(B, T, H, device="cuda").uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen).exp()
+    if lengths is not None:
+        t = torch.arange(T, device="cuda")
+        dt = torch.where(t[None, :, None] < lengths[:, None, None], dt, 0.0)
+    A = -torch.empty(H, device="cuda").uniform_(1.0, 16.0, generator=gen)
+    x = torch.randn(B, T, H, P, generator=gen, device="cuda") * dt[..., None]
+    bm = torch.randn(B, T, N, generator=gen, device="cuda")
+    cm = torch.randn(B, T, N, generator=gen, device="cuda")
+    return x.contiguous(), (dt * A).contiguous(), bm, cm
+
+
+def phase_parity_ssd(torch, ops, ref, gen) -> float:
+    """ssd_scan against its plain version, f32, for both ssm archs' heads
+    (mamba2 H 64 P 64 N 128, zamba2 H 80 P 64 N 64) at the drain mode's
+    bucketed prefills (8 x 512, and 2 x 96: no multiple of the kernel's
+    block) and the control loop's fleet prefills (K in {1, 4, 8} x bucket 8
+    or 16), with ragged lengths (dt 0 past them), at the model's chunk."""
+    from repro_torch.configs import get_config
+
+    worst = 0.0
+    for name in SSM_ARCHS:
+        cfg = get_config(name)
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        for B, T in ((8, 512), (2, 96), (1, 8), (4, 16), (8, 16)):
+            lengths = torch.randint(1, T + 1, (B,), generator=gen,
+                                    device="cuda")
+            lengths[0] = T
+            lengths[-1] = 1 if B > 1 else T
+            x, a, bm, cm = _ssd_inputs(torch, gen, B, T, H, P, N, lengths)
+            chunk = min(cfg.ssm_chunk, T)
+            y, st = ops.ssd_scan(x, a, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+            y_ref, st_ref = ref.ssd_scan_ref(x, a, bm, cm, chunk)
+            err = max((y - y_ref).abs().max().item(),
+                      (st - st_ref).abs().max().item())
+            for got, want in ((y, y_ref), (st, st_ref)):
+                torch.testing.assert_close(
+                    got, want, **SSD_TOL,
+                    msg=lambda m: f"ssd_scan {name} ({B}, {T}): {m}")
+            worst = max(worst, err)
+            log(f"[parity] ssd_scan {name} B={B} T={T} H={H} P={P} N={N} "
+                f"chunk={chunk} lengths={lengths.tolist()} f32: "
+                f"max|err|={err:.3e} (atol/rtol {SSD_TOL['atol']}; "
+                f"|y| max {y_ref.abs().max().item():.3e})")
+    return worst
 
 
 def _gcn_inputs(torch, gen, xs, ws):
@@ -260,6 +340,34 @@ def _serve_args(serve, backend="kernel"):
          "--device", "cuda"])
 
 
+def _per_dispatch(cfg) -> dict:
+    """Launches of each kernel per (prefill, decode) dispatch of ``cfg``'s
+    model: the attention kernels once per attention layer (the hybrid's
+    shared block once per invocation), ssd_scan once per mamba layer in
+    prefill and never in decode. gcn_layer runs in the plane: twice a
+    tick."""
+    from repro_torch.models.ssm_lm import n_invocations
+
+    dense = cfg.family == "dense"
+    attn = cfg.num_layers if dense else n_invocations(cfg)
+    return {"flash_decode": (0, attn), "flash_attention": (attn, 0),
+            "ssd_scan": (0 if dense else cfg.num_layers, 0)}
+
+
+def _check_launches(cfg, launches, prefill, decode, ticks=0) -> None:
+    """The launch counts of one run against its dispatches; fails too when
+    a kernel of the run's path was never launched."""
+    want = {k: p * prefill + d * decode
+            for k, (p, d) in _per_dispatch(cfg).items()}
+    want["gcn_layer"] = 2 * ticks
+    path = [k for k, (p, d) in _per_dispatch(cfg).items() if p or d]
+    if ticks:
+        path.append("gcn_layer")
+    if launches != want or any(launches[k] == 0 for k in path):
+        raise AssertionError(f"launches {launches} != expected {want} "
+                             f"(path {path})")
+
+
 def phase_serve(torch, ops, cfg, model, params, workload):
     """The main path, counted: drain mode at full width."""
     from repro_torch.launch import serve
@@ -275,19 +383,16 @@ def phase_serve(torch, ops, cfg, model, params, workload):
     steps = sum(r.steps for r in reps)
     dispatches = sum(r.prefill_dispatches for r in reps)
     shapes = sorted(reps[0]._shapes)
-    log(f"[serve] launches {launches}; decode steps {steps}, prefill "
-        f"dispatches {dispatches}, layers {cfg.num_layers}; prefill shapes "
-        f"{shapes}; syncs {sum(r.syncs for r in reps)}, sync wait "
-        f"{sum(r.sync_wait for r in reps):.3f}s")
+    toks = sum(len(r.output) for r in fe.finished)
+    log(f"[serve] {cfg.name}: launches {launches}; decode steps {steps}, "
+        f"prefill dispatches {dispatches}, layers {cfg.num_layers}; prefill "
+        f"shapes {shapes}; syncs {sum(r.syncs for r in reps)}, sync wait "
+        f"{sum(r.sync_wait for r in reps):.3f}s; {len(fe.finished)} "
+        f"requests, {toks} tokens in {wall:.2f}s: {toks / wall:.1f} tok/s")
     if len(fe.finished) != N_REQUESTS or not all(r.done
                                                  for r in fe.finished):
         raise AssertionError(f"{len(fe.finished)}/{N_REQUESTS} finished")
-    want = {"flash_decode": cfg.num_layers * steps,
-            "flash_attention": cfg.num_layers * dispatches,
-            "gcn_layer": 0}                   # drain mode runs no plane
-    if launches != want or min(launches["flash_decode"],
-                               launches["flash_attention"]) == 0:
-        raise AssertionError(f"launches {launches} != expected {want}")
+    _check_launches(cfg, launches, dispatches, steps)  # drain: no plane
     return reps, launches, shapes
 
 
@@ -311,25 +416,38 @@ def phase_paths(torch, cfg, model, params, workload, small):
 
     batch = _bucket([w["prompt"] for w in workload[:MAX_BATCH]], "cuda",
                     torch)
-    out = {}
-    for backend in ("kernel", "einsum"):
-        logits, cache, pos = model.prefill(
-            params, batch, cache_len=MAX_SEQ, cache_dtype=torch.bfloat16,
-            attn_backend=backend)
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        dlogits, _ = model.decode(params, cache, tok, pos,
-                                  attn_backend=backend)
-        out[backend] = (logits.float(), dlogits.float(), tok)
-        del cache
-    for i, what in enumerate(("prefill last-token", "first decode")):
-        k, e = out["kernel"][i], out["einsum"][i]
-        rel = ((k - e).abs().max() / e.abs().max()).item()
-        agree = (k.argmax(-1) == e.argmax(-1)).float().mean().item()
-        log(f"[paths] bf16 full width {what} logits: max|kernel-einsum| / "
-            f"max|einsum| = {rel:.3e} (tolerance {BF16_PATH_TOL}); argmax "
-            f"agreement {agree:.3f}")
-        if not rel <= BF16_PATH_TOL:
-            raise AssertionError(f"{what} logits differ by {rel:.3e}")
+    checks = [("bf16", params, torch.bfloat16, BF16_PATH_TOL)]
+    if cfg.family != "dense":
+        # each layer's two scans agree to f32 rounding (~1e-5), but every
+        # bf16 layer rounds its output to bf16, and 48-54 random residual
+        # layers amplify those one-step flips to ~5-9% of the logits' scale
+        # (PERF.md): the gate for this family is full depth in f32, where
+        # only the kernel differs; bf16 is reported
+        checks = [("f32", model.init(seed=SEED, dtype=torch.float32,
+                                     device="cuda"), torch.float32,
+                   F32_PATH_TOL), ("bf16", params, torch.bfloat16, None)]
+    for label, p, dt, tol in checks:
+        out = {}
+        for backend in ("kernel", "einsum"):
+            logits, cache, pos = model.prefill(
+                p, batch, cache_len=MAX_SEQ, cache_dtype=dt,
+                attn_backend=backend)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            dlogits, _ = model.decode(p, cache, tok, pos,
+                                      attn_backend=backend)
+            out[backend] = (logits.float(), dlogits.float(), tok)
+            del cache
+        for i, what in enumerate(("prefill last-token", "first decode")):
+            k, e = out["kernel"][i], out["einsum"][i]
+            rel = ((k - e).abs().max() / e.abs().max()).item()
+            agree = (k.argmax(-1) == e.argmax(-1)).float().mean().item()
+            log(f"[paths] {cfg.name} {label} full width {what} logits: "
+                f"max|kernel-einsum| / max|einsum| = {rel:.3e} (tolerance "
+                f"{tol if tol is not None else 'none: reported'}); argmax "
+                f"agreement {agree:.3f}")
+            if tol is not None and not rel <= tol:
+                raise AssertionError(f"{what} logits differ by {rel:.3e}")
+    del checks, out
     torch.cuda.empty_cache()
 
     # f32, full width, 2 layers: identical greedy streams through the
@@ -345,7 +463,8 @@ def phase_paths(torch, cfg, model, params, workload, small):
                                    r.finish_time) for r in fe.finished)
     same = streams["kernel"] == streams["einsum"]
     n_tok = sum(len(s[1]) for s in streams["kernel"])
-    log(f"[paths] f32 full width, 2 layers: {len(streams['kernel'])} "
+    log(f"[paths] {cfg.name} f32 full width, 2 layers: "
+        f"{len(streams['kernel'])} "
         f"requests, {n_tok} tokens, streams identical: {same}")
     if not same:
         raise AssertionError("f32 greedy streams differ between kernel and "
@@ -374,7 +493,7 @@ def _digest(fe) -> list:
                   for r in fe.finished)
 
 
-def phase_control(torch, ops, cfg, model, params) -> dict:
+def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
     """The main path, counted: the control loop at full width."""
     from repro_torch.launch import serve
 
@@ -416,7 +535,8 @@ def phase_control(torch, ops, cfg, model, params) -> dict:
     busy = sum(1 for t in ticks if t["decode_dispatches"]
                or t["prefill_dispatches"])
     hs = {k: v / len(ticks) * 1e3 for k, v in plane.host_s.items()}
-    log(f"[control] launches {launches}; plane ticks {len(ticks)}, decode "
+    log(f"[control] {cfg.name}: launches {launches}; plane ticks "
+        f"{len(ticks)}, decode "
         f"dispatches {decode}, prefill dispatches {prefill}, layers {L}; "
         f"syncs {syncs} over {busy} ticks with work (+ drain); replicas "
         f"spawned {fe.replicas_spawned}; peak slab rows "
@@ -436,10 +556,7 @@ def phase_control(torch, ops, cfg, model, params) -> dict:
         raise AssertionError(f"ledger {led.balance()}")
     if fe.replicas_spawned <= args.nodes * args.replicas:
         raise AssertionError("GPSO never scaled up")
-    want = {"flash_decode": L * decode, "flash_attention": L * prefill,
-            "gcn_layer": 2 * len(ticks)}
-    if launches != want or min(launches.values()) == 0:
-        raise AssertionError(f"launches {launches} != expected {want}")
+    _check_launches(cfg, launches, prefill, decode, len(ticks))
     _fleet_step_times(torch, model, params, fe.peak_slab_rows(),
                       args.max_seq)
     # the async tick's sync contract, tick by tick: each sync consumes one
@@ -455,7 +572,8 @@ def phase_control(torch, ops, cfg, model, params) -> dict:
         f"contract broken on {len(broken)} ticks")
     if broken:
         raise AssertionError(f"async tick sync contract: {broken}")
-    _plan_times(plane)
+    if plan_times:
+        _plan_times(plane)
     return {"launches": launches, "digest": _digest(fe),
             "rows": fe.peak_slab_rows(), "shapes": fe.prefill_shapes()}
 
@@ -675,7 +793,7 @@ def phase_times(torch, F, ops, ref, cfg, reps, workload, shapes, control):
     return rows
 
 
-def phase_step_times(torch, model, params, reps, workload):
+def phase_step_times(torch, cfg, model, params, reps, workload):
     """Host-clock times of one decode step and one prefill of the served
     model, each ending in a synchronise (the engine's own blocking fetch),
     and the decode step's device time alone."""
@@ -712,7 +830,7 @@ def phase_step_times(torch, model, params, reps, workload):
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
         out[name] = statistics.median(times)
-    log(f"[steps] granite-3-8b bf16, {MAX_BATCH} slots: decode step "
+    log(f"[steps] {cfg.name} bf16, {MAX_BATCH} slots: decode step "
         f"{out['decode step']:.2f} ms (host clock, median of 10), of which "
         f"the device is busy {device_ms:.2f} ms (CUDA-graph replay, median "
         f"of 5): idle share {1 - device_ms / out['decode step']:.2f}; "
@@ -835,6 +953,152 @@ def phase_fleet_write(torch, small):
         raise AssertionError(f"fleet decode logits differ by {rel:.3e}")
 
 
+# ----------------------------------------------------- one architecture
+def _describe(cfg) -> str:
+    parts = [f"{cfg.num_layers} layers", f"d {cfg.d_model}"]
+    if cfg.num_heads:
+        parts.append(f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+                     f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}")
+    if cfg.ssm_state:
+        parts.append(f"SSM {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, "
+                     f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    if cfg.attn_every:
+        parts.append(f"shared attention block every {cfg.attn_every} "
+                     "layers")
+    parts.append(f"vocab {cfg.vocab_size}")
+    return ", ".join(parts)
+
+
+def serve_arch(torch, F, ops, ref, cfg) -> dict:
+    """Every served phase of one architecture at full width, bf16 weights
+    from ``SEED``: drain mode (counted), the kernel path against the einsum
+    path, the control loop (counted, sync-checked), the step times and the
+    control loop's oracles. granite-3-8b also runs the masked fleet write,
+    the GPSO plan times and its kernels' times at its shapes. Returns what
+    later phases read (launches, shapes, slab rows, kernel rows)."""
+    from repro_torch.data.pipeline import prompt_workload
+    from repro_torch.models.model import make_model
+
+    dense = cfg.family == "dense"
+    model = make_model(cfg)
+    # full width cut to 2 layers, f32: the exact-parity checks' model (the
+    # hybrid's shared block still runs: before layer 0)
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model2 = make_model(cfg2)
+    small = (cfg2, model2, model2.init(seed=SEED, dtype=torch.float32,
+                                       device="cuda"))
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {_describe(cfg)}; "
+        f"{cfg.param_count() / 1e9:.2f} B params in bf16, random from seed "
+        f"{SEED}, built in {time.perf_counter() - t0:.1f}s; device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    workload = prompt_workload(cfg.vocab_size, N_REQUESTS, seed=SEED,
+                               max_len=MAX_PROMPT, max_new=MAX_NEW)
+    reps, _, shapes = phase_serve(torch, ops, cfg, model, params, workload)
+    phase_paths(torch, cfg, model, params, workload, small)
+    if dense:
+        phase_fleet_write(torch, small)
+    control = phase_control(torch, ops, cfg, model, params, plan_times=dense)
+    rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes,
+                       control) if dense else {}
+    phase_step_times(torch, cfg, model, params, reps, workload)
+    phase_oracles(torch, cfg, model, params, control, small)
+    return {"launches": control["launches"], "rows": rows,
+            "drain_shapes": shapes, "control_shapes": control["shapes"],
+            "slab_rows": control["rows"]}
+
+
+def _largest(shapes, kind):
+    """(K, bucket) of the largest prefill of ``kind`` in a run's shapes."""
+    return max(((s[1], s[2]) for s in shapes if s[0] == kind),
+               key=lambda s: s[0] * s[1])
+
+
+def _time_ssd(torch, ops, ref, gen, cfg, B, T, label) -> dict:
+    """ssd_scan at (B prompts, T steps) of ``cfg``'s heads: kernel and
+    plain times, and the bound. Operations: the blocked algorithm at the
+    kernel's block length with C.B^T shared across heads and only its
+    causal half -- per block of q steps and batch row, q(q+1)/2 N for
+    C.B^T, and per head q(q+1)/2 P for the diagonal term, q P N for the
+    state's contribution to y and q P N for the state update
+    (multiply-adds, 2 operations each). Bytes: x in, y out, a, B, C in,
+    the final state out, f32. No single PyTorch call computes the scan."""
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    x, a, bm, cm = _ssd_inputs(torch, gen, B, T, H, P, N)
+    chunk = min(cfg.ssm_chunk, T)
+    n = 10 if B * T <= 1024 else 3
+    ms = _graph_ms(torch, lambda: [ops.ssd_scan(x, a, bm, cm, chunk=chunk)
+                                   for _ in range(n)], n)
+    plain = _graph_ms(torch, lambda: [ref.ssd_scan_ref(x, a, bm, cm, chunk)
+                                      for _ in range(n)], n)
+    fma = 0
+    for t0 in range(0, T, SSD_SUBCHUNK):
+        q = min(SSD_SUBCHUNK, T - t0)
+        tri = q * (q + 1) // 2
+        fma += tri * N + H * (tri * P + 2 * q * P * N)
+    flops = 2 * B * fma
+    nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
+                  + B * H * P * N)
+    bound, by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+    log(f"[times] ssd_scan {cfg.name} {label} B={B} T={T} H={H} P={P} N={N} "
+        f"chunk={chunk} f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"library none, bound {bound:.4f} ms ({by}: {nbytes} B, {flops} "
+        f"flop)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def phase_times_ssm(torch, F, ops, ref, served) -> dict:
+    """ssd_scan at both ssm archs' largest control-loop fleet prefill and
+    largest drain-mode bucket (the JSON row: mamba2-1.3b's control loop),
+    and the attention kernels at head dim 80, zamba2-2.7b's shared block,
+    at its control loop's and drain mode's shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import prompt_workload
+    from repro_torch.models.ssm_lm import n_invocations
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = {}
+    for name in SSM_ARCHS:
+        cfg, run = get_config(name), served[name]
+        for label, (B, T) in (
+                ("control fleet prefill",
+                 _largest(run["control_shapes"], "afleet_prefill")),
+                ("drain", _largest(run["drain_shapes"], "bucketed"))):
+            r = _time_ssd(torch, ops, ref, gen, cfg, B, T, label)
+            if name == SSM_ARCHS[0] and label.startswith("control"):
+                rows["ssd_scan"] = r
+    cfg, run = get_config("zamba2-2.7b"), served["zamba2-2.7b"]
+    G, hd, n_inv = cfg.num_kv_heads, cfg.resolved_head_dim, n_invocations(cfg)
+    qpg = cfg.num_heads // G
+    bf = torch.bfloat16
+    workload = prompt_workload(cfg.vocab_size, N_REQUESTS, seed=SEED,
+                               max_len=MAX_PROMPT, max_new=MAX_NEW)
+    drain_pos = torch.tensor([min(len(w["prompt"]) + MAX_NEW // 2,
+                                  MAX_SEQ - 1) for w in workload[:MAX_BATCH]],
+                             dtype=torch.int32, device="cuda")
+    n = run["slab_rows"]
+    for label, B, S, pos in (
+            ("zamba2 control slab", n, CONTROL_MAX_SEQ,
+             _ragged_pos(torch, gen, n, *CONTROL_DEPTH)),
+            ("zamba2 drain", MAX_BATCH, MAX_SEQ, drain_pos)):
+        slab = torch.randn((2, n_inv, B, S, G, hd), generator=gen,
+                           device="cuda").to(bf)
+        q = torch.randn(B, G, qpg, hd, generator=gen, device="cuda").to(bf)
+        _time_decode(torch, F, ops, ref, q, [(slab[0, i], slab[1, i])
+                                             for i in range(n_inv)], pos,
+                     label)
+        del slab
+    for label, (kb, sb) in (
+            ("zamba2 control fleet prefill",
+             _largest(run["control_shapes"], "afleet_prefill")),
+            ("zamba2 drain", _largest(run["drain_shapes"], "bucketed"))):
+        _time_attention(torch, F, ops, ref, gen, kb, sb, G, qpg, hd, label)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -849,42 +1113,21 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import prompt_workload
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.models.model import make_model
 
     t_start = time.perf_counter()
     phase_card(torch)
     phase_build(build)
     errs = phase_parity(torch, ops, ref)
 
-    cfg = get_config("granite-3-8b")
-    model = make_model(cfg)
-    # full width cut to 2 layers, f32: the exact-parity checks' model
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    model2 = make_model(cfg2)
-    small = (cfg2, model2, model2.init(seed=SEED, dtype=torch.float32,
-                                       device="cuda"))
-    t0 = time.perf_counter()
-    params = model.init(seed=SEED, dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    log(f"[model] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"{cfg.param_count() / 1e9:.2f} B params in bf16, random from seed "
-        f"{SEED}, built in {time.perf_counter() - t0:.1f}s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
-    workload = prompt_workload(cfg.vocab_size, N_REQUESTS, seed=SEED,
-                               max_len=MAX_PROMPT, max_new=MAX_NEW)
-    reps, _, shapes = phase_serve(torch, ops, cfg, model, params, workload)
-    phase_paths(torch, cfg, model, params, workload, small)
-    phase_fleet_write(torch, small)
-    control = phase_control(torch, ops, cfg, model, params)
-    launches = control["launches"]
-    rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes,
-                       control)
-    phase_step_times(torch, model, params, reps, workload)
-    phase_oracles(torch, cfg, model, params, control, small)
+    served = {}
+    for name in ("granite-3-8b",) + SSM_ARCHS:
+        served[name] = serve_arch(torch, F, ops, ref, get_config(name))
+        torch.cuda.empty_cache()
+    rows = dict(served["granite-3-8b"]["rows"])
+    rows.update(phase_times_ssm(torch, F, ops, ref, served))
+    launches = dict(served["granite-3-8b"]["launches"])
+    launches["ssd_scan"] = served[SSM_ARCHS[0]]["launches"]["ssd_scan"]
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

@@ -5,8 +5,10 @@ along a leading layer axis -- ``layers/attn/wq`` is (L, d, n_q, hd),
 ``layers/mlp/w_gate`` is (L, d, ff) -- for ``lax.scan``. The port keeps
 one dict per layer. ``params_from_jax`` takes the reference's tree with
 numpy leaves (``jax.tree.map(np.asarray, params)``) and slices it layer by
-layer, so both packages compute with the same weights in the tests. Only
-the dense family's tree (a ``layers`` stack) is mapped.
+layer, so both packages compute with the same weights in the tests. The
+ssm/hybrid tree (``repro.models.ssm_lm``) stacks ``layers/{norm, mamba/*}``
+the same way; its hybrid ``shared_attn`` block is not stacked and maps as
+it is.
 
 The control plane's parameters carry across the same way: ``rl_from_jax``
 maps the reference's DDPG state (actor, critic and their targets: the GCN's
@@ -41,14 +43,26 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """The reference's dense-LM params (numpy leaves) as the port's."""
+    """The reference's LM params (numpy leaves; dense, ssm or hybrid) as the
+    port's: the stacked ``layers`` tree split into one dict per layer, every
+    other entry (``embed``, ``final_norm``, ``lm_head``, the hybrid's
+    unstacked ``shared_attn`` block) mapped leaf by leaf as it is."""
     dev = resolve_device(device)
     if "layers" not in tree:
-        raise ValueError("params_from_jax maps the dense family's stacked "
-                         "'layers' tree; other layouts are not yet ported")
-    n_layers = np.asarray(tree["layers"]["attn_norm"]).shape[0]
-    out = {k: _tensor(v, dev) for k, v in tree.items() if k != "layers"}
+        raise ValueError("params_from_jax maps a stacked 'layers' tree; "
+                         "other layouts are not yet ported")
+    n_layers = np.asarray(next(_leaves(tree["layers"]))).shape[0]
+    out = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items()
+           if k != "layers"}
     out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i], dev))
                      for i in range(n_layers)]
     return out

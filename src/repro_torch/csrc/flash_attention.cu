@@ -24,7 +24,9 @@
 // past S are masked here instead of being asserted away.
 //
 // Grid: (ceil(S / 64) q tiles, Hq, B), heaviest causal q tiles first.
-// Shared memory: ~113 KB at hd 128, set through
+// Head dims 32, 64, 80 (zamba2's shared block) and 128: any multiple of 16
+// fits the 16 x 16 thread grid (hd / 16 output columns a thread).
+// Shared memory: ~113 KB at hd 128, ~79 KB at hd 80, set through
 // cudaFuncAttributeMaxDynamicSharedMemorySize.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -243,6 +245,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, out, B, S, G, qpg, causal, qs, ks, vs, scale, stream);
     case 64: return launch<T, 64>(q, k, v, out, B, S, G, qpg, causal, qs, ks, vs, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, out, B, S, G, qpg, causal, qs, ks, vs, scale, stream);
     case 128: return launch<T, 128>(q, k, v, out, B, S, G, qpg, causal, qs, ks, vs, scale, stream);
     default: return -1;
   }

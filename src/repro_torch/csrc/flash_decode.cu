@@ -131,9 +131,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     long long v_sb, long long v_ss, long long v_sg,
                     float scale) {
   using L = Layout<T, HD>;
-  static_assert(HD % 32 == 0 && kThreads % HD == 0, "unsupported head dim");
-  constexpr int kHStep = kThreads / HD;  // q heads sharing one column d
-  constexpr int kAcc = (kMaxQpg + kHStep - 1) / kHStep;
+  static_assert(HD % 16 == 0, "unsupported head dim");
+  // output element a of a thread is o = tid + a * kThreads: q head o / HD,
+  // column o % HD. When HD divides kThreads (32, 64, 128) all of a
+  // thread's elements share one column, so one V value serves them all;
+  // otherwise (80, zamba2's shared block) each element reads its own.
+  constexpr bool kOneCol = kThreads % HD == 0;
+  constexpr int kHStep = kThreads / HD;  // (kOneCol) heads a column step
+  constexpr int kAcc = (kMaxQpg * HD + kThreads - 1) / kThreads;
   constexpr int kOwn = kMaxQpg / kHGroups;  // q heads a thread scores
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -166,10 +171,16 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_s[tid] = 0.f;
   }
 
-  const int d_own = tid % HD;      // output column of this thread
-  const int h_own = tid / HD;      // first of its output heads
+  const int d_own = tid % HD;      // (kOneCol) output column of this thread
+  const int h_own = tid / HD;      // (kOneCol) first of its output heads
   const int jj = tid % kTile;      // score position of this thread
   const int hg = tid / kTile;      // first of its score heads
+  const auto head_of = [&](int a) {  // q head of output element a
+    return kOneCol ? h_own + a * kHStep : (tid + a * kThreads) / HD;
+  };
+  const auto col_of = [&](int a) {   // column of output element a
+    return kOneCol ? d_own : (tid + a * kThreads) % HD;
+  };
   float acc[kAcc];
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
@@ -238,17 +249,26 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // acc[h] = acc[h] * alpha[h] + sum_t p[h][t] * v[t][d]
 #pragma unroll
     for (int a = 0; a < kAcc; ++a) {
-      const int j = h_own + a * kHStep;
+      const int j = head_of(a);
       if (j < qpg) acc[a] *= a_s[j];
     }
     const int n = min(kTile, last - t0 + 1);
 #pragma unroll 4
     for (int t = 0; t < n; ++t) {
-      const float vv = to_f32(vs[t * HD + d_own]);
+      if constexpr (kOneCol) {
+        const float vv = to_f32(vs[t * HD + d_own]);
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a) {
-        const int j = h_own + a * kHStep;
-        if (j < qpg) acc[a] += p_s[j * kTile + t] * vv;
+        for (int a = 0; a < kAcc; ++a) {
+          const int j = head_of(a);
+          if (j < qpg) acc[a] += p_s[j * kTile + t] * vv;
+        }
+      } else {
+#pragma unroll
+        for (int a = 0; a < kAcc; ++a) {
+          const int j = head_of(a);
+          if (j < qpg)
+            acc[a] += p_s[j * kTile + t] * to_f32(vs[t * HD + col_of(a)]);
+        }
       }
     }
     __syncthreads();  // this stage is refilled two tiles on
@@ -258,10 +278,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ob = out + ((long long)b * G + g) * qpg * HD;
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) {
-    const int j = h_own + a * kHStep;
+    const int j = head_of(a);
     if (j < qpg) {
       const float l = l_s[j];
-      store(ob + j * HD + d_own, acc[a] / (l > 0.f ? l : 1.f));
+      store(ob + j * HD + col_of(a), acc[a] / (l > 0.f ? l : 1.f));
     }
   }
 }
@@ -296,6 +316,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
     case 64: return launch<T, 64>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
     case 128: return launch<T, 128>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
     default: return -1;
   }

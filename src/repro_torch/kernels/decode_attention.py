@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 
 NAME = "flash_decode"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 MAX_QPG = 16
 
 _LongPtr = ctypes.POINTER(ctypes.c_longlong)

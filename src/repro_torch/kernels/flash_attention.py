@@ -18,7 +18,7 @@ from repro_torch.kernels import build
 
 NAME = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 _LongPtr = ctypes.POINTER(ctypes.c_longlong)
 _Strides3 = ctypes.c_longlong * 3

@@ -17,9 +17,10 @@ import math
 import torch
 
 from repro_torch.kernels import decode_attention, flash_attention as fa
-from repro_torch.kernels import gcn_fused, ref
+from repro_torch.kernels import gcn_fused, ref, ssd_scan as ssd
 
-LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "gcn_layer": 0}
+LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "gcn_layer": 0,
+            "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -141,3 +142,43 @@ def gcn_layer(a_hat: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     gcn_fused.launch(a_hat, x3, w, b, out, relu)
     LAUNCHES["gcn_layer"] += 1
     return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, *, chunk: int) -> tuple:
+    """The Mamba-2 SSD scan from a zero state. x: (B, T, H, P)
+    dt-preweighted; a: (B, T, H) log decays (<= 0); Bm, Cm: (B, T, N) (one
+    group); all f32 and contiguous. ``chunk`` is the reference's block
+    length: min(chunk, T) must divide T, as in the TPU kernel. The CUDA
+    kernel blocks its own way (the result is the same up to f32 rounding).
+    Returns (y (B, T, H, P), final state (B, H, P, N)), f32."""
+    T = x.shape[1]
+    chunk = min(chunk, T)
+    if T % chunk:
+        raise ValueError(f"ssd_scan: T {T} is not a multiple of chunk "
+                         f"{chunk}")
+    if not _on_cuda("ssd_scan", x, a, Bm, Cm):
+        return ref.ssd_scan_ref(x, a, Bm, Cm, chunk)
+    for t in (x, a, Bm, Cm):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: f32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("ssd_scan: inputs must be contiguous, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x must be (B, T, H, P), got "
+                         f"{tuple(x.shape)}")
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(a.shape) != (B, T, H) or tuple(Bm.shape) != (B, T, N) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, a "
+                         f"{tuple(a.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)} do not match")
+    if P > ssd.MAX_HEAD_DIM or N > ssd.MAX_STATE:
+        raise ValueError(f"ssd_scan: head dim {P} / state {N} not supported")
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    ssd.launch(x, a, Bm, Cm, y, state)
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

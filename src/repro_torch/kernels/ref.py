@@ -6,6 +6,8 @@ on the CPU, and ``chip_smoke.py`` holds each CUDA kernel to them on the
 card. Both take a ragged S (no tile size assumed), and ``flash_decode_ref``
 takes a per-row ``pos`` (B,) -- the serving slot pool, where every slot sits
 at its own fill depth. ``gcn_layer_ref`` is one layer of the paper's Eq. 6.
+``ssd_scan_ref`` is the Mamba-2 SSD blocked scan over chunks of
+``ssd_chunk_ref``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,44 @@ def flash_attention_ref(q, k, v, *, causal=True):
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgqst,btgh->bsgqh", p, v.float()).to(q.dtype)
+
+
+def ssd_chunk_ref(x, a, Bm, Cm, state):
+    """One SSD chunk of the blocked algorithm, in f32. x: (B, Q, H, P)
+    dt-preweighted inputs; a: (B, Q, H) log decays; Bm, Cm: (B, Q, N) (one
+    group); state: (B, H, P, N) carried in. Returns (y (B, Q, H, P),
+    new state). Each product is a two-operand einsum, so no (B, Q, N, H, P)
+    outer product is ever formed."""
+    x, a, Bm, Cm = x.float(), a.float(), Bm.float(), Cm.float()
+    Q = x.shape[1]
+    a_cum = torch.cumsum(a, dim=1)                           # (B, Q, H)
+    diff = a_cum[:, :, None, :] - a_cum[:, None, :, :]       # (B, Q, K, H)
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    L = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+    scores = torch.einsum("bqn,bkn->bqk", Cm, Bm)
+    y_diag = torch.einsum("bqkh,bkhp->bqhp", L * scores[..., None], x)
+    y_off = torch.einsum("bqn,bhpn->bqhp", Cm, state) \
+        * torch.exp(a_cum)[..., None]
+    decay_out = torch.exp(a_cum[:, -1:, :] - a_cum)          # (B, Q, H)
+    new_state = state * torch.exp(a_cum[:, -1])[:, :, None, None] + \
+        torch.einsum("bkn,bkhp->bhpn", Bm, x * decay_out[..., None])
+    return y_diag + y_off, new_state
+
+
+def ssd_scan_ref(x, a, Bm, Cm, chunk):
+    """The scan from a zero state: ``ssd_chunk_ref`` over consecutive
+    chunks of ``chunk`` steps (the last may be shorter). Returns
+    (y (B, T, H, P) f32, final state (B, H, P, N) f32)."""
+    B, T, H, P = x.shape
+    state = torch.zeros((B, H, P, Bm.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c0 in range(0, T, chunk):
+        y, state = ssd_chunk_ref(x[:, c0:c0 + chunk], a[:, c0:c0 + chunk],
+                                 Bm[:, c0:c0 + chunk], Cm[:, c0:c0 + chunk],
+                                 state)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
 
 
 def gcn_layer_ref(a_hat, x, w, b, *, relu=True):

@@ -35,6 +35,10 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def softplus(x):
+    return F.softplus(x)
+
+
 # ----------------------------------------------------------------------- RoPE
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     """(head_dim//2,) inverse frequencies, computed in numpy float32 exactly

@@ -71,9 +71,49 @@ def _ffn_sublayer(lp, h, cfg):
     return h + mlp_apply(lp["mlp"], x, cfg.activation)
 
 
+def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend):
+    """One attention + MLP block over a prompt (a dense layer, or the
+    hybrid family's shared block), writing its K/V into the per-layer
+    caches (B, S_cache, G, hd) in place."""
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    h = h + attn.prefill_attention(lp["attn"], x, dims, k_cache, v_cache,
+                                   rope_theta=cfg.rope_theta,
+                                   backend=attn_backend)
+    return _ffn_sublayer(lp, h, cfg)
+
+
+def block_decode(lp, h, cfg, dims, k_cache, v_cache, pos, attn_backend,
+                 write_rows=None):
+    """One attention + MLP block for one token per row, writing its K/V at
+    ``pos`` into the per-layer caches in place (rows ``write_rows`` only,
+    when given)."""
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    q, k_new, v_new = attn.project_decode_qkv(lp["attn"], x, dims, pos,
+                                              cfg.rope_theta)
+    kc, vc = attn.write_kv(k_cache, v_cache, k_new, v_new, pos, write_rows)
+    h = h + attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
+                               backend=attn_backend)
+    return _ffn_sublayer(lp, h, cfg)
+
+
 def _logits(params, h):
     head = params.get("lm_head")
     return h @ head if head is not None else h @ params["embed"].T
+
+
+def last_logits(params, h, cfg, lengths):
+    """Final norm and head at each row's last real position of a prompt
+    (``lengths`` (B,), or the last column when None). Returns (logits,
+    pos (B,) int32, each row's next cache index)."""
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    B, S = h.shape[:2]
+    if lengths is None:
+        last = h[:, -1]
+        pos = torch.full((B,), S, dtype=torch.int32, device=h.device)
+    else:
+        last = h[torch.arange(B, device=h.device), (lengths - 1).long()]
+        pos = lengths.to(torch.int32)
+    return _logits(params, last), pos
 
 
 # ---------------------------------------------------------------- serve path
@@ -97,14 +137,8 @@ def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
     (logits (B, V), cache)."""
     h = params["embed"][tokens]                              # (B,1,d)
     for li, lp in enumerate(params["layers"]):
-        x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = attn.project_decode_qkv(lp["attn"], x, dims, pos,
-                                                  cfg.rope_theta)
-        kc, vc = attn.write_kv(cache["k"][li], cache["v"][li], k_new, v_new,
-                               pos, write_rows)
-        h = h + attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
-                                   backend=attn_backend)
-        h = _ffn_sublayer(lp, h, cfg)
+        h = block_decode(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
+                         pos, attn_backend, write_rows)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)[:, 0], cache
 
@@ -120,24 +154,12 @@ def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
     positions exact under trailing pads; pad K/V beyond ``pos`` is masked by
     the decode path until overwritten."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B = tokens.shape[0]
     h = params["embed"][tokens]
     cache = lm_init_cache(cfg, dims, B, cache_len, cache_dtype,
                           device=h.device)
     for li, lp in enumerate(params["layers"]):
-        x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        h = h + attn.prefill_attention(lp["attn"], x, dims, cache["k"][li],
-                                       cache["v"][li],
-                                       rope_theta=cfg.rope_theta,
-                                       backend=attn_backend)
-        h = _ffn_sublayer(lp, h, cfg)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    lengths = batch.get("lengths")
-    if lengths is None:
-        last = h[:, -1]
-        pos = torch.full((B,), S, dtype=torch.int32, device=h.device)
-    else:
-        idx = (lengths - 1).long()
-        last = h[torch.arange(B, device=h.device), idx]
-        pos = lengths.to(torch.int32)
-    return _logits(params, last), cache, pos
+        h = block_prefill(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
+                          attn_backend)
+    logits, pos = last_logits(params, h, cfg, batch.get("lengths"))
+    return logits, cache, pos

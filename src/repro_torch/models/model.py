@@ -6,7 +6,8 @@
     logits, state, pos = model.prefill(params, batch, cache_len=1024)
     logits, state = model.decode(params, state, tokens, pos)
 
-Only the dense family is ported; the others raise ``ValueError``.
+The dense, ssm and hybrid families are ported; the others raise
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -16,10 +17,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, ssm_lm
 from repro_torch.models.dims import PaddedDims, padded_dims
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+# serve-state leaves with a sequence axis (axis -3: the attention caches);
+# the others (SSM and conv state) are per row, whatever the prompt length
+SEQ_LEAVES = ("k", "v", "attn_k", "attn_v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,30 +36,42 @@ class Model:
             raise ValueError(f"family {self.cfg.family!r} "
                              f"({self.cfg.name}) is not yet ported")
 
+    @property
+    def _dense(self) -> bool:
+        return self.cfg.family == "dense"
+
     def init(self, seed: int = 0, dtype=torch.float32, device="cuda"):
         """Random weights from a ``torch.Generator`` seeded with ``seed``
         on ``device``."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        return lm.init_lm(gen, self.cfg, self.dims, dtype)
+        init = lm.init_lm if self._dense else ssm_lm.init_ssm_lm
+        return init(gen, self.cfg, self.dims, dtype)
 
     def init_serve_state(self, batch: int, cache_len: int,
                          cache_dtype=torch.bfloat16, device="cuda"):
-        return lm.lm_init_cache(self.cfg, self.dims, batch, cache_len,
-                                cache_dtype, resolve_device(device))
+        init = lm.lm_init_cache if self._dense else ssm_lm.ssm_init_state
+        return init(self.cfg, self.dims, batch, cache_len, cache_dtype,
+                    resolve_device(device))
 
     def prefill(self, params, batch, cache_len: int,
                 cache_dtype=torch.bfloat16, attn_backend: str = "kernel"):
-        return lm.lm_prefill(params, batch, self.cfg, self.dims,
-                             cache_len=cache_len, cache_dtype=cache_dtype,
-                             attn_backend=attn_backend)
+        """``attn_backend="kernel"`` runs the prompt through the kernels
+        (flash-attention; the SSD scan for ssm/hybrid); ``"einsum"`` through
+        the reference's dense paths."""
+        prefill = lm.lm_prefill if self._dense else ssm_lm.ssm_prefill
+        return prefill(params, batch, self.cfg, self.dims,
+                       cache_len=cache_len, cache_dtype=cache_dtype,
+                       attn_backend=attn_backend)
 
     def decode(self, params, state, tokens, pos, attn_backend: str = "kernel",
                write_rows=None):
-        """``attn_backend="kernel"`` decodes through the flash-decode kernel;
-        ``"einsum"`` keeps the reference's dense path. ``write_rows`` limits
-        the cache write to those rows (see ``lm.lm_decode``)."""
-        return lm.lm_decode(params, state, tokens, pos, self.cfg, self.dims,
-                            attn_backend=attn_backend, write_rows=write_rows)
+        """``attn_backend="kernel"`` decodes attention through the
+        flash-decode kernel; ``"einsum"`` keeps the reference's dense path.
+        ``write_rows`` limits the state write to those rows (see
+        ``lm.lm_decode``, ``ssm_lm.ssm_decode``)."""
+        decode = lm.lm_decode if self._dense else ssm_lm.ssm_decode
+        return decode(params, state, tokens, pos, self.cfg, self.dims,
+                      attn_backend=attn_backend, write_rows=write_rows)
 
 
 def make_model(cfg: ArchConfig, tp: int = 1) -> Model:

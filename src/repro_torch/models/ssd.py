@@ -1,0 +1,271 @@
+"""Mamba-2 (SSD -- state-space duality) block: chunked scan + O(1) decode
+(the port of ``repro.models.ssd``).
+
+Recurrence (per head h, state (P, N)):
+    s_t = exp(dt_t * A_h) * s_{t-1} + dt_t * B_t (x) x_t
+    y_t = C_t . s_t + D_h * x_t
+
+Two backends compute the prefill scan:
+
+  * ``"kernel"`` (default) -- ``ops.ssd_scan``: the hand-written CUDA
+    kernel on a CUDA tensor, its plain version on a CPU tensor;
+  * ``"einsum"`` -- ``ssd_chunked``, the reference's blocked scan written
+    as dense tensor code, kept as the oracle.
+
+Decode (``mamba2_decode``) is one recurrence step in plain PyTorch on both.
+It updates the carried state in place (the reference returns a new state
+and relies on jit buffer donation; eagerly that would copy every layer's
+state on every step).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import he_init, rms_norm, silu, softplus
+
+
+# --------------------------------------------------------------------- params
+def init_mamba2(gen: torch.Generator, d_model: int, d_inner: int,
+                n_heads: int, head_dim: int, d_state: int, n_groups: int,
+                conv_width: int, dtype) -> dict:
+    """Random weights from ``gen``; A_log and dt_bias are the reference's
+    own numpy draws (mamba2's default init: A in [1, 16], dt in
+    [1e-3, 1e-1])."""
+    dev = gen.device
+    d_in_proj = 2 * d_inner + 2 * n_groups * d_state + n_heads  # z, xBC, dt
+    conv_ch = d_inner + 2 * n_groups * d_state
+    a = np.random.RandomState(0).uniform(1.0, 16.0, (n_heads,))
+    dt = np.exp(np.random.RandomState(1).uniform(np.log(1e-3), np.log(1e-1),
+                                                 (n_heads,)))
+    dt_bias = dt + np.log(-np.expm1(-dt))  # inverse softplus
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "in_proj": he_init(gen, (d_model, d_in_proj), dtype, d_model),
+        "conv_w": he_init(gen, (conv_width, conv_ch), dtype, conv_width),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "out_proj": he_init(gen, (d_inner, d_model), dtype, d_inner),
+        "A_log": torch.tensor(np.log(a), **f32),
+        "D": torch.ones((n_heads,), **f32),
+        "dt_bias": torch.tensor(dt_bias, **f32),
+        "norm_scale": torch.zeros((d_inner,), **f32),
+    }
+
+
+# ----------------------------------------------------------------- core math
+def segsum_exp(a):
+    """a: (..., Q) log decays -> L (..., Q, Q) with L[q, k] =
+    exp(sum_{k+1..q} a), lower-triangular (diagonal 1)."""
+    a_cum = torch.cumsum(a, dim=-1)
+    diff = a_cum[..., :, None] - a_cum[..., None, :]
+    Q = a.shape[-1]
+    tri = torch.ones(Q, Q, dtype=torch.bool, device=a.device).tril()
+    return torch.where(tri, torch.exp(diff), 0.0)
+
+
+def _per_head(t, rep: int, dim: int):
+    """Repeat each B/C group ``rep`` times along ``dim`` (groups -> heads),
+    as ``jnp.repeat`` does, by a broadcast: no count goes to the host."""
+    shape = list(t.shape)
+    t = t.unsqueeze(dim + 1).expand(*shape[:dim + 1], rep, *shape[dim + 1:])
+    return t.reshape(*shape[:dim], shape[dim] * rep, *shape[dim + 1:])
+
+
+def _pad_steps(t, pad: int):
+    """Zero-pad axis 1 (time) of ``t`` by ``pad`` steps at the end."""
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
+    """The reference's blocked SSD scan from a zero state. x: (B, T, H, P)
+    inputs (not yet dt-weighted); dt: (B, T, H) step sizes; A: (H,)
+    negative rates; Bm, Cm: (B, T, G, N) with H % G == 0. Returns
+    (y (B, T, H, P) f32, final state (B, H, P, N) f32)."""
+    Bsz, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    T_orig = T
+    if T % chunk:
+        # padded steps have dt = 0 -> decay 1 and zero input: inert
+        pad = chunk - T % chunk
+        x, dt, Bm, Cm = (_pad_steps(t, pad) for t in (x, dt, Bm, Cm))
+        T += pad
+    nc, rep = T // chunk, H // G
+    a = (dt * A[None, None, :]).float()                     # (B, T, H)
+    xdt = (x * dt[..., None]).float()
+    Bf, Cf = Bm.float(), Cm.float()
+    state = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        xc, ac = xdt[:, sl], a[:, sl]
+        bh = _per_head(Bf[:, sl], rep, 2)                    # (B, Q, H, N)
+        ch = _per_head(Cf[:, sl], rep, 2)
+        a_cum = torch.cumsum(ac, dim=1)                      # (B, Q, H)
+        L = segsum_exp(ac.transpose(1, 2))                   # (B, H, Q, Q)
+        scores = torch.einsum("bqhn,bkhn->bhqk", ch, bh)
+        y_diag = torch.einsum("bhqk,bkhp->bqhp", L * scores, xc)
+        y_off = torch.einsum("bqhn,bhpn->bqhp", ch, state) \
+            * torch.exp(a_cum)[..., None]
+        decay_out = torch.exp(a_cum[:, -1:, :] - a_cum)      # (B, Q, H)
+        state = state * torch.exp(a_cum[:, -1])[:, :, None, None] + \
+            torch.einsum("bkhn,bkhp->bhpn", bh, xc * decay_out[..., None])
+        ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1)[:, :T_orig], state
+
+
+def ssd_decode_step(state, x, dt, A, Bm, Cm, rows=None):
+    """One token. state: (B, H, P, N) f32, updated in place (only rows
+    ``rows``, an int index tensor, when given: the others keep their state
+    bit for bit); x: (B, H, P), dt: (B, H), Bm/Cm: (B, G, N). Returns
+    (y (B, H, P) f32, state)."""
+    H = x.shape[1]
+    rep = H // Bm.shape[1]
+    bh = _per_head(Bm, rep, 1).float()
+    ch = _per_head(Cm, rep, 1).float()
+    decay = torch.exp((dt * A[None, :]).float())[:, :, None, None]
+    inp = (x * dt[..., None]).float()[..., None] * bh[:, :, None, :]
+    if rows is None:
+        new = state.mul_(decay).add_(inp)
+    else:
+        new = state * decay + inp
+        state[rows] = new[rows]
+    return torch.einsum("bhpn,bhn->bhp", new, ch), state
+
+
+# -------------------------------------------------------------- full block
+def causal_conv(x, w, b):
+    """Depthwise causal conv of a fresh sequence (zero left context). x:
+    (B, T, C); w: (W, C)."""
+    W, T = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = xp[:, 0:T] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + T] * w[i]
+    return out + b
+
+
+def _split_proj(proj, cfg):
+    d_inner, N, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
+    return (proj[..., :d_inner], proj[..., d_inner:2 * d_inner + 2 * G * N],
+            proj[..., -cfg.ssm_heads:])
+
+
+def _gate_out(params, y, xh, z, cfg, dtype):
+    """Skip term, gate, norm and out-projection (torch on every backend)."""
+    y = y + xh.float() * params["D"][:, None]
+    y = y.reshape(*z.shape).to(dtype)
+    return rms_norm(y * silu(z), params["norm_scale"], cfg.norm_eps) \
+        @ params["out_proj"]
+
+
+def _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk: int):
+    """The scan through ``ops.ssd_scan``: dt-weighted x and the log decays
+    in f32, B/C of the single group, T zero-padded (dt = 0, inert) to a
+    multiple of min(chunk, T) as the TPU kernel asks."""
+    if Bm.shape[2] != 1:
+        raise NotImplementedError(f"ssd_scan with {Bm.shape[2]} B/C groups "
+                                  "is not yet ported (one group only)")
+    T = xh.shape[1]
+    q = min(chunk, T)
+    pad = -T % q
+    a = (dt * A[None, None, :]).float()
+    xdt = (xh * dt[..., None]).float()
+    Bs, Cs = Bm[:, :, 0].float(), Cm[:, :, 0].float()
+    if pad:
+        xdt, a, Bs, Cs = (_pad_steps(t, pad) for t in (xdt, a, Bs, Cs))
+    y, state = ops.ssd_scan(xdt.contiguous(), a.contiguous(),
+                            Bs.contiguous(), Cs.contiguous(), chunk=q)
+    return y[:, :T], state
+
+
+def mamba2_forward(params, x, cfg, *, return_state=False, lengths=None,
+                   attn_backend: str = "kernel"):
+    """Full-sequence Mamba-2 block from a zero state. x: (B, T, d_model).
+
+    ``lengths`` (B,) marks the true length of each right-padded row:
+    padded steps get dt = 0 (decay 1, zero input: exactly inert), and the
+    decode conv state is gathered from the last ``conv_width - 1`` real
+    positions, so the returned state matches an unpadded forward. Both are
+    device operations; no host value is read back."""
+    N, G = cfg.ssm_state, cfg.ssm_groups
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    Bsz, T = x.shape[:2]
+    z, xBC_raw, dt_raw = _split_proj(x @ params["in_proj"], cfg)
+    xBC = silu(causal_conv(xBC_raw, params["conv_w"], params["conv_b"]))
+    d_inner = cfg.d_inner
+    xs = xBC[..., :d_inner]
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(Bsz, T, G, N)
+    Cm = xBC[..., d_inner + G * N:].reshape(Bsz, T, G, N)
+    dt = softplus(dt_raw.float() + params["dt_bias"])
+    if lengths is not None:
+        tpos = torch.arange(T, dtype=torch.int32, device=x.device)
+        dt = torch.where(tpos[None, :, None] < lengths[:, None, None], dt,
+                         0.0)
+    A = -torch.exp(params["A_log"])
+    xh = xs.reshape(Bsz, T, H, P)
+    if attn_backend == "kernel":
+        y, state = _ssd_kernel_path(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    elif attn_backend == "einsum":
+        y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+    else:
+        raise ValueError(f"unknown attention backend {attn_backend!r}")
+    out = _gate_out(params, y, xh, z, cfg, x.dtype)
+    if not return_state:
+        return out
+    W = cfg.ssm_conv_width
+    if lengths is None:
+        conv_tail = xBC_raw[:, -(W - 1):]       # raw window for decode conv
+        if conv_tail.shape[1] < W - 1:          # prompt shorter than window
+            conv_tail = F.pad(conv_tail,
+                              (0, 0, W - 1 - conv_tail.shape[1], 0))
+    else:
+        offs = torch.arange(-(W - 1), 0, dtype=torch.int32, device=x.device)
+        idx = lengths[:, None].to(torch.int32) + offs[None, :]   # (B, W-1)
+        gathered = torch.gather(
+            xBC_raw, 1, idx.clamp(min=0).long()[:, :, None].expand(
+                -1, -1, xBC_raw.shape[-1]))
+        conv_tail = torch.where((idx >= 0)[:, :, None], gathered, 0.0)
+    return out, {"ssm": state, "conv": conv_tail}
+
+
+def mamba2_init_state(batch: int, cfg, dtype=torch.float32,
+                      device="cuda") -> dict:
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {
+        "ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                            cfg.ssm_state), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+                            dtype=dtype, device=device),
+    }
+
+
+def mamba2_decode(params, x, cfg, state, rows=None):
+    """One-token decode. x: (B, 1, d_model); state: {"ssm", "conv"}, both
+    updated in place (only rows ``rows``, an int index tensor, when given:
+    the other rows keep theirs bit for bit). Returns (out (B, 1, d_model),
+    state)."""
+    N, G = cfg.ssm_state, cfg.ssm_groups
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xBC_new, dt_raw = _split_proj(x[:, 0] @ params["in_proj"], cfg)
+    conv = state["conv"]
+    window = torch.cat([conv, xBC_new[:, None].to(conv.dtype)], dim=1)
+    conv_out = (window * params["conv_w"]).sum(dim=1) + params["conv_b"]
+    xBC = silu(conv_out)
+    if rows is None:
+        conv.copy_(window[:, 1:])
+    else:
+        conv[rows] = window[rows, 1:]
+    d_inner = cfg.d_inner
+    xs = xBC[..., :d_inner]
+    Bm = xBC[..., d_inner:d_inner + G * N].reshape(-1, G, N)
+    Cm = xBC[..., d_inner + G * N:].reshape(-1, G, N)
+    dt = softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    xh = xs.reshape(-1, H, P)
+    y, _ = ssd_decode_step(state["ssm"], xh, dt, A, Bm, Cm, rows)
+    out = _gate_out(params, y, xh, z, cfg, x.dtype)
+    return out[:, None], state

@@ -1,0 +1,150 @@
+"""Mamba-2 LM (ssm family) and the Zamba-2-style hybrid (a Mamba-2 backbone
+with one shared attention block invoked every ``attn_every`` layers, each
+invocation with its own KV cache): the port of ``repro.models.ssm_lm``'s
+serving half.
+
+Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head`` unless
+embeddings are tied, ``layers`` (a list of ``{"norm", "mamba"}`` dicts; the
+reference stacks them for ``lax.scan``) and, for the hybrid, one unstacked
+``shared_attn`` block (``attn_norm``, ``attn``, ``ffn_norm``, ``mlp``: a
+dense layer's keys).
+
+The serve state is a dict: ``ssm`` (L, B, H, P, N) f32, ``conv``
+(L, B, W-1, C) in the cache dtype and, for the hybrid, ``attn_k`` /
+``attn_v`` (n_inv, B, S, G, hd). Prefill and decode write it in place, one
+layer view at a time (the reference updates it functionally and relies on
+jit buffer donation: at full width mamba2's SSM state is ~100 MB per row).
+Decode is O(1) in context for the mamba layers.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.dims import PaddedDims
+from repro_torch.models.layers import he_init, rms_norm
+from repro_torch.models.lm import (block_decode, block_prefill, init_mlp,
+                                   last_logits, _logits)
+from repro_torch.models.ssd import (init_mamba2, mamba2_decode,
+                                    mamba2_forward, mamba2_init_state)
+
+
+def n_invocations(cfg: ArchConfig) -> int:
+    """How often the hybrid's shared attention block runs in one pass."""
+    if cfg.family != "hybrid" or not cfg.attn_every:
+        return 0
+    return (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
+
+
+def _invocation(cfg: ArchConfig, li: int):
+    """The shared block's invocation index before layer ``li``, or None."""
+    if cfg.family == "hybrid" and li % cfg.attn_every == 0:
+        return li // cfg.attn_every
+    return None
+
+
+def init_ssm_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
+                dtype=torch.float32) -> dict:
+    """Random weights from ``gen``, on ``gen``'s device."""
+    dev = gen.device
+    zeros = dict(dtype=torch.float32, device=dev)
+    params = {
+        "embed": (torch.randn((dims.vocab, cfg.d_model), generator=gen,
+                              device=dev) * 0.02).to(dtype),
+        "final_norm": torch.zeros((cfg.d_model,), **zeros),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = he_init(gen, (cfg.d_model, dims.vocab), dtype,
+                                    cfg.d_model)
+    params["layers"] = [
+        {"norm": torch.zeros((cfg.d_model,), **zeros),
+         "mamba": init_mamba2(gen, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+                              cfg.ssm_head_dim, cfg.ssm_state,
+                              cfg.ssm_groups, cfg.ssm_conv_width, dtype)}
+        for _ in range(cfg.num_layers)]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {
+            "attn_norm": torch.zeros((cfg.d_model,), **zeros),
+            "attn": attn.init_attention(gen, cfg.d_model, dims,
+                                        cfg.resolved_head_dim, False, dtype),
+            "ffn_norm": torch.zeros((cfg.d_model,), **zeros),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            dtype),
+        }
+    return params
+
+
+def ssm_init_state(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cuda") -> dict:
+    if isinstance(dtype, str):
+        raise ValueError(f"cache dtype {dtype!r} needs an attention KV pool; "
+                         f"family={cfg.family!r} keeps SSM/conv state in "
+                         "float")
+    st = mamba2_init_state(batch, cfg, dtype, device)
+    state = {n: t.new_zeros((cfg.num_layers,) + tuple(t.shape))
+             for n, t in st.items()}
+    if cfg.family == "hybrid":
+        shape = (n_invocations(cfg), batch, max_len, dims.n_kv,
+                 cfg.resolved_head_dim)
+        state["attn_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        state["attn_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return state
+
+
+def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
+                cache_len: int, cache_dtype=torch.bfloat16,
+                attn_backend: str = "kernel"):
+    """Prefill: returns (last-token logits, serve state, pos (B,) int32).
+
+    ``batch["lengths"]`` (B,) enables right-padded bucketed prompts: padded
+    steps are exactly inert for the SSM state (dt = 0), the conv state is
+    gathered from the last real positions, and logits come from
+    ``lengths - 1``. ``attn_backend="kernel"`` runs every layer's scan
+    through ``ops.ssd_scan`` and the shared block through
+    ``ops.flash_attention``; ``"einsum"`` runs the reference's dense
+    paths."""
+    tokens = batch["tokens"]
+    lengths = batch.get("lengths")
+    h = params["embed"][tokens]
+    state = ssm_init_state(cfg, dims, tokens.shape[0], cache_len,
+                           cache_dtype, device=h.device)
+    for li, lp in enumerate(params["layers"]):
+        inv = _invocation(cfg, li)
+        if inv is not None:
+            h = block_prefill(params["shared_attn"], h, cfg, dims,
+                              state["attn_k"][inv], state["attn_v"][inv],
+                              attn_backend)
+        y, st = mamba2_forward(lp["mamba"],
+                               rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
+                               return_state=True, lengths=lengths,
+                               attn_backend=attn_backend)
+        h = h + y
+        state["ssm"][li].copy_(st["ssm"])
+        state["conv"][li].copy_(st["conv"])
+    logits, pos = last_logits(params, h, cfg, lengths)
+    return logits, state, pos
+
+
+def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
+               dims: PaddedDims, *, attn_backend: str = "kernel",
+               write_rows=None):
+    """One decode step. tokens: (B, 1) int; pos: (B,) int32, each row's
+    cache write index (the hybrid's attention). Updates ``state`` in place
+    -- only rows ``write_rows`` (an int index tensor) when given: the
+    fleet's non-stepping rows keep their SSM, conv and attention state bit
+    for bit -- and returns (logits (B, V), state)."""
+    h = params["embed"][tokens]                              # (B, 1, d)
+    for li, lp in enumerate(params["layers"]):
+        inv = _invocation(cfg, li)
+        if inv is not None:
+            h = block_decode(params["shared_attn"], h, cfg, dims,
+                             state["attn_k"][inv], state["attn_v"][inv], pos,
+                             attn_backend, write_rows)
+        y, _ = mamba2_decode(lp["mamba"],
+                             rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
+                             {"ssm": state["ssm"][li],
+                              "conv": state["conv"][li]}, rows=write_rows)
+        h = h + y
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(params, h)[:, 0], state

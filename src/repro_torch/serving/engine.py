@@ -1,5 +1,5 @@
 """Request-level serving engine: continuous batching over real model forwards
-(the port of ``repro.serving.engine``, dense family).
+(the port of ``repro.serving.engine``, dense, ssm and hybrid families).
 
 ``ReplicaEngine`` runs one model replica: a slot-based KV pool on the
 device, per-slot positions (the vector-``pos`` decode path),
@@ -7,8 +7,9 @@ admit-on-free-slot, greedy sampling, retire-on-EOS/max-tokens. Prompts are
 right-padded to power-of-two length buckets and admitted in batched
 prefill calls, so the prefill sees O(log max_seq * log max_batch) distinct
 shapes in total (``prefill_traces`` counts them -- the analogue of the
-reference's jit retrace count). Padded prefill is exact for the dense
-family: causal attention masks trailing pads. Prompts longer than
+reference's jit retrace count). Padded prefill is exact for the dense,
+ssm and hybrid families: causal attention masks trailing pads, and padded
+steps get dt = 0 in the SSM scan (decay 1, no input). Prompts longer than
 ``max_seq - 1`` are truncated to their last ``max_seq - 1`` tokens at
 admission (the KV pool can never overflow).
 
@@ -23,21 +24,25 @@ engine; the device cache lives either on the engine (standalone) or in a
 max_batch, max_seq, cache_dtype, attn_backend, device)``. The reference
 stacks the members' caches on a leading fleet axis and ``vmap``s one
 replica's decode over it. Here the slab is *flat*: member f's slot s is
-row ``f * max_batch + s`` of one ``(L, cap * max_batch, S, G, hd)`` cache,
-so one ``lm_decode`` over ``cap * max_batch`` rows advances every member
-at once -- one ``flash_decode`` launch per layer for the whole fleet. The
-greedy argmax and the retire rule (max-tokens / EOS / cache-full) run on
-the device and come back as one small ``(cap, max_batch)`` pair. Members
+row ``f * max_batch + s`` of every leaf of one serve state -- an
+``(L, cap * max_batch, S, G, hd)`` cache for dense, the ``(L, cap *
+max_batch, H, P, N)`` SSM state and its conv window for ssm/hybrid -- so
+one ``model.decode`` over ``cap * max_batch`` rows advances every member
+at once (one ``flash_decode`` launch per attention layer for the whole
+fleet). The greedy argmax and the retire rule (max-tokens / EOS /
+cache-full) run on the device and come back as one small
+``(cap, max_batch)`` pair. Members
 of a group admit together: rows of one pow2 length bucket across all
 members flatten into ONE prefill per distinct bucket shape, which writes
-each row's K/V straight into its slab row.
+each row's state straight into its slab row (the attention caches over
+the bucket's positions, the SSM and conv states whole).
 
 The slab is preallocated and updated in place -- the stand-in for the
 reference's jit buffer donation. Capacity grows in pow2 steps (a grow
 allocates a new slab and copies the live rows once); a removed member's
 rows are backfilled with the last member's rows in one copy per cache.
 Rows that do not step in a round (heterogeneous speeds) are excluded from
-the cache write by index, so they keep their K/V bit for bit; the
+the state write by index, so they keep their state bit for bit; the
 prefill scatter writes only the real rows of a pow2-padded batch (the
 reference drops the pad rows' out-of-range indices; here they are never
 formed).
@@ -66,7 +71,7 @@ first.
 Not yet ported, and raising when asked for: chunked prefill
 (``chunk_len > 0``), the int8 KV codec, fused decode windows
 (``decode_block > 1``), fleet-mesh sharding (``mesh``) and families other
-than dense.
+than dense, ssm and hybrid.
 """
 from __future__ import annotations
 
@@ -80,12 +85,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import host_to_device, resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import SEQ_LEAVES, Model
 from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
 
 # families whose prefill accepts per-row ``lengths`` (bucketed prompts are
-# exact); the reference also buckets ssm/hybrid, which are not yet ported
-_BUCKET_FAMILIES = ("dense",)
+# exact)
+_BUCKET_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
@@ -109,6 +114,19 @@ def get_prefill_shapes(model: Model, max_seq: int, cache_dtype,
         cache = {}
         object.__setattr__(model, "_prefill_shapes", cache)  # frozen
     return cache.setdefault((max_seq, str(cache_dtype), attn_backend), set())
+
+
+def _write_state(state: dict, rows, small: dict, src) -> None:
+    """Write prefill state rows ``src`` of ``small`` into rows ``rows``
+    (axis 1: an int or an index tensor) of the serve state ``state``, in
+    place. The attention caches (``SEQ_LEAVES``) take the prompt's
+    positions only; the SSM and conv states are written whole."""
+    for name, big in state.items():
+        v = small[name][:, src]
+        if name in SEQ_LEAVES:
+            big[:, rows, :v.shape[-3]] = v
+        else:
+            big[:, rows] = v
 
 
 def _timed_get(owner, tensors) -> list:
@@ -472,9 +490,7 @@ class ReplicaEngine:
             self._fleet.write_slot(self._fleet_row, slot, small_state, row,
                                    req=req, prompt_len=prompt_len)
         else:
-            for name, big in self.cache.items():
-                small = small_state[name]
-                big[:, slot, :small.shape[2]].copy_(small[:, row])
+            _write_state(self.cache, slot, small_state, row)
         self.pos[slot] = prompt_len
         self.last_tok[slot] = first_tok
         self.slots[slot] = req
@@ -829,10 +845,7 @@ class FleetGroup:
         ``_dispatch_fleet_prefill`` instead). In async mode the slot also
         registers in the device operands (``req``'s first token was already
         fetched by that path)."""
-        r = f * self.max_batch + slot
-        for name, s in self.slab.items():
-            small = small_state[name]
-            s[:, r, :small.shape[2]].copy_(small[:, row])
+        _write_state(self.slab, f * self.max_batch + slot, small_state, row)
         if self.async_mode and req is not None:
             o = self.ops
             o["toks"][f, slot] = int(req.output[-1])
@@ -897,8 +910,7 @@ class FleetGroup:
             self.params, {"tokens": toks, "lengths": lens}, cache_len=sb,
             cache_dtype=self.cache_dtype, attn_backend=self.attn_backend)
         first = torch.argmax(logits, dim=-1).to(torch.int32)
-        for name, s in self.slab.items():
-            s[:, idx, :sb] = small[name][:, :n]
+        _write_state(self.slab, idx, small, slice(0, n))
         self.prefill_dispatches += 1
         self._shapes.add(("afleet_prefill" if self.async_mode
                           else "fleet_prefill", K, sb, self.cap, B))
