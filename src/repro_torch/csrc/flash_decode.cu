@@ -1,5 +1,5 @@
 // Flash-decode for Hopper (sm_90a): single-token GQA attention of one new
-// query per row over that row's filled KV cache.
+// query per row over that row's filled KV cache, split along the cache.
 //
 // Replaces the Pallas TPU kernel `_decode_kernel` / `flash_decode` in
 // src/repro/kernels/decode_attention.py. Row b attends cache positions
@@ -18,17 +18,37 @@
 // 16-byte `cp.async` copies, double-buffered so the next tile is in flight
 // while this one is used; each thread then dots its own position against
 // its q heads from shared memory, so no score waits on a chain of warp
-// shuffles.
+// shuffles. The q heads a block serves are a compile-time bound (1, 4 or
+// 16 by the group size), so no thread carries accumulators for heads the
+// model does not have.
+//
+// Split-KV: the time of one block walking a long row in series, not the
+// bytes, limited the step (a pool of 8 rows x 8 groups is 64 blocks on 132
+// SMs). So each row's filled positions are cut into chunks of a FIXED
+// length, kChunk = 128 (two tiles), and each chunk is one block: the grid
+// is B * G * ceil(S / kChunk), S the allocated cache length, which the host
+// knows; the host never reads pos. A block whose chunk starts past pos[b]
+// exits at once. The length does not follow the batch, so a row's result
+// is the same alone or in any batch (the serving checks rely on it). A row
+// with one chunk (pos[b] < 128) writes its output directly as acc / l. A
+// row with more leaves per chunk a partial (running max m, sum l and the
+// unnormalised output acc, f32) in the scratch the wrapper allocates, and
+// the last of its blocks to finish -- found by a per-(b, g) ticket counter
+// -- merges them by their log-sum-exp, in chunk order, so the result does
+// not depend on which block came last. The merge runs in the same launch,
+// not in a second kernel: a decode step is host-bound and latency-bound,
+// and a second launch would add its own latency to every attention layer
+// of every step, also where no row has a second chunk (the control loop's
+// slab). The ticket counters live in a buffer the wrapper keeps per
+// device, zeroed once; the merging block resets its counter to 0, so every
+// launch finds them zero.
 //
 // Layout: q (B, G, qpg, hd) by strides, caches (B, S, G, hd) by strides
 // with 16-byte aligned rows, pos (B,) int32 on the device (read by the
-// block itself: no host sync), out (B, G, qpg, hd) contiguous.
-// Accumulation (max, sum, output) is f32 whatever the input dtype.
-//
-// Grid: one block per (b, g). At granite-3-8b with 8 slots that is
-// 8 * 8 = 64 blocks on 132 SMs, so half the card idles; a split-KV second
-// pass (several blocks per (b, g), merged by their log-sum-exp) is the
-// planned next step for speed.
+// block itself: no host sync), out (B, G, qpg, hd) contiguous, partials
+// f32 [B * G * n_chunks][qpg * hd] then [B * G * n_chunks][qpg][m, l],
+// tickets int32 [B * G]. Accumulation (max, sum, output) is f32 whatever
+// the input dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -38,6 +58,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;    // KV positions per tile (2 per lane in softmax)
+constexpr int kChunk = 128;  // KV positions per block: fixed, see above
 constexpr int kMaxQpg = 16;  // q heads per kv group served by one block
 constexpr int kHGroups = kThreads / kTile;  // threads sharing one position
 
@@ -93,14 +114,14 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int QMAX>
 struct Layout {
   static constexpr int kVec = 16 / sizeof(T);      // elements per 16 B
   static constexpr int kKRow = HD + kVec;          // padded K row
   static constexpr int kStage = kTile * kKRow + kTile * HD;  // K + V
   static constexpr size_t bytes =
       2 * kStage * sizeof(T) +
-      sizeof(float) * (kMaxQpg * HD + kMaxQpg * kTile + 3 * kMaxQpg);
+      sizeof(float) * (QMAX * HD + QMAX * kTile + 3 * QMAX);
 };
 
 // rows t0 .. t0+kTile-1 of K and V into one stage; rows past `last` are
@@ -110,27 +131,30 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
                                           const T* vb, long long k_ss,
                                           long long v_ss, int t0, int last,
                                           int tid) {
-  using L = Layout<T, HD>;
-  constexpr int kPerRow = HD / L::kVec;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kKRow = HD + kVec;
+  constexpr int kPerRow = HD / kVec;
   for (int i = tid; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * L::kVec;
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
     const bool ok = t0 + r <= last;
     const long long t = ok ? t0 + r : 0;  // a valid address either way
-    cp_async16(ks + r * L::kKRow + c, kb + t * k_ss + c, ok);
+    cp_async16(ks + r * kKRow + c, kb + t * k_ss + c, ok);
     cp_async16(vs + r * HD + c, vb + t * v_ss + c, ok);
   }
 }
 
-template <typename T, int HD>
+// Grid: B * G * n_chunks blocks, chunk index fastest.
+template <typename T, int HD, int QMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ pos,
-                    T* __restrict__ out, int G, int qpg, int S,
-                    long long q_sb, long long q_sg, long long q_sj,
-                    long long k_sb, long long k_ss, long long k_sg,
-                    long long v_sb, long long v_ss, long long v_sg,
-                    float scale) {
-  using L = Layout<T, HD>;
+                    T* __restrict__ out, float* __restrict__ part,
+                    int* __restrict__ tickets, int G, int qpg, int S,
+                    int n_chunks, long long q_sb, long long q_sg,
+                    long long q_sj, long long k_sb, long long k_ss,
+                    long long k_sg, long long v_sb, long long v_ss,
+                    long long v_sg, float scale) {
+  using L = Layout<T, HD, QMAX>;
   static_assert(HD % 16 == 0, "unsupported head dim");
   // output element a of a thread is o = tid + a * kThreads: q head o / HD,
   // column o % HD. When HD divides kThreads (32, 64, 128) all of a
@@ -138,29 +162,34 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // otherwise (80, zamba2's shared block) each element reads its own.
   constexpr bool kOneCol = kThreads % HD == 0;
   constexpr int kHStep = kThreads / HD;  // (kOneCol) heads a column step
-  constexpr int kAcc = (kMaxQpg * HD + kThreads - 1) / kThreads;
-  constexpr int kOwn = kMaxQpg / kHGroups;  // q heads a thread scores
+  constexpr int kAcc = (QMAX * HD + kThreads - 1) / kThreads;
+  constexpr int kOwn = (QMAX + kHGroups - 1) / kHGroups;  // scored heads
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* stage0 = reinterpret_cast<T*>(smem);
   float* q_s = reinterpret_cast<float*>(stage0 + 2 * L::kStage);  // [qpg][HD]
-  float* p_s = q_s + kMaxQpg * HD;                           // [qpg][kTile]
-  float* m_s = p_s + kMaxQpg * kTile;
-  float* l_s = m_s + kMaxQpg;
-  float* a_s = l_s + kMaxQpg;
+  float* p_s = q_s + QMAX * HD;                              // [qpg][kTile]
+  float* m_s = p_s + QMAX * kTile;
+  float* l_s = m_s + QMAX;
+  float* a_s = l_s + QMAX;
+  __shared__ int merge_s;
 
-  const int b = blockIdx.x / G;
-  const int g = blockIdx.x % G;
+  const int bg = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x % n_chunks;
+  const int b = bg / G, g = bg % G;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  int last = pos[b];
-  if (last > S - 1) last = S - 1;
+  const int row_last = min(pos[b], S - 1);
+  const int n_live = row_last < 0 ? 1 : row_last / kChunk + 1;
+  if (chunk >= n_live) return;  // nothing of this row's cache is here
+  const int t_begin = chunk * kChunk;
+  const int last = min(row_last, t_begin + kChunk - 1);
   const T* kb = k + b * k_sb + g * k_sg;
   const T* vb = v + b * v_sb + g * v_sg;
 
-  load_tile<T, HD>(stage0, stage0 + kTile * L::kKRow, kb, vb, k_ss, v_ss, 0,
-                   last, tid);
+  load_tile<T, HD>(stage0, stage0 + kTile * L::kKRow, kb, vb, k_ss, v_ss,
+                   t_begin, last, tid);
   cp_async_commit();
   for (int i = tid; i < qpg * HD; i += kThreads) {
     const int j = i / HD, d = i % HD;
@@ -185,7 +214,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
 
-  for (int t0 = 0, it = 0; t0 <= last; t0 += kTile, ++it) {
+  for (int t0 = t_begin, it = 0; t0 <= last; t0 += kTile, ++it) {
     T* ks = stage0 + (it & 1) * L::kStage;
     T* vs = ks + kTile * L::kKRow;
     if (t0 + kTile <= last) {  // next tile into the other stage
@@ -276,48 +305,114 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   cp_async_wait<0>();
 
   T* ob = out + ((long long)b * G + g) * qpg * HD;
+  if (n_live == 1) {  // the whole row was this block's: acc / l
+#pragma unroll
+    for (int a = 0; a < kAcc; ++a) {
+      const int j = head_of(a);
+      if (j < qpg) {
+        const float l = l_s[j];
+        store(ob + j * HD + col_of(a), acc[a] / (l > 0.f ? l : 1.f));
+      }
+    }
+    return;
+  }
+
+  // leave this chunk's partial; the last block of the row merges
+  const int n_parts = gridDim.x;
+  float* p_acc = part + (long long)blockIdx.x * qpg * HD;
+  float* p_ml = part + (long long)n_parts * qpg * HD;
 #pragma unroll
   for (int a = 0; a < kAcc; ++a) {
     const int j = head_of(a);
-    if (j < qpg) {
-      const float l = l_s[j];
-      store(ob + j * HD + col_of(a), acc[a] / (l > 0.f ? l : 1.f));
+    if (j < qpg) p_acc[j * HD + col_of(a)] = acc[a];
+  }
+  if (tid < qpg) {
+    p_ml[((long long)blockIdx.x * qpg + tid) * 2] = m_s[tid];
+    p_ml[((long long)blockIdx.x * qpg + tid) * 2 + 1] = l_s[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int done = atomicAdd(tickets + bg, 1);
+    merge_s = done == n_live - 1;
+    if (merge_s) tickets[bg] = 0;  // every block of the row has arrived
+  }
+  __syncthreads();
+  if (!merge_s) return;
+  __threadfence();
+
+  const long long first = (long long)bg * n_chunks;  // partial of chunk 0
+#pragma unroll
+  for (int a = 0; a < kAcc; ++a) {
+    const int j = head_of(a);
+    if (j >= qpg) continue;
+    const int col = col_of(a);
+    float m_max = -INFINITY;
+    for (int cc = 0; cc < n_live; ++cc)
+      m_max = fmaxf(m_max, __ldcg(p_ml + ((first + cc) * qpg + j) * 2));
+    float num = 0.f, den = 0.f;
+    for (int cc = 0; cc < n_live; ++cc) {
+      const long long ml = ((first + cc) * qpg + j) * 2;
+      const float w = expf(__ldcg(p_ml + ml) - m_max);
+      den += w * __ldcg(p_ml + ml + 1);
+      num += w * __ldcg(part + (first + cc) * qpg * HD + j * HD + col);
     }
+    store(ob + j * HD + col, num / den);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int QMAX>
 int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, int B, int G, int qpg, int S, const long long* qs,
-           const long long* ks, const long long* vs, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, HD>::bytes;
+           void* out, void* part, void* tickets, int B, int G, int qpg,
+           int S, const long long* qs, const long long* ks,
+           const long long* vs, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Layout<T, HD, QMAX>::bytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<T, HD>,
+        flash_decode_kernel<T, HD, QMAX>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  flash_decode_kernel<T, HD><<<B * G, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pos),
-      static_cast<T*>(out), G, qpg, S, qs[0], qs[1], qs[2], ks[0], ks[1],
-      ks[2], vs[0], vs[1], vs[2], scale);
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  flash_decode_kernel<T, HD, QMAX>
+      <<<B * G * n_chunks, kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(pos),
+          static_cast<T*>(out), static_cast<float*>(part),
+          static_cast<int*>(tickets), G, qpg, S, n_chunks, qs[0], qs[1],
+          qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int dispatch_qpg(const void* q, const void* k, const void* v,
+                 const void* pos, void* out, void* part, void* tickets,
+                 int B, int G, int qpg, int S, const long long* qs,
+                 const long long* ks, const long long* vs, float scale,
+                 cudaStream_t st) {
+  if (qpg == 1)
+    return launch<T, HD, 1>(q, k, v, pos, out, part, tickets, B, G, qpg, S,
+                            qs, ks, vs, scale, st);
+  if (qpg <= 4)
+    return launch<T, HD, 4>(q, k, v, pos, out, part, tickets, B, G, qpg, S,
+                            qs, ks, vs, scale, st);
+  return launch<T, HD, kMaxQpg>(q, k, v, pos, out, part, tickets, B, G, qpg,
+                                S, qs, ks, vs, scale, st);
 }
 
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const void* pos, void* out, int B, int G, int qpg, int S,
-                const long long* qs, const long long* ks, const long long* vs,
-                float scale, cudaStream_t stream) {
+                const void* pos, void* out, void* part, void* tickets, int B,
+                int G, int qpg, int S, const long long* qs,
+                const long long* ks, const long long* vs, float scale,
+                cudaStream_t st) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, pos, out, B, G, qpg, S, qs, ks, vs, scale, stream);
+    case 32: return dispatch_qpg<T, 32>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
+    case 64: return dispatch_qpg<T, 64>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
+    case 80: return dispatch_qpg<T, 80>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
+    case 128: return dispatch_qpg<T, 128>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
     default: return -1;
   }
 }
@@ -326,26 +421,33 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// The fixed chunk length; the wrapper sizes the partials by it.
+int flash_decode_chunk(void) { return kChunk; }
+
 // dtype: 0 = float32, 1 = bfloat16 (q, caches and out share it).
 // q_strides (b, g, j), k_strides / v_strides (b, s, g), in elements.
-// Cache rows must be 16-byte aligned (base and strides). Returns 0, a CUDA
-// error code from the attribute call or the launch, or -1 for an
-// unsupported dtype / head dim / group size.
+// Cache rows must be 16-byte aligned (base and strides). `part` holds
+// B * G * ceil(S / 128) * qpg * (hd + 2) floats; `tickets` B * G int32
+// zeros, and is left zero. Returns 0, a CUDA error code from the
+// attribute call or the launch, or -1 for an unsupported dtype / head dim
+// / group size.
 int flash_decode_launch(int dtype, int hd, const void* q, const void* k,
-                        const void* v, const void* pos, void* out, int B,
-                        int G, int qpg, int S, const long long* q_strides,
+                        const void* v, const void* pos, void* out,
+                        void* part, void* tickets, int B, int G, int qpg,
+                        int S, const long long* q_strides,
                         const long long* k_strides,
                         const long long* v_strides, float scale,
                         void* stream) {
   if (qpg < 1 || qpg > kMaxQpg || B < 1 || G < 1 || S < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, pos, out, B, G, qpg, S, q_strides,
-                              k_strides, v_strides, scale, st);
+    return dispatch_hd<float>(hd, q, k, v, pos, out, part, tickets, B, G,
+                              qpg, S, q_strides, k_strides, v_strides, scale,
+                              st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, pos, out, B, G, qpg, S,
-                                      q_strides, k_strides, v_strides, scale,
-                                      st);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, pos, out, part, tickets,
+                                      B, G, qpg, S, q_strides, k_strides,
+                                      v_strides, scale, st);
   return -1;
 }
 

@@ -4,9 +4,11 @@ Replaces the Pallas TPU kernel ``_decode_kernel`` / ``flash_decode`` of
 ``src/repro/kernels/decode_attention.py``: single-token GQA attention of
 q ``(B, G, qpg, hd)`` over the serve caches ``(B, S, G, hd)``, row b over
 positions ``0..pos[b]``. The kernel reads the caches natively (by strides,
-in their own dtype); it is bound by the bytes of the filled cache. See the
-source for the design. Callers go through ``repro_torch.kernels.ops``,
-which checks the arguments and counts launches.
+in their own dtype); it is bound by the bytes of the filled cache. Each
+row's cache is split into chunks of ``CHUNK`` positions, one block each,
+whose partials the row's last block merges (see the source). Callers go
+through ``repro_torch.kernels.ops``, which checks the arguments, allocates
+the partials and counts launches.
 """
 from __future__ import annotations
 
@@ -20,6 +22,11 @@ NAME = "flash_decode"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
 MAX_QPG = 16
+CHUNK = 128          # the kernel's kChunk: KV positions a block
+
+# device -> int32 ticket counters, zeros the kernel leaves zero. A grown
+# buffer keeps the older ones alive: a captured CUDA graph may point at them.
+_tickets: dict = {}
 
 _LongPtr = ctypes.POINTER(ctypes.c_longlong)
 _Strides3 = ctypes.c_longlong * 3
@@ -30,18 +37,38 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flash_decode_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
                        + [ctypes.c_int] * 4 + [_LongPtr] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_decode_error_string.restype = ctypes.c_char_p
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+        if lib.flash_decode_chunk() != CHUNK:
+            raise RuntimeError(f"flash_decode: kernel chunk "
+                               f"{lib.flash_decode_chunk()} != {CHUNK}")
     return lib
 
 
+def partial_floats(B: int, G: int, qpg: int, hd: int, S: int) -> int:
+    """f32 elements of the partials scratch: (acc, m, l) per chunk."""
+    return B * G * -(-S // CHUNK) * qpg * (hd + 2)
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The per-(b, g) ticket counters of ``device``: zeroed once, grown
+    when a launch needs more, and left zero by every launch."""
+    bufs = _tickets.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1 << 16), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           pos: torch.Tensor, out: torch.Tensor, scale: float) -> None:
+           pos: torch.Tensor, out: torch.Tensor, part: torch.Tensor,
+           scale: float) -> None:
     """Enqueue one launch on the current stream; raises if CUDA refused
-    it. Arguments must already be checked (``ops.flash_decode``)."""
+    it. Arguments must already be checked and ``part`` sized by
+    ``partial_floats`` (``ops.flash_decode``)."""
     lib = _lib()
     B, G, qpg, hd = q.shape
     S = k_cache.shape[1]
@@ -50,7 +77,8 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     vs = _Strides3(v_cache.stride(0), v_cache.stride(1), v_cache.stride(2))
     code = lib.flash_decode_launch(
         DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), B, G, qpg, S,
+        v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        tickets(q.device, B * G).data_ptr(), B, G, qpg, S,
         qs, ks, vs, scale, torch.cuda.current_stream(q.device).cuda_stream)
     if code != 0:
         msg = lib.flash_decode_error_string(code).decode()

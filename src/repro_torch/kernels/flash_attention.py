@@ -4,9 +4,11 @@ Replaces the Pallas TPU kernel ``_flash_kernel`` / ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py``: causal or full GQA attention of
 q ``(B, S, G, qpg, hd)`` over k/v ``(B, S, G, hd)``, read by strides in the
 model's grouped layout, with a ragged S masked in the kernel. It backs the
-bucketed prefill and is bound by its operations. See the source for the
-design. Callers go through ``repro_torch.kernels.ops``, which checks the
-arguments and counts launches.
+bucketed prefill. bf16 runs on the tensor cores (``wgmma``, the group's q
+heads packed into one 64-row tile); f32 runs SIMT, for the f32 parity
+gates. See the source for the design. Callers go through
+``repro_torch.kernels.ops``, which checks the arguments and counts
+launches.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.kernels import build
 NAME = "flash_attention"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128)
+MAX_QPG = 64         # the bf16 body packs qpg heads into 64 rows
 
 _LongPtr = ctypes.POINTER(ctypes.c_longlong)
 _Strides3 = ctypes.c_longlong * 3

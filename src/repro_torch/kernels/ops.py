@@ -82,7 +82,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"flash_decode: pos must be contiguous int32 ({B},), "
                          f"got {pos.dtype} {tuple(pos.shape)}")
     out = torch.empty((B, G, qpg, hd), dtype=q.dtype, device=q.device)
-    decode_attention.launch(q, k_cache, v_cache, pos, out,
+    part = torch.empty(decode_attention.partial_floats(
+        B, G, qpg, hd, k_cache.shape[1]), dtype=torch.float32,
+        device=q.device)
+    decode_attention.launch(q, k_cache, v_cache, pos, out, part,
                             1.0 / math.sqrt(hd))
     LAUNCHES["flash_decode"] += 1
     return out
@@ -108,6 +111,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {hd} not supported")
     if q.stride(4) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if qpg > fa.MAX_QPG:
+        raise ValueError(f"flash_attention: group size {qpg} not supported")
+    if q.dtype == torch.bfloat16:   # 16-byte K/V copies, 4-byte q reads
+        for t, align in ((k, 16), (v, 16), (q, 4)):
+            if t.data_ptr() % align or any(t.stride(i) * 2 % align
+                                           for i in range(t.dim() - 1)):
+                raise ValueError("flash_attention: bf16 rows must be "
+                                 f"{align}-byte aligned, got strides "
+                                 f"{t.stride()}")
     out = torch.empty((B, S, G, qpg, hd), dtype=q.dtype, device=q.device)
     fa.launch(q, k, v, out, causal, 1.0 / math.sqrt(hd))
     LAUNCHES["flash_attention"] += 1

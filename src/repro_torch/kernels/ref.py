@@ -5,7 +5,9 @@ The CPU tests hold them to the JAX package, ``ops`` runs them for tensors
 on the CPU, and ``chip_smoke.py`` holds each CUDA kernel to them on the
 card. Both take a ragged S (no tile size assumed), and ``flash_decode_ref``
 takes a per-row ``pos`` (B,) -- the serving slot pool, where every slot sits
-at its own fill depth. ``gcn_layer_ref`` is one layer of the paper's Eq. 6.
+at its own fill depth; ``flash_decode_split_ref`` is the same function
+computed as the split-KV kernel does, chunk partials merged by their
+log-sum-exp. ``gcn_layer_ref`` is one layer of the paper's Eq. 6.
 ``ssd_scan_ref`` is the Mamba-2 SSD blocked scan over chunks of
 ``ssd_chunk_ref``.
 """
@@ -31,6 +33,39 @@ def flash_decode_ref(q, k_cache, v_cache, pos):
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgqt,btgh->bgqh", p, v_cache.float()).to(q.dtype)
+
+
+def flash_decode_split_ref(q, k_cache, v_cache, pos, chunk):
+    """``flash_decode_ref`` as the split-KV kernel computes it: row b's
+    positions 0..pos[b] are cut into chunks of ``chunk``; each chunk leaves
+    a partial over its live positions -- max m, sum l of exp(s - m) and the
+    unnormalised output acc, in f32. A row with one chunk returns acc / l;
+    a row with more merges its partials by their log-sum-exp. Returns
+    (B, G, qpg, hd) in q's dtype."""
+    B, G, qpg, hd = q.shape
+    S = k_cache.shape[1]
+    n = -(-S // chunk)
+    pad = (0, 0, 0, 0, 0, n * chunk - S)     # the sequence axis to n chunks
+    k = torch.nn.functional.pad(k_cache.float(), pad)
+    v = torch.nn.functional.pad(v_cache.float(), pad)
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    last = pos.long().clamp(max=S - 1)
+    s = torch.einsum("bgqh,btgh->bgqt", q.float(), k) / math.sqrt(hd)
+    live = torch.arange(n * chunk, device=q.device)[None, :] <= last[:, None]
+    s = torch.where(live[:, None, None, :], s, -math.inf)
+    s = s.reshape(B, G, qpg, n, chunk)
+    m = s.amax(dim=-1)                       # -inf for a chunk with nothing
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bgqnc,bncgh->bgqnh", p,
+                       v.reshape(B, n, chunk, G, hd))
+    one = acc[..., 0, :] / torch.where(l[..., :1] > 0, l[..., :1], 1.0)
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    merged = (w[..., None] * acc).sum(dim=-2) \
+        / (w * l).sum(dim=-1, keepdim=True)
+    n_live = torch.div(last, chunk, rounding_mode="trunc") + 1
+    out = torch.where((n_live == 1)[:, None, None, None], one, merged)
+    return out.to(q.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal=True):

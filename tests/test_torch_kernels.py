@@ -16,7 +16,7 @@ import torch
 from repro.kernels.decode_attention import flash_decode as jax_flash_decode
 from repro.kernels.flash_attention import \
     flash_attention as jax_flash_attention
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import decode_attention, ops, ref
 
 TOLS = {"float32": dict(atol=2e-5, rtol=2e-5),
         "bfloat16": dict(atol=3e-2, rtol=3e-2)}
@@ -83,6 +83,59 @@ def test_flash_attention_plain_matches_jax(B, Hq, Hkv, S, d, dtype, causal):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_decode_plain_matches_jax(B, Hq, Hkv, S, d, pos, dtype):
     _decode_case(B, Hq, Hkv, S, d, pos, dtype, 256, pos + S)
+
+
+def _decode_split_case(B, Hq, Hkv, S, d, pos, dtype, chunk, seed):
+    """JAX flash_decode (interpret) and the port's dense plain version
+    against the port's split-KV plain version at chunk length ``chunk``."""
+    rng = np.random.default_rng(seed)
+    qj, qt = _both(rng.standard_normal((B, Hq, d), np.float32), dtype)
+    kj, kt = _both(rng.standard_normal((B, Hkv, S, d), np.float32), dtype)
+    vj, vt = _both(rng.standard_normal((B, Hkv, S, d), np.float32), dtype)
+    want = jax_flash_decode(qj, kj, vj, jnp.asarray(pos, jnp.int32),
+                            block_kv=S, interpret=True)
+    args = (qt.reshape(B, Hkv, Hq // Hkv, d), kt.transpose(1, 2),
+            vt.transpose(1, 2), torch.as_tensor(pos, dtype=torch.int32))
+    got = ref.flash_decode_split_ref(*args, chunk)
+    _close(got.reshape(B, Hq, d), want, dtype)
+    torch.testing.assert_close(got.float(),
+                               ref.flash_decode_ref(*args).float(),
+                               **TOLS[dtype])
+
+
+# ragged depths: 0, S - 1, multiples of the chunk and one past them, a
+# chunk that straddles pos; one pool as long as the kernel's S = 4096 pool
+# cut to 32 chunks of 16
+@pytest.mark.parametrize("S,chunk,pos", [
+    (100, 16, [0, 99, 15, 16, 31, 32, 50, 64]),
+    (512, 16, [0, 511, 255, 256, 300, 17, 48, 1]),
+    (300, decode_attention.CHUNK, [0, 299, 127, 128, 255, 256, 200, 5]),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_split_plain_matches_jax(S, chunk, pos, dtype):
+    _decode_split_case(len(pos), 8, 2, S, 32, pos, dtype, chunk, S + chunk)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_split_row_independent_of_batch(dtype):
+    """A row's split-KV result is the same, bit for bit, alone and inside a
+    larger batch whose other rows reach other depths: the chunk length is
+    fixed, never derived from the batch."""
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s, np.float32)).to(TDT[dtype])
+    B, G, qpg, S, d = 6, 2, 4, 400, 32
+    q, k, v = t(B, G, qpg, d), t(B, S, G, d), t(B, S, G, d)
+    pos = torch.tensor([5, 399, 128, 255, 0, 300], dtype=torch.int32)
+    chunk = decode_attention.CHUNK
+    full = ref.flash_decode_split_ref(q, k, v, pos, chunk)
+    for r in range(B):
+        alone = ref.flash_decode_split_ref(q[r:r + 1], k[r:r + 1],
+                                           v[r:r + 1], pos[r:r + 1], chunk)
+        assert torch.equal(alone, full[r:r + 1]), r
+    pair = ref.flash_decode_split_ref(q[1:3], k[1:3], v[1:3], pos[1:3],
+                                      chunk)
+    assert torch.equal(pair, full[1:3])
 
 
 @pytest.mark.parametrize("S", [8, 100])
