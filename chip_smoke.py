@@ -26,8 +26,9 @@ the script exits non-zero:
      the reference's tolerance) at the control plane's shapes and beyond,
      relu on and off, and batched; ssd_scan in f32 (1e-4, the reference's
      tolerance) at mamba2-1.3b's and zamba2-2.7b's heads, at the drain
-     mode's prefills (8 x 512, 2 x 96) and the control loop's (K x 8 or
-     16), with ragged lengths;
+     mode's prefills (8 x 512, 2 x 96, 8 x 200) and the control loop's (K
+     x 8 or 16) and at T 24, with ragged lengths, so that each arch
+     reaches every (step tile, heads a block) instantiation;
   4.-8. for each served architecture in turn -- granite-3-8b (dense),
      then mamba2-1.3b (ssm) and zamba2-2.7b (hybrid), each at full width
      with random bf16 weights from a seed (bf16 KV and conv state, f32 SSM
@@ -62,12 +63,14 @@ the script exits non-zero:
      plain version, the one PyTorch call that computes the same function
      where there is one (timed here only -- the port never calls it) and
      the bound, the larger of bytes / 3.35 TB/s and operations over the
-     peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s f32). The JSON
+     peak rate of their type (989 TFLOP/s bf16, 67 TFLOP/s f32; ssd_scan's
+     products run as three TF32 passes, so 3 x operations / 495 TFLOP/s,
+     with the f32 SIMT bound printed beside it). The JSON
      rows are timed at the control loop's shapes (granite's largest slab
      and fleet prefill, the balancer's first GCN layer, mamba2's largest
      fleet prefill for ssd_scan); the drain mode's shapes, zamba2's and
      head dim 80 are timed and printed beside them. Then each model's
-     drain-mode decode step's host and device times and its prefill;
+     drain-mode decode step's and prefill's host and device times;
   8. the control loop's oracles: the same run with ``--no-async`` gives
      the same digest of (rid, output, first-token and finish ticks) in
      bf16, and at full width cut to 2 layers in f32 the fleet kernel run,
@@ -96,6 +99,7 @@ TOLS = {"float32": dict(atol=2e-5, rtol=2e-5),
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak, same source
 F32_FLOPS_PER_S = 67e12         # f32 outside the tensor cores, same source
+TF32_FLOPS_PER_S = 495e12       # dense TF32 tensor-core peak, same source
 N_REQUESTS, MAX_PROMPT, MAX_NEW = 16, 512, 64
 MAX_BATCH, MAX_SEQ, REPLICAS, SEED = 8, 1024, 2, 0
 # full-width bf16, kernel path vs einsum path: the einsum path rounds the
@@ -121,7 +125,14 @@ KERNELS = {
 # the ssm/hybrid family, served at full width after granite-3-8b
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_kernels.py's tolerance
-SSD_SUBCHUNK = 64     # csrc/ssd_scan.cu's kQ: the block length it computes
+SSD_OPS_BLOCK = 64    # the block of _time_ssd's operation count (PR 13's)
+SSD_PASSES = 3        # its products: split TF32, three tensor-core passes
+# (B, T) of the parity cases: the drain mode's bucket (8 x 512), ragged
+# last blocks (96, 200, 24), the control loop's fleet prefills (K x 8 or
+# 16); each runs at both heads-a-block choices, so both tiles' four
+# instantiations (with the archs' two state sizes) all run
+SSD_CASES = ((8, 512), (2, 96), (8, 200), (1, 8), (4, 16), (8, 16), (2, 24),
+             (8, 24))
 # attention head layouts (G kv heads, qpg q heads a group, head dim) at
 # full width: granite-3-8b's layers and zamba2-2.7b's shared block
 HEAD_LAYOUTS = ((8, 4, 128), (32, 1, 80))
@@ -292,37 +303,61 @@ def _ssd_inputs(torch, gen, B, T, H, P, N, lengths=None):
 
 def phase_parity_ssd(torch, ops, ref, gen) -> float:
     """ssd_scan against its plain version, f32, for both ssm archs' heads
-    (mamba2 H 64 P 64 N 128, zamba2 H 80 P 64 N 64) at the drain mode's
-    bucketed prefills (8 x 512, and 2 x 96: no multiple of the kernel's
-    block) and the control loop's fleet prefills (K in {1, 4, 8} x bucket 8
-    or 16), with ragged lengths (dt 0 past them), at the model's chunk."""
+    (mamba2 H 64 P 64 N 128, zamba2 H 80 P 64 N 64) at ``SSD_CASES``, with
+    ragged lengths (dt 0 past them), at the model's chunk: the launcher's
+    own (tile, hpb) through ``ops.ssd_scan``, and the other hpb at that
+    tile forced, so that each arch runs every instantiation whichever the
+    plan picks on this card. Each instantiation's dynamic shared memory and
+    blocks per SM at the arch's N are printed."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
 
     worst = 0.0
     for name in SSM_ARCHS:
         cfg = get_config(name)
         H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        for B, T in ((8, 512), (2, 96), (1, 8), (4, 16), (8, 16)):
+        reached = set()
+        for B, T in SSD_CASES:
+            tile, hpb = ssd.device_plan(B, T, H, N, "cuda")
             lengths = torch.randint(1, T + 1, (B,), generator=gen,
                                     device="cuda")
             lengths[0] = T
             lengths[-1] = 1 if B > 1 else T
             x, a, bm, cm = _ssd_inputs(torch, gen, B, T, H, P, N, lengths)
             chunk = min(cfg.ssm_chunk, T)
-            y, st = ops.ssd_scan(x, a, bm, cm, chunk=chunk)
-            torch.cuda.synchronize()
             y_ref, st_ref = ref.ssd_scan_ref(x, a, bm, cm, chunk)
-            err = max((y - y_ref).abs().max().item(),
-                      (st - st_ref).abs().max().item())
-            for got, want in ((y, y_ref), (st, st_ref)):
-                torch.testing.assert_close(
-                    got, want, **SSD_TOL,
-                    msg=lambda m: f"ssd_scan {name} ({B}, {T}): {m}")
-            worst = max(worst, err)
+            errs = {}
+            for h in range(1, ssd.MAX_HPB + 1):
+                if h == hpb:
+                    y, st = ops.ssd_scan(x, a, bm, cm, chunk=chunk)
+                else:
+                    y, st = torch.empty_like(x), torch.empty_like(st_ref)
+                    ssd.launch(x, a, bm, cm, y, st, instantiation=(tile, h))
+                torch.cuda.synchronize()
+                for got, want in ((y, y_ref), (st, st_ref)):
+                    torch.testing.assert_close(
+                        got, want, **SSD_TOL,
+                        msg=lambda m: f"ssd_scan {name} ({B}, {T}) tile "
+                        f"{tile} hpb {h}: {m}")
+                errs[h] = max((y - y_ref).abs().max().item(),
+                              (st - st_ref).abs().max().item())
+                reached.add((tile, h))
+            worst = max(worst, *errs.values())
             log(f"[parity] ssd_scan {name} B={B} T={T} H={H} P={P} N={N} "
-                f"chunk={chunk} lengths={lengths.tolist()} f32: "
-                f"max|err|={err:.3e} (atol/rtol {SSD_TOL['atol']}; "
-                f"|y| max {y_ref.abs().max().item():.3e})")
+                f"chunk={chunk} tile={tile} lengths={lengths.tolist()} f32: "
+                "max|err| " + ", ".join(
+                    f"hpb {h} {e:.3e}{' (plan)' if h == hpb else ''}"
+                    for h, e in errs.items())
+                + f" (atol/rtol {SSD_TOL['atol']}; |y| max "
+                f"{y_ref.abs().max().item():.3e})")
+        every = {(q, h) for q in ssd.TILES for h in range(1, ssd.MAX_HPB + 1)}
+        if reached != every:
+            raise AssertionError(f"ssd_scan {name}: parity cases reach "
+                                 f"{sorted(reached)}, not {sorted(every)}")
+        log(f"[parity] ssd_scan {name} instantiations (tile, hpb): "
+            + ", ".join(f"({q}, {h}) {ssd.smem_bytes(q, h, N)} B shared, "
+                        f"{ssd.blocks_per_sm(q, h, N, 0)} blocks an SM"
+                        for q, h in sorted(every)))
     return worst
 
 
@@ -857,10 +892,14 @@ def phase_step_times(torch, cfg, model, params, reps, workload):
                                      cache_dtype=torch.bfloat16)
         return torch.argmax(logits, dim=-1).cpu()
 
-    # the same decode step replayed from a CUDA graph: device time alone,
-    # without the host's ~2,800 launches
+    # the same decode step and prefill replayed from a CUDA graph: device
+    # time alone, without the host's launches
     device_ms = _graph_ms(torch, lambda: model.decode(params, eng.cache, tok,
                                                       pos), 1, reps=5)
+    prefill_device_ms = _graph_ms(
+        torch, lambda: model.prefill(params, batch,
+                                     cache_len=batch["tokens"].shape[1],
+                                     cache_dtype=torch.bfloat16), 1, reps=3)
     out = {}
     for name, fn, n in (("decode step", decode, 10),
                         ("prefill", prefill, 3)):
@@ -876,7 +915,8 @@ def phase_step_times(torch, cfg, model, params, reps, workload):
         f"the device is busy {device_ms:.2f} ms (CUDA-graph replay, median "
         f"of 5): idle share {1 - device_ms / out['decode step']:.2f}; "
         f"prefill {tuple(batch['tokens'].shape)} {out['prefill']:.2f} ms "
-        f"(host clock, median of 3)")
+        f"(host clock, median of 3), device {prefill_device_ms:.2f} ms "
+        f"(CUDA-graph replay, median of 3)")
 
 
 def _fleet_step_times(torch, model, params, rows: int, max_seq: int):
@@ -1059,13 +1099,18 @@ def _largest(shapes, kind):
 
 def _time_ssd(torch, ops, ref, gen, cfg, B, T, label) -> dict:
     """ssd_scan at (B prompts, T steps) of ``cfg``'s heads: kernel and
-    plain times, and the bound. Operations: the blocked algorithm at the
-    kernel's block length with C.B^T shared across heads and only its
-    causal half -- per block of q steps and batch row, q(q+1)/2 N for
-    C.B^T, and per head q(q+1)/2 P for the diagonal term, q P N for the
-    state's contribution to y and q P N for the state update
-    (multiply-adds, 2 operations each). Bytes: x in, y out, a, B, C in,
-    the final state out, f32. No single PyTorch call computes the scan."""
+    plain times, and the bound. Operations: the blocked algorithm at a
+    block of 64 with C.B^T shared across heads and only its causal half --
+    per block of q steps and batch row, q(q+1)/2 N for C.B^T, and per head
+    q(q+1)/2 P for the diagonal term, q P N for the state's contribution
+    to y and q P N for the state update (multiply-adds, 2 operations
+    each). The kernel runs them as three TF32 tensor-core passes, so the
+    bound's operations side is 3 x operations / 495 TFLOP/s; the f32 SIMT
+    bound (operations / 67 TFLOP/s, PR 13's and PR 14's) is printed
+    beside it. Bytes: x in, y out, a, B, C in, the final state out, f32.
+    No single PyTorch call computes the scan."""
+    from repro_torch.kernels import ssd_scan as ssd
+
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     x, a, bm, cm = _ssd_inputs(torch, gen, B, T, H, P, N)
     chunk = min(cfg.ssm_chunk, T)
@@ -1075,18 +1120,22 @@ def _time_ssd(torch, ops, ref, gen, cfg, B, T, label) -> dict:
     plain = _graph_ms(torch, lambda: [ref.ssd_scan_ref(x, a, bm, cm, chunk)
                                       for _ in range(n)], n)
     fma = 0
-    for t0 in range(0, T, SSD_SUBCHUNK):
-        q = min(SSD_SUBCHUNK, T - t0)
+    for t0 in range(0, T, SSD_OPS_BLOCK):
+        q = min(SSD_OPS_BLOCK, T - t0)
         tri = q * (q + 1) // 2
         fma += tri * N + H * (tri * P + 2 * q * P * N)
     flops = 2 * B * fma
     nbytes = 4 * (2 * B * T * H * P + B * T * H + 2 * B * T * N
                   + B * H * P * N)
-    bound, by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+    bound, by = _bound(nbytes, SSD_PASSES * flops, TF32_FLOPS_PER_S)
+    simt, simt_by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+    tile, hpb = ssd.device_plan(B, T, H, N, "cuda")
     log(f"[times] ssd_scan {cfg.name} {label} B={B} T={T} H={H} P={P} N={N} "
-        f"chunk={chunk} f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"library none, bound {bound:.4f} ms ({by}: {nbytes} B, {flops} "
-        f"flop)")
+        f"chunk={chunk} tile={tile} hpb={hpb} f32: kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s of the algorithm's operations), "
+        f"plain {plain:.4f} ms, library none, bound {bound:.4f} ms ({by}: "
+        f"{nbytes} B, {SSD_PASSES} x {flops} flop at TF32; f32 SIMT bound "
+        f"{simt:.4f} ms, {simt_by})")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=None)
 

@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class TorchKey:
     """A ``jax.random``-style key over ``torch.Generator``s: a pure value
@@ -46,8 +48,8 @@ class TorchKey:
         self.device = torch.device(device)
 
     @classmethod
-    def from_seed(cls, seed: int, device="cpu") -> "TorchKey":
-        return cls(np.random.SeedSequence(seed), device)
+    def from_seed(cls, seed: int, device="cuda") -> "TorchKey":
+        return cls(np.random.SeedSequence(seed), resolve_device(device))
 
     def split(self, n: int = 2) -> list:
         # children named by (n, i) under this key, never by a spawn counter

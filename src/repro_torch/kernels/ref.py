@@ -9,7 +9,11 @@ at its own fill depth; ``flash_decode_split_ref`` is the same function
 computed as the split-KV kernel does, chunk partials merged by their
 log-sum-exp. ``gcn_layer_ref`` is one layer of the paper's Eq. 6.
 ``ssd_scan_ref`` is the Mamba-2 SSD blocked scan over chunks of
-``ssd_chunk_ref``.
+``ssd_chunk_ref``; ``ssd_scan_tiled_ref`` is the same scan computed as the
+CUDA kernel computes it (step tiles, heads in groups sharing one C.B^T
+tile, the state's term transposed), with its products at f32, one TF32
+pass or the kernel's three (``tf32_round`` splits the operands). Nothing
+on the serving path calls it: it is the kernel's arithmetic, for tests.
 """
 from __future__ import annotations
 
@@ -118,6 +122,81 @@ def ssd_scan_ref(x, a, Bm, Cm, chunk):
                                  Bm[:, c0:c0 + chunk], Cm[:, c0:c0 + chunk],
                                  state)
         ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+def tf32_round(v):
+    """``v`` (f32) rounded to TF32, a 10-bit mantissa, as
+    ``cvt.rna.tf32.f32`` does: to nearest, ties away from zero, on the
+    int32 view (the low 13 bits cleared)."""
+    i = v.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+SSD_PRECISIONS = ("f32", "tf32", "3xtf32")
+
+
+def _mm(a, b, precision):
+    """a @ b in f32 with each operand as the kernel feeds the tensor
+    cores: unrounded ("f32"), rounded to TF32 once ("tf32"), or split into
+    hi = tf32(v), lo = tf32(v - hi) and summed as lo.hi + hi.lo + hi.hi
+    ("3xtf32"; lo.lo is below f32's last bit)."""
+    if precision == "f32":
+        return a @ b
+    ah, bh = tf32_round(a), tf32_round(b)
+    if precision == "tf32":
+        return ah @ bh
+    if precision != "3xtf32":
+        raise ValueError(f"precision {precision!r} not in {SSD_PRECISIONS}")
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_scan_tiled_ref(x, a, Bm, Cm, *, tile=64, heads_per_block=1,
+                       precision="3xtf32"):
+    """The scan from a zero state as ``csrc/ssd_scan.cu`` computes it:
+    blocks of ``tile`` steps (a ragged last block padded with zero x, a, B
+    and C, which are inert); per block and batch row the masked score tile
+    S = C.B^T once for each group of ``heads_per_block`` heads, each head
+    applying its decay exp(a_cum[q] - a_cum[k]) to it elementwise; y^T =
+    exp(a_cum) * (state.C^T) + x^T.(L S)^T and state = exp(a_last) state +
+    (x w)^T.B, every product at ``precision``. Returns (y (B, T, H, P),
+    final state (B, H, P, N)), f32."""
+    x, a, Bm, Cm = x.float(), a.float(), Bm.float(), Cm.float()
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    tri = torch.ones(tile, tile, dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for t0 in range(0, T, tile):
+        pad = tile - min(tile, T - t0)
+
+        def block(v):
+            v = v[:, t0:t0 + tile]
+            return torch.nn.functional.pad(
+                v, (0, 0) * (v.dim() - 2) + (0, pad))
+        xb, ab, bb, cb = block(x), block(a), block(Bm), block(Cm)
+        ac = torch.cumsum(ab, dim=1)                          # (B, Q, H)
+        y_heads, s_heads = [], []
+        for h0 in range(0, H, heads_per_block):
+            S = torch.where(tri, _mm(cb, bb.transpose(1, 2), precision),
+                            0.0)                              # (B, Q, K)
+            for h in range(h0, min(h0 + heads_per_block, H)):
+                ach, xh, st = ac[:, :, h], xb[:, :, h], state[:, h]
+                L = torch.where(tri, torch.exp(ach[:, :, None]
+                                               - ach[:, None, :]), 0.0)
+                yt = _mm(st, cb.transpose(1, 2), precision) \
+                    * torch.exp(ach)[:, None, :]              # (B, P, Q)
+                yt = yt + _mm(xh.transpose(1, 2), (L * S).transpose(1, 2),
+                              precision)
+                w = torch.exp(ach[:, -1:] - ach)              # (B, Q)
+                s_heads.append(
+                    st * torch.exp(ach[:, -1])[:, None, None]
+                    + _mm((xh * w[..., None]).transpose(1, 2), bb,
+                          precision))
+                y_heads.append(yt.transpose(1, 2))            # (B, Q, P)
+        state = torch.stack(s_heads, dim=1)
+        ys.append(torch.stack(y_heads, dim=2)[:, :tile - pad])
     return torch.cat(ys, dim=1), state
 
 

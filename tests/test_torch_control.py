@@ -291,7 +291,7 @@ def test_gpso_minimize_matches_reference(seed):
 
 
 def test_torch_key_is_a_pure_value():
-    k = tgpso.TorchKey.from_seed(7)
+    k = tgpso.TorchKey.from_seed(7, device="cpu")
     a, b = k.split(2)
     assert torch.equal(a.uniform((4,)), a.uniform((4,)))
     assert not torch.equal(a.uniform((4,)), b.uniform((4,)))
@@ -303,6 +303,15 @@ def test_torch_key_is_a_pure_value():
     assert draws.shape == (200,) and (draws == 1).float().mean() > 0.9
     r = b.randint((100, 1), 1, 3)
     assert set(r.flatten().tolist()) <= {1, 2}
+
+
+def test_torch_key_defaults_to_cuda(monkeypatch):
+    """Like every entry point of the port, the key runs on the card unless
+    the caller names the CPU: with no CUDA it raises, never moves."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tgpso.TorchKey.from_seed(7)
+    assert tgpso.TorchKey.from_seed(7, device="cpu").device.type == "cpu"
 
 
 def test_gpso_autoscaler_plans_match_reference_over_ticks():

@@ -9,8 +9,13 @@ zamba2-2.7b) run on the reference's weights, bridged through
 through ``ops.ssd_scan``, and the einsum oracle ``ssd_chunked``) must give
 the reference's outputs and states within 1e-4 in f32 at the same chunk,
 1e-3 across chunk sizes, and the same greedy streams.
+
+``ref.ssd_scan_tiled_ref`` (the CUDA kernel's arithmetic: step tiles of 16,
+32 or 64, heads in groups that share one C.B^T tile, products in split
+TF32) is held to the Pallas kernel at the same 1e-4; one TF32 pass is not.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +29,7 @@ from repro.models import make_model as jax_make_model
 from repro.models import ssd as jax_ssd
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models import ssd
 from repro_torch.models.model import make_model
 from test_torch_kernels import _attention_case, _decode_case
@@ -90,6 +95,91 @@ def test_ops_ssd_scan_refuses_other_devices():
     with pytest.raises(ValueError, match="device"):
         ops.ssd_scan(t, torch.empty(1, 8, 2, device="meta"),
                      torch.empty(1, 8, 8), torch.empty(1, 8, 8), chunk=8)
+
+
+# ------------------------------------------- the kernel's arithmetic
+@functools.lru_cache(maxsize=None)
+def _pallas_case(T, N, seed):
+    """Inputs at P 64 and the Pallas kernel's outputs on them, at the
+    largest chunk up to 64 that divides T."""
+    x, a, bm, cm = _scan_inputs(2, T, 4, 64, N, seed=seed)
+    chunk = max(c for c in range(1, min(T, 64) + 1) if T % c == 0)
+    y, st = jax_ssd_scan(*map(jnp.asarray, (x, a, bm, cm)), chunk=chunk,
+                         interpret=True)
+    return (tuple(map(torch.from_numpy, (x, a, bm, cm))),
+            (np.asarray(y), np.asarray(st)))
+
+
+@pytest.mark.parametrize("tile", ssd_scan.TILES)
+@pytest.mark.parametrize("N", [128, 64])
+@pytest.mark.parametrize("T", [1, 8, 16, 24, 96, 200])
+def test_ssd_scan_split_tf32_matches_pallas(T, N, tile):
+    """Three TF32 passes meet the reference's 1e-4 at every tile, for T
+    below, at and across it (ragged last blocks), with heads in groups of
+    1, 2 and 4; sharing the score tile changes nothing, bit for bit."""
+    (x, a, bm, cm), (y_want, st_want) = _pallas_case(T, N, T + N)
+    outs = []
+    for hpb in (1, 2, 4):
+        y, st = ref.ssd_scan_tiled_ref(x, a, bm, cm, tile=tile,
+                                       heads_per_block=hpb,
+                                       precision="3xtf32")
+        np.testing.assert_allclose(y.numpy(), y_want, **TOL)
+        np.testing.assert_allclose(st.numpy(), st_want, **TOL)
+        outs.append((y, st))
+    for y, st in outs[1:]:
+        assert torch.equal(y, outs[0][0]) and torch.equal(st, outs[0][1])
+
+
+def test_one_tf32_pass_misses_the_gate_three_meet_it():
+    """Why the kernel splits: at the model's input range, one TF32 pass
+    (a 10-bit mantissa) misses the reference's 1e-4 in y and the state;
+    three passes meet it, as plain f32 does."""
+    (x, a, bm, cm), (y_want, st_want) = _pallas_case(512, 128, 11)
+    out = {p: ref.ssd_scan_tiled_ref(x, a, bm, cm, tile=64,
+                                     heads_per_block=2, precision=p)
+           for p in ref.SSD_PRECISIONS}
+    y1, st1 = out["tf32"]
+    assert not np.allclose(y1.numpy(), y_want, **TOL)
+    assert not np.allclose(st1.numpy(), st_want, **TOL)
+    for p in ("3xtf32", "f32"):
+        np.testing.assert_allclose(out[p][0].numpy(), y_want, **TOL)
+        np.testing.assert_allclose(out[p][1].numpy(), st_want, **TOL)
+
+
+def test_tf32_round_is_cvt_rna():
+    """To nearest with a 10-bit mantissa, ties away from zero; hi + lo
+    holds a value to about 2^-22 of its size."""
+    e = 2.0 ** -11                                 # half a TF32 step at 1
+    v = torch.tensor([1.0, 1 + e, 1 + 3 * e, -(1 + e), 1 + e / 2, 3.0])
+    want = [1.0, 1 + 2 * e, 1 + 4 * e, -(1 + 2 * e), 1.0, 3.0]
+    assert ref.tf32_round(v).tolist() == want
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        1000).astype(np.float32))
+    hi = ref.tf32_round(r)
+    lo = ref.tf32_round(r - hi)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((hi + lo - r).abs() <= r.abs() * 2.0 ** -21).all()
+
+
+# blocks an SM of each (tile, hpb) on an H100 by the kernel's registers and
+# shared memory (ptxas, cudaOccupancyMaxActiveBlocksPerMultiprocessor): at
+# N 128 one 256-thread block or two 128-thread blocks; at N 64 one or three
+OCCUPANCY = {128: {(16, 1): 3, (16, 2): 1, (32, 1): 2, (32, 2): 1},
+             64: {(16, 1): 3, (16, 2): 1, (32, 1): 3, (32, 2): 1}}
+
+
+@pytest.mark.parametrize("B,T,H,N,want", [
+    (8, 512, 64, 128, (32, 2)),  # mamba2's drain: as many warps, shared tile
+    (8, 512, 80, 64, (32, 1)),   # zamba2's: 12 warps an SM against 8
+    (4, 16, 64, 128, (16, 1)),   # mamba2's fleet prefill: 128 blocks < 132
+    (8, 16, 64, 128, (16, 1)),   # 3 blocks of 4 warps beat 1 of 8
+    (1, 1, 64, 128, (16, 1)), (2, 17, 80, 64, (32, 1)),
+    (9, 33, 64, 128, (32, 2)),
+])
+def test_plan_sizes_the_tile_to_T_and_shares_where_occupancy_allows(
+        B, T, H, N, want):
+    occ = OCCUPANCY[N]
+    assert ssd_scan.plan(B, T, H, lambda q, h: occ[(q, h)], 132) == want
 
 
 # ------------------------------------------------------------- the block
