@@ -24,11 +24,16 @@ the script exits non-zero:
      granite-3-8b's head layout (8 kv x 4 q heads, hd 128) and
      zamba2-2.7b's shared block (32 x 1, hd 80); gcn_layer in f32 (1e-5,
      the reference's tolerance) at the control plane's shapes and beyond,
-     relu on and off, and batched; ssd_scan in f32 (1e-4, the reference's
-     tolerance) at mamba2-1.3b's and zamba2-2.7b's heads, at the drain
-     mode's prefills (8 x 512, 2 x 96, 8 x 200) and the control loop's (K
-     x 8 or 16) and at T 24, with ragged lengths, so that each arch
-     reaches every (step tile, heads a block) instantiation;
+     relu on and off, and batched, and the balancer's whole action in one
+     launch (gcn_actor: both GCN layers, the head, the masked softmax) at
+     the serve defaults and the paper's 16-node cluster, with a node down
+     and noise, batched, every node down, at the largest graph one block
+     holds and one node above it (the layered path); ssd_scan in f32
+     (1e-4, the reference's tolerance) at mamba2-1.3b's and zamba2-2.7b's
+     heads, at the drain mode's prefills (8 x 512, 2 x 96, 8 x 200) and
+     the control loop's (K x 8 or 16) and at T 24, with ragged lengths, so
+     that each arch reaches every (step tile, heads a block)
+     instantiation;
   4.-8. for each served architecture in turn -- granite-3-8b (dense),
      then mamba2-1.3b (ssm) and zamba2-2.7b (hybrid), each at full width
      with random bf16 weights from a seed (bf16 KV and conv state, f32 SSM
@@ -52,13 +57,18 @@ the script exits non-zero:
      --autoscale gpso`` -- the elastic frontend with fleet-batched decode
      and admission and the async tick, the GCN+DDPG balancer and GPSO on
      the plane's own stream -- for 40 ticks, then drained. Counts zeroed
-     just before and read just after: gcn_layer twice per plane tick, the
-     model's kernels per fleet dispatch as in drain mode; every request
+     just before and read just after: gcn_layer once per plane tick (the
+     balancer's action), the model's kernels per fleet dispatch as in
+     drain mode; every request
      finishes, the ledger balances, GPSO scales up, no host sync hides in
      the engine (torch's sync debug mode), and every tick keeps the async
      tick's sync contract (``async_tick_violations``). For granite, one
      GPSO plan's host time, split into the random key's own work and the
-     rest;
+     rest, and the plane's balance host ms a tick with the action fused
+     against layered (two gcn_layer launches and the eager head), the
+     control loop run in turns (each digest equal to the first run's),
+     then the balance phase alone at 2 to 144 nodes, fused against
+     layered;
   7. times (CUDA-event medians over CUDA-graph replays): each kernel, its
      plain version, the one PyTorch call that computes the same function
      where there is one (timed here only -- the port never calls it) and
@@ -67,7 +77,8 @@ the script exits non-zero:
      products run as three TF32 passes, so 3 x operations / 495 TFLOP/s,
      with the f32 SIMT bound printed beside it). The JSON
      rows are timed at the control loop's shapes (granite's largest slab
-     and fleet prefill, the balancer's first GCN layer, mamba2's largest
+     and fleet prefill, the balancer's first GCN layer and its whole
+     action -- against the layered chain, its yardstick -- mamba2's largest
      fleet prefill for ssd_scan); the drain mode's shapes, zamba2's and
      head dim 80 are timed and printed beside them. Then each model's
      drain-mode decode step's and prefill's host and device times;
@@ -377,10 +388,99 @@ def _gcn_inputs(torch, gen, xs, ws):
     return a, x, w, b
 
 
+def _actor_inputs(torch, gen, n, f, lead=(), mask="all_up", noise=False):
+    """The balancer's action inputs on the card: the topology's normalised
+    adjacency over ``n`` nodes, obs (lead, n, f) ~ N(0, 1), an actor of the
+    paper's widths (2 GCN layers of 64, a head of 128) with he-scaled
+    weights and biases ~ 0.1 N(0, 1) -- the head's last layer at full
+    scale, so the logits differ by O(1) and the softmax is far from uniform
+    -- and the up-mask: every node up ("all_up"), node 0 down ("one_down"),
+    ~40% down per observation ("rows"), or none up ("all_down"); noise ~
+    N(0, 1)."""
+    import numpy as np
+
+    from repro_torch.configs.paper_cluster import ClusterConfig
+    from repro_torch.core.gcn import make_topology, normalize_adjacency
+
+    cfg = ClusterConfig()
+    a = torch.from_numpy(normalize_adjacency(make_topology(
+        n, cfg.topology)).astype(np.float32)).cuda()
+
+    def he(i, o):
+        return torch.randn(i, o, generator=gen, device="cuda") / i ** 0.5
+
+    def bias(o):
+        return 0.1 * torch.randn(o, generator=gen, device="cuda")
+    h, hid = cfg.gcn_hidden, cfg.actor_hidden
+    dims = [f] + [h] * cfg.gcn_layers
+    gcn = {"w": [he(dims[i], dims[i + 1]) for i in range(len(dims) - 1)],
+           "b": [bias(d) for d in dims[1:]]}
+    head = {"w1": he(h + f, hid), "b1": bias(hid), "w2": he(hid, 1),
+            "b2": bias(1)}
+    obs = torch.randn(*lead, n, f, generator=gen, device="cuda")
+    up = torch.ones(*lead, n, device="cuda")
+    if mask == "one_down":
+        up[..., 0] = 0.0
+    elif mask == "rows":
+        up = (torch.rand(*lead, n, generator=gen, device="cuda")
+              > 0.4).float()
+    elif mask == "all_down":
+        up.zero_()
+    nz = torch.randn(*lead, n, generator=gen, device="cuda") if noise \
+        else None
+    return a, obs, gcn, head, up, nz
+
+
+def phase_parity_actor(torch, ops, ref, gen) -> float:
+    """The balancer's whole action, one gcn_actor launch, against its
+    plain version, f32: the serve defaults (2 nodes, F 12), the paper's
+    cluster (16, F 36), a masked node with noise, a batch of observations
+    with their own masks, every node down (the uniform split), and the
+    largest graph that ``gcn_actor_fits`` admits. One node above it the
+    action runs layered (``ddpg.actor_action(..., fused=False)``): two
+    gcn_layer launches and the eager head, held to the same plain
+    version."""
+    from repro_torch.core import ddpg
+
+    worst = 0.0
+    n_max = max(n for n in range(1, 1024) if ops.gcn_actor_fits(n, 12, 64,
+                                                                 128))
+    cases = [(2, 12, (), "all_up", False), (16, 36, (), "all_up", False),
+             (16, 36, (), "one_down", True), (5, 12, (3,), "rows", True),
+             (2, 12, (), "all_down", True), (n_max, 12, (), "one_down", True),
+             (n_max + 1, 12, (), "one_down", True)]
+    for n, f, lead, mask, noise in cases:
+        a, obs, gcn, head, up, nz = _actor_inputs(torch, gen, n, f, lead,
+                                                  mask, noise)
+        actor = {"gcn": gcn, "head": head}
+        fused = ddpg.actor_fits(actor, n, f)
+        before = ops.LAUNCHES["gcn_layer"]
+        got = ddpg.actor_action(actor, a, obs, up_mask=up, noise=nz,
+                                fused=fused)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["gcn_layer"] - before
+        want = ref.gcn_actor_ref(a, obs, gcn, head, up_mask=up, noise=nz)
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **GCN_TOL,
+                                   msg=lambda m: f"gcn_actor {n} {f}: {m}")
+        if launches != (1 if fused else len(gcn["w"])) \
+                or fused != (n <= n_max):
+            raise AssertionError(f"gcn_actor N={n}: fused {fused}, "
+                                 f"{launches} launches")
+        worst = max(worst, err)
+        log(f"[parity] gcn_actor N={n} F={f} lead={lead} mask={mask} "
+            f"noise={noise} f32: {'fused, 1 launch' if fused else 'layered'}"
+            f"{'' if fused else f', {launches} gcn_layer launches'}; "
+            f"max|err|={err:.3e} (atol/rtol {GCN_TOL['atol']}); fractions "
+            f"max {want.max().item():.3f} min {want.min().item():.3e}")
+    return worst
+
+
 def phase_parity_gcn(torch, ops, ref, gen) -> float:
     """gcn_layer against its plain version, f32, relu on and off, at the
-    control plane's shapes and beyond, plus one batched case."""
-    worst = 0.0
+    control plane's shapes and beyond, plus one batched case; then the
+    whole action (``phase_parity_actor``)."""
+    worst = phase_parity_actor(torch, ops, ref, gen)
     cases = [((n, f), (f, h), relu) for n, f, h in GCN_SHAPES
              for relu in (True, False)] + [((4, 16, 36), (36, 64), True)]
     for xs, ws, relu in cases:
@@ -398,7 +498,7 @@ def phase_parity_gcn(torch, ops, ref, gen) -> float:
 
 
 # ------------------------------------------------------------------ phase 4
-def _serve_args(serve, backend="kernel"):
+def _serve_args(serve, backend="pallas"):
     return serve.build_parser().parse_args(
         ["--policy", "lc", "--replicas", str(REPLICAS), "--max-batch",
          str(MAX_BATCH), "--max-seq", str(MAX_SEQ), "--requests",
@@ -410,8 +510,8 @@ def _per_dispatch(cfg) -> dict:
     """Launches of each kernel per (prefill, decode) dispatch of ``cfg``'s
     model: the attention kernels once per attention layer (the hybrid's
     shared block once per invocation), ssd_scan once per mamba layer in
-    prefill and never in decode. gcn_layer runs in the plane: twice a
-    tick."""
+    prefill and never in decode. gcn_layer runs in the plane: once a
+    tick (the balancer's whole action)."""
     from repro_torch.models.ssm_lm import n_invocations
 
     dense = cfg.family == "dense"
@@ -425,7 +525,7 @@ def _check_launches(cfg, launches, prefill, decode, ticks=0) -> None:
     a kernel of the run's path was never launched."""
     want = {k: p * prefill + d * decode
             for k, (p, d) in _per_dispatch(cfg).items()}
-    want["gcn_layer"] = 2 * ticks
+    want["gcn_layer"] = ticks
     path = [k for k, (p, d) in _per_dispatch(cfg).items() if p or d]
     if ticks:
         path.append("gcn_layer")
@@ -498,7 +598,7 @@ def phase_paths(torch, cfg, model, params, workload, small):
         # both paths decode the token the einsum path's prefill chose, so
         # the decode logits compare like with like even where a near-tie
         # of the prefill logits flips an argmax within the tolerance
-        for backend in ("einsum", "kernel"):
+        for backend in ("einsum", "pallas"):
             logits, cache, pos = model.prefill(
                 p, batch, cache_len=MAX_SEQ, cache_dtype=dt,
                 attn_backend=backend)
@@ -509,7 +609,7 @@ def phase_paths(torch, cfg, model, params, workload, small):
             out[backend] = (logits.float(), dlogits.float())
             del cache
         for i, what in enumerate(("prefill last-token", "first decode")):
-            k, e = out["kernel"][i], out["einsum"][i]
+            k, e = out["pallas"][i], out["einsum"][i]
             rel = ((k - e).abs().max() / e.abs().max()).item()
             flip = k.argmax(-1) != e.argmax(-1)
             top2 = e.topk(2, dim=-1).values
@@ -530,17 +630,17 @@ def phase_paths(torch, cfg, model, params, workload, small):
     # whole drain-mode path
     cfg2, model2, params2 = small
     streams = {}
-    for backend in ("kernel", "einsum"):
+    for backend in ("pallas", "einsum"):
         fe, _, _ = serve.run_drain_mode(_serve_args(serve, backend), cfg2,
                                         model2, params2,
                                         cache_dtype=torch.float32,
                                         workload=workload)
         streams[backend] = sorted((r.rid, tuple(r.output), r.first_token_time,
                                    r.finish_time) for r in fe.finished)
-    same = streams["kernel"] == streams["einsum"]
-    n_tok = sum(len(s[1]) for s in streams["kernel"])
+    same = streams["pallas"] == streams["einsum"]
+    n_tok = sum(len(s[1]) for s in streams["pallas"])
     log(f"[paths] {cfg.name} f32 full width, 2 layers: "
-        f"{len(streams['kernel'])} "
+        f"{len(streams['pallas'])} "
         f"requests, {n_tok} tokens, streams identical: {same}")
     if not same:
         raise AssertionError("f32 greedy streams differ between kernel and "
@@ -623,9 +723,9 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
         f"p50 {statistics.median(tick_ms):.2f} p95 "
         f"{tick_ms[int(0.95 * (len(tick_ms) - 1))]:.2f}; engine sync wait "
         f"{fe.sync_wait_s():.3f}s; plane host ms/tick forecast "
-        f"{hs['forecast']:.2f} balance {hs['balance']:.2f} scale "
-        f"{hs['scale']:.2f}; plane fetches {plane.fetches}, fetch wait "
-        f"{plane.fetch_wait:.3f}s")
+        f"{hs['forecast']:.2f} balance {hs['balance']:.2f} (actor "
+        f"{plane.rl.actor}) scale {hs['scale']:.2f}; plane fetches "
+        f"{plane.fetches}, fetch wait {plane.fetch_wait:.3f}s")
     led = fe.ledger
     if not (led.balanced() and len(fe.finished) == led.submitted
             and all(r.done for r in fe.finished)):
@@ -651,7 +751,104 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
     if plan_times:
         _plan_times(plane)
     return {"launches": launches, "digest": _digest(fe),
-            "rows": fe.peak_slab_rows(), "shapes": fe.prefill_shapes()}
+            "rows": fe.peak_slab_rows(), "shapes": fe.prefill_shapes(),
+            "balance_ms": hs["balance"]}
+
+
+def phase_balance_ab(torch, ops, cfg, model, params, control) -> None:
+    """The plane's balance phase, host ms a tick, with the balancer's
+    action fused (one gcn_actor launch) against layered (two gcn_layer
+    launches and the eager head): the control loop of phase 6 again with
+    the balancer forced layered, twice, then fused, so that with phase 6's
+    run the order is fused, layered, layered, fused. The same weights (the
+    seed's) on both paths; each run's launches a tick are checked, and its
+    digest must equal phase 6's (the two paths' fractions differ by f32
+    rounding only, and on this seed no routing decision is that close).
+    Then the balance phase alone over larger graphs
+    (``_balance_by_nodes``)."""
+    from repro_torch.core import balancer as bal
+    from repro_torch.launch import serve
+
+    args = _control_args(serve)
+    ccfg = serve.cluster_config(args)
+    ms = {"fused": [control["balance_ms"]], "layered": []}
+    for layered in (True, True, False):
+        rl = bal.RLBalancer(ccfg, 4 + ccfg.horizon, seed=SEED,
+                            device="cuda", layered=layered)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = serve.run_control_loop(args, cfg, model, params,
+                                     cache_dtype=torch.bfloat16, rl=rl)
+        torch.cuda.synchronize()
+        n = len(out["ticks"])
+        per_tick = ops.LAUNCHES["gcn_layer"] / n
+        if per_tick != (2 if layered else 1):
+            raise AssertionError(f"{rl.actor}: {per_tick} gcn_layer "
+                                 "launches a tick")
+        if _digest(out["fe"]) != control["digest"]:
+            raise AssertionError(f"control loop with the actor {rl.actor}: "
+                                 "digest differs from phase 6's")
+        ms[rl.actor].append(out["plane"].host_s["balance"] / n * 1e3)
+        del out
+    log(f"[control] {cfg.name} balance host ms a tick, fused / layered in "
+        f"turns (fused, layered, layered, fused): "
+        f"{ms['fused'][0]:.3f}, {ms['layered'][0]:.3f}, "
+        f"{ms['layered'][1]:.3f}, {ms['fused'][1]:.3f}; means fused "
+        f"{statistics.mean(ms['fused']):.3f} layered "
+        f"{statistics.mean(ms['layered']):.3f}; gcn_layer launches a tick "
+        f"fused 1, layered 2; digests equal to phase 6's")
+    _balance_by_nodes(torch, ops, ccfg)
+
+
+def _balance_by_nodes(torch, ops, ccfg, calls: int = 200) -> None:
+    """The plane's balance phase alone (``ControlPlane._balance``: the two
+    host-to-device copies, the action, the fetch of the fractions), host
+    ms a call, fused against layered in turns (fused, layered, layered,
+    fused) at graphs of 2, 16, 64, 128 and 144 nodes (the largest that one
+    block holds at these widths), F as in the control loop. The
+    ``RLBalancer`` picks fused by shared-memory fit alone; above ~64 nodes
+    the one-block action is slower on the device than the layered chain,
+    so this reads whether the host's saving still outweighs it."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.control.plane import ControlPlane
+    from repro_torch.core import balancer as bal
+
+    feat = 4 + ccfg.horizon
+    rng = np.random.default_rng(SEED)
+    for n in (2, 16, 64, 128, 144):
+        cc = dataclasses.replace(ccfg, num_nodes=n)
+        obs = rng.standard_normal((n, feat)).astype(np.float32)
+        up = np.ones(n, np.float32)
+        ms = {"fused": [], "layered": []}
+        for layered in (False, True, True, False):
+            rl = bal.RLBalancer(cc, feat, seed=SEED, device="cuda",
+                                layered=layered)
+            if rl.actor != ("layered" if layered else "fused"):
+                raise AssertionError(f"N={n}: actor {rl.actor}")
+            plane = ControlPlane(cc, types.SimpleNamespace(num_nodes=n),
+                                 balancer="rl", rl=rl, device="cuda")
+            for _ in range(10):
+                plane._balance(obs, up, 1.0)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fr = plane._balance(obs, up, 1.0)
+            ms[rl.actor].append((time.perf_counter() - t0) / calls * 1e3)
+            if ops.LAUNCHES["gcn_layer"] != calls * (2 if layered else 1) \
+                    or abs(float(fr.sum()) - 1.0) > 1e-5:
+                raise AssertionError(f"N={n} {rl.actor}: "
+                                     f"{ops.LAUNCHES['gcn_layer']} launches, "
+                                     f"fractions sum {fr.sum()}")
+        log(f"[control] balance phase alone N={n} F={feat}, host ms a call "
+            f"({calls} calls) in turns (fused, layered, layered, fused): "
+            f"{ms['fused'][0]:.4f}, {ms['layered'][0]:.4f}, "
+            f"{ms['layered'][1]:.4f}, {ms['fused'][1]:.4f}; means fused "
+            f"{statistics.mean(ms['fused']):.4f} layered "
+            f"{statistics.mean(ms['layered']):.4f}")
+    ops.reset_launches()
 
 
 def _plan_times(plane) -> None:
@@ -866,7 +1063,60 @@ def phase_times(torch, F, ops, ref, cfg, reps, workload, shapes, control):
         log(f"[times] gcn_layer N={n} F={f} H={h} relu={relu} f32: kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, addmm {lib:.4f} ms, bound "
             f"{bound:.6f} ms ({by}: {nbytes} B, {flops} flop)")
+    rows["gcn_layer"].update(_time_actor(torch, ops, ref, gen))
+    # the main path launches the kernel as the whole action, never as one
+    # layer: its launches go with the actor_* times
+    rows["gcn_layer"]["launches_of"] = (
+        "gcn_actor: one launch a balancer action, timed by actor_ms, "
+        "actor_library_ms (the layered chain) and actor_bound_ms; ms, "
+        "plain_ms, bound_ms and library_ms time one layer (gcn_layer), "
+        "which the main path does not launch at its 2 nodes")
     return rows
+
+
+def _time_actor(torch, ops, ref, gen) -> dict:
+    """The balancer's whole action as the plane calls it (every node up, no
+    noise): one gcn_actor launch, the layered chain the port ran before
+    (two gcn_layer launches, then the head, mask and softmax as eager ops;
+    no single PyTorch call computes the action, so this chain is its
+    library yardstick) and the plain version, at the serve defaults (the
+    JSON row's actor_* keys) and the paper's 16-node cluster. Bound: A_hat,
+    obs, the mask, every weight and bias read once and the fractions
+    written once, against the operations of the layers, the head and the
+    softmax at 67 TFLOP/s f32; the floor in practice is the launch."""
+    from repro_torch.core import ddpg
+
+    out = {}
+    for n, f in ((2, 12), (16, 36)):
+        a, obs, gcn, head, up, _ = _actor_inputs(torch, gen, n, f)
+        actor = {"gcn": gcn, "head": head}
+        n_in = 20
+        ms = _graph_ms(torch, lambda: [ops.gcn_actor(a, obs, gcn, head,
+                                                     up_mask=up)
+                                       for _ in range(n_in)], n_in)
+        lib = _graph_ms(torch, lambda: [ddpg.actor_action(
+            actor, a, obs, up_mask=up, fused=False) for _ in range(n_in)],
+            n_in)
+        plain = _graph_ms(torch, lambda: [ref.gcn_actor_ref(
+            a, obs, gcn, head, up_mask=up) for _ in range(n_in)], n_in)
+        dims = [f] + [w.shape[1] for w in gcn["w"]]
+        hid = head["w1"].shape[1]
+        layers = list(zip(dims[:-1], dims[1:]))
+        nbytes = 4 * (n * n + n * f + sum(i * o + o for i, o in layers)
+                      + (dims[-1] + f) * hid + 2 * hid + 1 + 2 * n)
+        flops = sum(2 * n * n * i + 2 * n * i * o + n * o
+                    for i, o in layers) \
+            + 2 * n * (dims[-1] + f) * hid + 3 * n * hid + 4 * n
+        bound, by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+        if not out:
+            out = dict(actor_ms=ms, actor_library_ms=lib,
+                       actor_bound_ms=bound)
+        log(f"[times] gcn_actor N={n} F={f} widths {dims[1:]} head {hid} "
+            f"f32: kernel {ms:.4f} ms (one launch), layered {lib:.4f} ms "
+            f"({len(layers)} gcn_layer launches + the eager head), plain "
+            f"{plain:.4f} ms, bound {bound:.6f} ms ({by}: {nbytes} B, "
+            f"{flops} flop)")
+    return out
 
 
 def phase_step_times(torch, cfg, model, params, reps, workload):
@@ -1010,7 +1260,7 @@ def phase_fleet_write(torch, small):
     keep[write.long()] = False
     wl, at = write.long(), pos[write.long()].long()
     logits = {}
-    for backend in ("kernel", "einsum"):
+    for backend in ("pallas", "einsum"):
         cache = {k: c.clone() for k, c in slab.items()}
         logits[backend], _ = model2.decode(params2, cache, tok, pos,
                                            attn_backend=backend,
@@ -1023,7 +1273,7 @@ def phase_fleet_write(torch, small):
                     and not torch.equal(c[:, wl, at], slab[k][:, wl, at])):
                 raise AssertionError(f"{backend}: the fleet write of {k} "
                                      "touched rows or positions it must not")
-    k, e = logits["kernel"], logits["einsum"]
+    k, e = logits["pallas"], logits["einsum"]
     rel = ((k - e).abs().max() / e.abs().max()).item()
     log(f"[fleet] f32 full width, 2 layers, {n} slab rows x {S}, rows "
         f"{write.tolist()} stepping at pos {pos.tolist()}: non-stepping rows "
@@ -1082,6 +1332,8 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
     if dense:
         phase_fleet_write(torch, small)
     control = phase_control(torch, ops, cfg, model, params, plan_times=dense)
+    if dense:
+        phase_balance_ab(torch, ops, cfg, model, params, control)
     rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes,
                        control) if dense else {}
     phase_step_times(torch, cfg, model, params, reps, workload)

@@ -76,14 +76,19 @@ class RLBalancer:
     """The paper's balancer: GCN+DDPG actor producing A_t from S_t, on
     ``device``. ``state`` is the actor/critic parameters: given (e.g. the
     reference's, through ``repro_torch.bridge.rl_from_jax``), or drawn from
-    a ``torch.Generator`` seeded with ``seed``. Acting greedily runs both
-    GCN layers through the ``gcn_layer`` kernel. Training is not yet
-    ported (the serve path never trains)."""
+    a ``torch.Generator`` seeded with ``seed``. Acting greedily runs the
+    whole action as one launch of the GCN kernel (``actor`` "fused") when
+    the topology's graph fits one block (``ddpg.actor_fits``), else
+    "layered": both GCN layers through the ``gcn_layer`` kernel, the head
+    as eager ops. ``layered=True`` forces the latter (the A/B against the
+    fused path). Training is not yet ported (the serve path never
+    trains)."""
     cluster_cfg: "ClusterConfig"
     feat_dim: int
     seed: int = 0
     device: object = "cuda"
     state: ddpg.DDPGState = None
+    layered: bool = False
 
     def __post_init__(self):
         cfg = self.cluster_cfg
@@ -93,6 +98,9 @@ class RLBalancer:
         if self.state is None:
             gen = torch.Generator(device=self.device).manual_seed(self.seed)
             self.state = ddpg.init_ddpg(gen, self.feat_dim, cfg)
+        fits = ddpg.actor_fits(self.state.actor, cfg.num_nodes,
+                               self.feat_dim)
+        self.actor = "fused" if fits and not self.layered else "layered"
         self.buffer = ddpg.ReplayBuffer(cfg.buffer_size, cfg.num_nodes,
                                         self.feat_dim)
         self._rng = np.random.default_rng(self.seed)
@@ -107,7 +115,8 @@ class RLBalancer:
                 0.0, self.cluster_cfg.noise_sigma, tuple(obs.shape[:-1])),
                 np.float32)).to(self.device)
         return ddpg.actor_action(self.state.actor, self.a_hat, obs,
-                                 up_mask=up_mask, noise=noise)
+                                 up_mask=up_mask, noise=noise,
+                                 fused=self.actor == "fused")
 
     # -- learning -------------------------------------------------------
     def observe(self, obs, action, reward, next_obs, up_mask):

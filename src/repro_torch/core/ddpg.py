@@ -9,10 +9,12 @@ fusion": every agent (node) runs the same head on its GCN-fused local view.
 Critic: Q(S_t, A_t) — GCN embeddings concat per-node action, shared MLP,
 summed over nodes (permutation-equivariant).
 
-Parameters are nested dicts of tensors. ``init_*`` draw them from a
-``torch.Generator``; ``repro_torch.bridge.rl_from_jax`` carries the
-reference's across instead. Training (``ddpg_update``) belongs to a later
-slice of the port: the serve path acts greedily and never trains.
+The greedy action runs as one launch of the GCN kernel (``ops.gcn_actor``)
+or layered; ``RLBalancer`` chooses once, from the graph's size. Parameters are nested dicts
+of tensors. ``init_*`` draw them from a ``torch.Generator``;
+``repro_torch.bridge.rl_from_jax`` carries the reference's across instead.
+Training (``ddpg_update``) belongs to a later slice of the port: the serve
+path acts greedily and never trains.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gcn import gcn_apply, init_gcn
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import he_init
 
 
@@ -56,24 +59,29 @@ def init_critic(generator, feat_dim, cfg) -> dict:
     }
 
 
-def actor_logits(params, a_hat, obs):
-    """obs: (..., N, F) -> per-node logits (..., N)."""
-    h = gcn_apply(params["gcn"], a_hat, obs)
-    h = torch.cat([h, obs], dim=-1)            # local skip (info fusion)
-    return mlp_head(params["head"], h)[..., 0]
+def actor_fits(params, n_nodes: int, feat_dim: int) -> bool:
+    """Whether ``ops.gcn_actor`` takes this actor over ``n_nodes`` nodes of
+    ``feat_dim`` features in one launch."""
+    ws = params["gcn"]["w"]
+    return ops.gcn_actor_fits(n_nodes, feat_dim, max(w.shape[1] for w in ws),
+                              params["head"]["w1"].shape[1], len(ws))
 
 
-def actor_action(params, a_hat, obs, up_mask=None, noise=None):
+def actor_action(params, a_hat, obs, up_mask=None, noise=None, fused=True):
     """Simplex allocation over nodes (Eq.4). Noise (Eq.7) added to logits.
 
     up_mask: (..., N) 1 for healthy nodes — failed nodes get zero traffic.
+    ``fused`` runs the whole action as one ``ops.gcn_actor`` launch (on a
+    card the graph must fit one block: ``actor_fits``, else it raises);
+    False runs it layered: each GCN layer through ``ops.gcn_layer``, then
+    the head, mask and softmax as eager ops. The caller chooses
+    (``RLBalancer``, once).
     """
-    logits = actor_logits(params, a_hat, obs)
-    if noise is not None:
-        logits = logits + noise
-    if up_mask is not None:
-        logits = torch.where(up_mask > 0, logits, -1e9)
-    return torch.softmax(logits, dim=-1)
+    if fused:
+        return ops.gcn_actor(a_hat, obs, params["gcn"], params["head"],
+                             up_mask=up_mask, noise=noise)
+    h = gcn_apply(params["gcn"], a_hat, obs)
+    return ref.actor_head_ref(h, obs, params["head"], up_mask, noise)
 
 
 def critic_q(params, a_hat, obs, action):

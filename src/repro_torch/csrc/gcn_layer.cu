@@ -1,55 +1,292 @@
-// One GCN layer for Hopper (sm_90a): out = relu?(A_hat . X . W + b), f32.
+// The GCN of the paper's Eq. 6 for Hopper (sm_90a), f32: one layer
+// relu?(A_hat . X . W + b), or the balancer's whole greedy action -- L GCN
+// layers, the actor's per-node head and the masked softmax over the nodes
+// -- in one launch.
 //
 // Replaces the Pallas TPU kernel `_gcn_kernel` / `gcn_layer` in
-// src/repro/kernels/gcn_fused.py, the paper's Eq. 6 on the cluster graph.
-// The balancer's actor runs two of these on every control tick.
+// src/repro/kernels/gcn_fused.py (one layer, A_hat . X kept in VMEM). The
+// balancer runs two layers and a head on every control tick
+// (repro.core.ddpg.actor_action).
 //
-// Shapes: A_hat (N, N), X (Bt, N, F), W (F, H), b (H,), out (Bt, N, H), all
-// contiguous f32. The serve path passes Bt = 1 (X is (N, F)); the batched
-// form serves a batch of observations.
+// Shapes: A_hat (N, N), X (Bt, N, F), W_l (d_l, d_{l+1}) with d_0 = F,
+// b_l (d_{l+1},), all contiguous f32. The head: W1 (d_L + F, hidden), b1
+// (hidden,), W2 (hidden, 1), b2 (1,), and optional noise and up-mask rows
+// of N (one for every batch element, or one for all). One layer writes
+// (Bt, N, d_1); the action writes the fractions (Bt, N).
 //
 // Bound: neither bytes nor operations. The control plane's graphs are tiny
-// (N = 2 at the serve defaults, 16 in the paper's cluster): the inputs are a
-// few KB and the work a few hundred thousand FMAs, nanoseconds at 3.35 TB/s
-// or 67 TFLOP/s f32. What bounds a call in practice is the launch itself
-// (a few microseconds). So the design aims at one launch per layer with
-// the intermediate kept on chip, which is what the TPU kernel did in VMEM:
+// (N = 2 at the serve defaults, 16 in the paper's cluster): the inputs and
+// weights are ~60 KB and the action ~60 KFLOP at the serve defaults (~0.7
+// MFLOP at N 16), nanoseconds at 3.35 TB/s or 67 TFLOP/s f32. What bounds a
+// call is its launch (a few microseconds) and, inside it, chains of
+// dependent loads and barriers. The balancer's action used to be ~10
+// launches (two layers, concat, the head's matmuls, bias adds and relu,
+// mask, softmax). So the design is one launch and one block per
+// observation, with every intermediate in shared memory:
 //
-//   * one block per (tile of kTM output rows, batch element);
-//   * the block computes its kTM x F rows of A_hat . X into shared memory,
-//     streaming X through shared memory kKM rows at a time together with
-//     the matching kTM x kKM tile of A_hat;
-//   * it then multiplies those rows by W (read through the read-only cache),
-//     adds b, applies the relu and writes out. A_hat . X never reaches HBM.
+//   * one layer (gcn_layer_launch): one block per (tile of kTM output
+//     rows, batch element). The block computes its kTM x F rows of
+//     A_hat . X into shared memory, streaming X through shared memory kKM
+//     rows at a time with the matching kTM x kKM tile of A_hat, then
+//     multiplies them by W (read through the read-only cache), adds b,
+//     applies the relu and writes out. A_hat . X never reaches HBM;
+//   * the action (gcn_actor_launch): one block of 256 threads per
+//     observation (grid (Bt,)). It first puts everything it reads in
+//     flight to shared memory, in one group a layer: X, A_hat, the mask
+//     and noise rows with layer 0's weights, then each layer's weights,
+//     then the head's. Thread 0 sends each buffer's whole 16 bytes as one
+//     bulk copy of the tensor memory accelerator, completing on the
+//     group's mbarrier; the block sends the rest (an unaligned source, a
+//     ragged end) by 4-byte cp.async. Each layer waits only for its own
+//     group, and no thread walks a chain of loads from L2. A layer runs
+//     over row tiles of the whole graph: the tile's rows of A_hat . h,
+//     then . W + b, from and to shared memory; two output buffers
+//     ping-pong, so layer l + 1 never overwrites what layer l still reads.
+//     Layers relu all but the last. The head reads [h_L, X] (the concat is
+//     implicit): each (node, hidden unit) belongs to one thread, 32
+//     consecutive units to one warp, which folds relu(.W1 + b1) . W2 into a
+//     warp sum; the node's logit sums its warps' partials in order, adds
+//     b2, the noise, and takes -1e9 where the node is down. A block
+//     reduction (max, then the sum of exp) gives the softmax; with every
+//     node down it is the uniform split, as in the plain version.
 //
-// Plain f32 FMA throughout: at these sizes tensor cores would not move the
-// launch-bound time. Ragged row tiles (N % kTM) and ragged X chunks are
-// masked. Shared memory is (kTM + kKM) * F + kTM * kKM floats; above 48 KB
-// (F > 376) it is requested through the max-dynamic-shared-memory function
-// attribute, up to the card's 227 KB (F <= 1,808).
+// Each product gives a thread up to kRows output rows of one column, so
+// each weight it reads serves them all. Plain f32 FMA throughout: TF32
+// would not move a launch-bound time and would risk the f32 gate. Ragged
+// row tiles and X chunks are masked; the hidden width is padded to a warp.
+// Shared memory is Layout::total floats (mirrored by kernels/gcn_fused.py
+// smem_bytes): above 48 KB it is requested through the
+// max-dynamic-shared-memory function attribute, up to the card's 227 KB.
+// One layer takes F up to ~1,800 at any N; the action at the paper's widths
+// takes N up to 144 nodes (F 12) or 126 (F 36), A_hat being N x N.
+//
+// For tools/gcn_breakdown.py, -DGCN_SKIP=bits leaves parts of the action
+// out (1 the head's products, 2 the products by W, 4 the products
+// A_hat . h, 8 the copies of A_hat and the weights, 16 the softmax), so
+// that it computes garbage: only its time means anything.
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#ifndef GCN_SKIP
+#define GCN_SKIP 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTM = 16;  // output rows per block
-constexpr int kKM = 16;  // rows of X (columns of A_hat) staged per step
+constexpr int kWarps = kThreads / 32;
+constexpr int kTM = 16;    // output rows a tile
+constexpr int kKM = 16;    // input rows (columns of A_hat) a step
+constexpr int kRows = 4;   // output rows a thread carries, a product
+constexpr int kMaxLayers = 4;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the H100's per-block limit
 
-__global__ void __launch_bounds__(kThreads)
-gcn_layer_kernel(const float* __restrict__ a, const float* __restrict__ x,
-                 const float* __restrict__ w, const float* __restrict__ b,
-                 float* __restrict__ out, int n, int f, int h, int relu) {
-  extern __shared__ float smem[];
-  float* ax = smem;            // kTM x f: this tile's rows of A_hat . X
-  float* xs = ax + kTM * f;    // kKM x f: the staged rows of X
-  float* as = xs + kKM * f;    // kTM x kKM: the matching tile of A_hat
-  const int row0 = blockIdx.x * kTM;
-  const int rows = min(kTM, n - row0);
-  const float* xb = x + static_cast<long long>(blockIdx.y) * n * f;
-  const int tid = threadIdx.x;
+struct Layers {
+  const float* w[kMaxLayers];
+  const float* b[kMaxLayers];
+  int dim[kMaxLayers + 1];  // dim[0] = F, dim[l + 1] = layer l's width
+  int n_layers;
+  int relu_last;            // one layer alone: relu after it
+};
 
+struct Head {               // the actor's head; w1 == nullptr: one layer
+  const float* w1;          // (dim[L] + F, hidden)
+  const float* b1;          // (hidden,)
+  const float* w2;          // (hidden, 1)
+  const float* b2;          // (1,)
+  const float* noise;       // nullptr, or rows of n, noise_bs apart
+  const float* mask;        // nullptr, or rows of n, mask_bs apart
+  int hidden;
+  int noise_bs, mask_bs;    // n (a row per batch element) or 0 (one row)
+};
+
+// Offsets (in floats, each a multiple of 4) of the shared-memory buffers;
+// -1: unused. Computed on the host and passed to the kernel.
+struct Layout {
+  int ax, as, xs, hx, h0, h1, part, logit, red, mask, noise, bar;
+  int w[kMaxLayers], b[kMaxLayers], w1, b1, w2, b2;
+  int total;
+};
+
+// One layer alone (hidden 0): a tile of A_hat . X and the staging of X and
+// A_hat in tiles. The action: everything it reads and makes, whole.
+Layout make_layout(int n, const Layers& ly, int hidden) {
+  Layout s;
+  s.ax = s.as = s.xs = s.hx = s.h0 = s.h1 = s.part = s.logit = s.red = -1;
+  s.mask = s.noise = s.bar = s.w1 = s.b1 = s.w2 = s.b2 = -1;
+  int fin = 0, fout = 0;
+  for (int l = 0; l < kMaxLayers; ++l) {
+    s.w[l] = s.b[l] = -1;
+    if (l < ly.n_layers) {
+      fin = fin > ly.dim[l] ? fin : ly.dim[l];
+      fout = fout > ly.dim[l + 1] ? fout : ly.dim[l + 1];
+    }
+  }
+  int o = 0;
+  auto take = [&o](int floats) {
+    const int at = o;
+    o += (floats + 3) & ~3;  // 16-byte aligned buffers, for the copies
+    return at;
+  };
+  s.ax = take(kTM * fin);      // a tile's rows of A_hat . h
+  if (hidden == 0) {
+    s.as = take(kTM * kKM);    // a tile of A_hat
+    s.xs = take(kKM * fin);    // the staged rows of X
+  } else {
+    s.bar = take(2 * (kMaxLayers + 1));  // a copy barrier a group
+    s.as = take(n * n);                  // A_hat
+    s.hx = take(n * ly.dim[0]);          // X
+    s.h0 = take(n * fout);               // the layers' outputs, ping-pong
+    if (ly.n_layers > 1) s.h1 = take(n * fout);
+    for (int l = 0; l < ly.n_layers; ++l) {
+      s.w[l] = take(ly.dim[l] * ly.dim[l + 1]);
+      s.b[l] = take(ly.dim[l + 1]);
+    }
+    s.w1 = take((ly.dim[ly.n_layers] + ly.dim[0]) * hidden);
+    s.b1 = take(hidden);
+    s.w2 = take(hidden);
+    s.b2 = take(1);
+    s.mask = take(n);                         // the up-mask row
+    s.noise = take(n);                        // the noise row
+    s.part = take(n * ((hidden + 31) / 32));  // the head's warp partials
+    s.logit = take(n);                        // logits, then exp
+    s.red = take(kWarps);                     // block reductions
+  }
+  s.total = o;
+  return s;
+}
+
+__device__ inline unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ inline void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ inline void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's cp.async groups are in
+// flight (the count must be an immediate, hence the switch).
+__device__ inline void cp_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+  }
+}
+
+__device__ inline void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Makes the barriers' initialisation visible to the bulk copies.
+__device__ inline void bar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ inline void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// One bulk copy by the tensor memory accelerator, completing on `bar`.
+__device__ inline void bulk_copy(float* dst, const float* src,
+                                 unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits for the barrier's first phase: the group's bulk copies landed.
+__device__ inline void bar_wait(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra WAIT;\n"
+      "}\n"
+      :: "r"(smem_addr(bar)) : "memory");
+}
+
+// n floats from src to dst, a buffer of make_layout (16-byte aligned).
+struct Copy {
+  float* dst;
+  const float* src;
+  int n;
+};
+
+// The part of a copy that goes as one bulk copy: whole 16 bytes from an
+// aligned source; the rest goes by 4-byte cp.async.
+__device__ inline int bulk_floats(const Copy& c) {
+  return (reinterpret_cast<uintptr_t>(c.src) & 15) ? 0 : c.n & ~3;
+}
+
+// Puts one group of copies in flight: thread 0 expects their bulk bytes on
+// `bar` and issues the bulk copies; the block issues the 4-byte rest as
+// one cp.async group.
+template <int kCount>
+__device__ void stage(const Copy (&copies)[kCount], uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    unsigned bytes = 0;
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) bytes += 4u * bulk_floats(copies[j]);
+    bar_expect(bar, bytes);
+#pragma unroll
+    for (int j = 0; j < kCount; ++j) {
+      const int nb = bulk_floats(copies[j]);
+      if (nb) bulk_copy(copies[j].dst, copies[j].src, 4u * nb, bar);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kCount; ++j)
+    for (int i = bulk_floats(copies[j]) + threadIdx.x; i < copies[j].n;
+         i += kThreads)
+      cp_async4(copies[j].dst + i, copies[j].src + i);
+  cp_commit();
+}
+
+__device__ inline float warp_sum(float v) {
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  return v;
+}
+
+__device__ inline float warp_max(float v) {
+  for (int s = 16; s > 0; s >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, s));
+  return v;
+}
+
+// The block's max (is_max) or sum of v, in a fixed order, in every thread.
+__device__ float block_reduce(float v, float* red, bool is_max) {
+  v = is_max ? warp_max(v) : warp_sum(v);
+  __syncthreads();  // the previous reduction's reads of red are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
+  return r;
+}
+
+// ax (rows x f) = rows row0 .. row0 + kTM of A_hat . X, X (n x f) in
+// device memory, staged through xs kKM rows at a time with the matching
+// tile of A_hat in as. Ends with a barrier: ax is complete.
+__device__ void aggregate(const float* __restrict__ a,
+                          const float* __restrict__ x, float* xs, float* as,
+                          float* ax, int n, int f, int row0) {
+  const int tid = threadIdx.x;
+  const int rows = min(kTM, n - row0);
   // every (row, feature) of the tile is owned by one thread for the whole
   // sum, through the same strided mapping in each pass below
   for (int i = tid; i < rows * f; i += kThreads) ax[i] = 0.f;
@@ -57,11 +294,11 @@ gcn_layer_kernel(const float* __restrict__ a, const float* __restrict__ x,
     const int km = min(kKM, n - m0);
     __syncthreads();  // the previous chunk has been consumed
     for (int i = tid; i < km * f; i += kThreads)
-      xs[i] = xb[static_cast<long long>(m0) * f + i];
+      xs[i] = __ldg(x + static_cast<long long>(m0) * f + i);
     for (int i = tid; i < kTM * kKM; i += kThreads) {
       const int r = i / kKM, c = i % kKM;
       as[i] = (r < rows && c < km)
-                  ? a[static_cast<long long>(row0 + r) * n + m0 + c]
+                  ? __ldg(a + static_cast<long long>(row0 + r) * n + m0 + c)
                   : 0.f;
     }
     __syncthreads();
@@ -73,57 +310,333 @@ gcn_layer_kernel(const float* __restrict__ a, const float* __restrict__ x,
     }
   }
   __syncthreads();
+}
 
-  float* ob = out + (static_cast<long long>(blockIdx.y) * n + row0) * h;
-  for (int i = tid; i < rows * h; i += kThreads) {
-    const int r = i / h, c = i % h;
-    const float* axr = ax + r * f;
-    float s = 0.f;
-    for (int k = 0; k < f; ++k)
-      s = fmaf(axr[k], __ldg(w + static_cast<long long>(k) * h + c), s);
-    s += __ldg(b + c);
-    ob[i] = relu ? fmaxf(s, 0.f) : s;
+template <bool kGlobal>
+__device__ inline float load(const float* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  return *p;
+}
+
+// dst (rows x h, row-major) = relu?(src . w + b): src rows of kd, ld apart,
+// in shared memory; w (kd x h) and b (h,; nullptr: none) in device memory
+// (kGlobal) or shared memory. Each thread carries R rows of one column.
+template <bool kGlobal, int R>
+__device__ void product_rows(const float* src, int ld, int rows, int kd,
+                             const float* __restrict__ w,
+                             const float* __restrict__ b, int h, float* dst,
+                             bool relu) {
+  const int groups = (rows + R - 1) / R;
+  for (int i = threadIdx.x; i < groups * h; i += kThreads) {
+    const int r0 = i / h * R, c = i % h;
+    const float* s[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[j] = src + min(r0 + j, rows - 1) * ld;
+    float acc[R] = {};
+#pragma unroll 4
+    for (int k = 0; k < kd; ++k) {
+      const float wk = load<kGlobal>(w + static_cast<long long>(k) * h + c);
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[j] = fmaf(s[j][k], wk, acc[j]);
+    }
+    const float bc = b ? load<kGlobal>(b + c) : 0.f;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (r0 + j < rows) {
+        const float v = acc[j] + bc;
+        dst[static_cast<long long>(r0 + j) * h + c] = relu ? fmaxf(v, 0.f) : v;
+      }
+    }
   }
 }
 
-size_t smem_bytes(int f) {
-  return (static_cast<size_t>(kTM + kKM) * f + kTM * kKM) * sizeof(float);
+// product_rows with as many rows a thread as there are, up to kRows.
+template <bool kGlobal>
+__device__ void product(const float* src, int ld, int rows, int kd,
+                        const float* w, const float* b, int h, float* dst,
+                        bool relu) {
+  switch (rows < kRows ? rows : kRows) {
+    case 1: product_rows<kGlobal, 1>(src, ld, rows, kd, w, b, h, dst, relu);
+      break;
+    case 2: product_rows<kGlobal, 2>(src, ld, rows, kd, w, b, h, dst, relu);
+      break;
+    case 3: product_rows<kGlobal, 3>(src, ld, rows, kd, w, b, h, dst, relu);
+      break;
+    default:
+      product_rows<kGlobal, kRows>(src, ld, rows, kd, w, b, h, dst, relu);
+  }
+}
+
+// The head's warp partials: part[r][c / 32] = the sum over the 32 hidden
+// units c.. of relu([hl[r], hx[r]] . w1[:, c] + b1[c]) . w2[c], R rows a
+// thread, all in shared memory. hl rows of hd, hx rows of f; hidden padded
+// to hp, a multiple of 32, so a warp's 32 consecutive units share its rows.
+template <int R>
+__device__ void head_rows(const float* hl, int hd, const float* hx, int f,
+                          int n, const float* w1, const float* b1,
+                          const float* w2, int hidden, float* part) {
+  const int hp = (hidden + 31) & ~31;
+  const int segs = hp / 32;
+  const int groups = (n + R - 1) / R;
+  for (int i = threadIdx.x; i < groups * hp; i += kThreads) {  // whole warps
+    const int r0 = i / hp * R, c = i % hp;
+    float acc[R] = {};
+    if (c < hidden && !(GCN_SKIP & 1)) {
+      const float* hr[R];
+      const float* xr[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int r = min(r0 + j, n - 1);
+        hr[j] = hl + r * hd;
+        xr[j] = hx + r * f;
+      }
+#pragma unroll 4
+      for (int k = 0; k < hd; ++k) {
+        const float wk = w1[k * hidden + c];
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[j] = fmaf(hr[j][k], wk, acc[j]);
+      }
+#pragma unroll 4
+      for (int k = 0; k < f; ++k) {
+        const float wk = w1[(hd + k) * hidden + c];
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[j] = fmaf(xr[j][k], wk, acc[j]);
+      }
+      const float bc = b1[c], wc = w2[c];
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[j] = fmaxf(acc[j] + bc, 0.f) * wc;
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float v = warp_sum(acc[j]);
+      if ((threadIdx.x & 31) == 0 && r0 + j < n)
+        part[(r0 + j) * segs + c / 32] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gcn_kernel(const float* __restrict__ a, const float* __restrict__ x,
+           Layers layers, Head head, Layout lay, float* __restrict__ out,
+           int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int L = layers.n_layers;
+  const int f0 = layers.dim[0];
+  const long long bi = blockIdx.y;
+  float* ax = smem + lay.ax;
+  const float* xg = x + bi * n * f0;
+
+  if (lay.xs >= 0) {  // one layer alone, one row tile a block
+    const int h = layers.dim[1], row0 = blockIdx.x * kTM;
+    aggregate(a, xg, smem + lay.xs, smem + lay.as, ax, n, f0, row0);
+    product<true>(ax, f0, min(kTM, n - row0), f0, layers.w[0], layers.b[0],
+                  h, out + (bi * n + row0) * h, layers.relu_last);
+    return;
+  }
+
+  // the action: the whole graph in this block. Everything it reads goes in
+  // flight to shared memory at once, in one group a layer, each group a
+  // copy barrier and a cp.async group: X, A_hat, the mask and noise rows
+  // with layer 0's weights; then each layer's weights; then the head's.
+  constexpr bool kWeights = !(GCN_SKIP & 8);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  if (tid == 0) {
+    for (int g = 0; g <= L; ++g) bar_init(bars + g);
+    bar_fence_init();
+  }
+  float* hx = smem + lay.hx;
+  float* as = smem + lay.as;
+  int hd = f0;  // the last layer's width (dim[L], read at constant indices)
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l) {
+    if (l < L) {
+      const int f = layers.dim[l], h = layers.dim[l + 1];
+      const Copy w = {smem + lay.w[l], layers.w[l], kWeights ? f * h : 0};
+      const Copy b = {smem + lay.b[l], layers.b[l], kWeights ? h : 0};
+      if (l == 0) {
+        const Copy copies[6] = {
+            {hx, xg, n * f0},
+            {as, a, GCN_SKIP & 8 ? 0 : n * n},
+            {smem + lay.mask, head.mask + bi * head.mask_bs,
+             head.mask ? n : 0},
+            {smem + lay.noise, head.noise + bi * head.noise_bs,
+             head.noise ? n : 0},
+            w, b};
+        stage(copies, bars);
+      } else {
+        const Copy copies[2] = {w, b};
+        stage(copies, bars + l);
+      }
+      hd = h;
+    }
+  }
+  {
+    const int hidden = head.hidden;
+    const Copy copies[4] = {
+        {smem + lay.w1, head.w1, kWeights ? (hd + f0) * hidden : 0},
+        {smem + lay.b1, head.b1, kWeights ? hidden : 0},
+        {smem + lay.w2, head.w2, kWeights ? hidden : 0},
+        {smem + lay.b2, head.b2, kWeights ? 1 : 0}};
+    stage(copies, bars + L);
+  }
+  __syncthreads();  // the barriers are initialised before anyone waits
+
+  const float* in = hx;
+#pragma unroll
+  for (int l = 0; l < kMaxLayers; ++l) {
+    if (l < L) {
+      cp_wait(L - l);  // layer l's group has landed: its cp.async part,
+      bar_wait(bars + l);  // and its bulk part
+      const int f = layers.dim[l], h = layers.dim[l + 1];
+      float* dst = smem + ((l & 1) ? lay.h1 : lay.h0);
+      for (int row0 = 0; row0 < n; row0 += kTM) {
+        const int rows = min(kTM, n - row0);
+        __syncthreads();  // in is complete; the last tile is done with ax
+        if (!(GCN_SKIP & 4))  // ax = the tile's rows of A_hat . in
+          product<false>(as + row0 * n, n, rows, n, in, nullptr, f, ax,
+                         false);
+        __syncthreads();
+        if (!(GCN_SKIP & 2))
+          product<false>(ax, f, rows, f, smem + lay.w[l], smem + lay.b[l],
+                         h, dst + row0 * h, l < L - 1);
+      }
+      in = dst;
+    }
+  }
+  cp_wait(0);
+  bar_wait(bars + L);
+  __syncthreads();  // h_L and the head's weights are in place
+
+  // the head: logit[r] = relu([h_L[r], X[r]] . W1 + b1) . W2 + b2
+  const int hidden = head.hidden;
+  const int segs = (hidden + 31) / 32;
+  const float* w1 = smem + lay.w1;
+  const float* b1 = smem + lay.b1;
+  const float* w2 = smem + lay.w2;
+  float* part = smem + lay.part;
+  switch (n < kRows ? n : kRows) {
+    case 1: head_rows<1>(in, hd, hx, f0, n, w1, b1, w2, hidden, part); break;
+    case 2: head_rows<2>(in, hd, hx, f0, n, w1, b1, w2, hidden, part); break;
+    case 3: head_rows<3>(in, hd, hx, f0, n, w1, b1, w2, hidden, part); break;
+    default:
+      head_rows<kRows>(in, hd, hx, f0, n, w1, b1, w2, hidden, part);
+  }
+  __syncthreads();
+  float* logit = smem + lay.logit;
+  const float* mask = smem + lay.mask;
+  const float* noise = smem + lay.noise;
+  const float b2 = smem[lay.b2];
+  float m = -3.402823466e38f;  // -FLT_MAX: below every logit
+  for (int r = tid; r < n; r += kThreads) {
+    float s = 0.f;
+    for (int j = 0; j < segs; ++j) s += part[r * segs + j];
+    s += b2;
+    if (head.noise) s += noise[r];
+    if (head.mask && !(mask[r] > 0.f)) s = -1e9f;
+    logit[r] = s;  // each thread keeps its own nodes from here on
+    m = fmaxf(m, s);
+  }
+  if (GCN_SKIP & 16) {
+    for (int r = tid; r < n; r += kThreads) out[bi * n + r] = logit[r];
+    return;
+  }
+  float* red = smem + lay.red;
+  m = block_reduce(m, red, true);
+  float sum = 0.f;
+  for (int r = tid; r < n; r += kThreads) {
+    const float e = expf(logit[r] - m);
+    logit[r] = e;
+    sum += e;
+  }
+  sum = block_reduce(sum, red, false);
+  for (int r = tid; r < n; r += kThreads) out[bi * n + r] = logit[r] / sum;
+}
+
+// Checks the sizes, raises the shared-memory attribute when needed and
+// launches: grid (row tiles, batch) for one layer alone, else (1, batch).
+int launch(const void* a, const void* x, const Layers& ly, const Head& hd,
+           void* out, int batch, int n, void* stream) {
+  if (batch < 1 || n < 1 || ly.n_layers < 1 || ly.n_layers > kMaxLayers)
+    return -1;
+  for (int l = 0; l <= ly.n_layers; ++l)
+    if (ly.dim[l] < 1) return -1;
+  if (hd.w1 ? hd.hidden < 1 : ly.n_layers != 1) return -1;
+  const Layout lay = make_layout(n, ly, hd.w1 ? hd.hidden : 0);
+  const size_t smem = static_cast<size_t>(lay.total) * sizeof(float);
+  if (smem > kMaxSmem) return -1;
+  static size_t attr_set = kDefaultSmem;
+  if (smem > attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gcn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = kMaxSmem;
+  }
+  const dim3 grid(lay.xs >= 0 ? (n + kTM - 1) / kTM : 1, batch);
+  gcn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(x), ly, hd,
+      lay, static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// a (n, n), x (batch, n, f), w (f, h), b (h,), out (batch, n, h): contiguous
-// f32 device pointers. Returns 0, a CUDA error code from the attribute call
-// or the launch, or -1 for unsupported sizes (a zero dimension, or F too
-// wide for one block's shared memory).
+// One layer. a (n, n), x (batch, n, f), w (f, h), b (h,), out
+// (batch, n, h): contiguous f32 device pointers. Returns 0, a CUDA error
+// code from the attribute call or the launch, or -1 for unsupported sizes
+// (a zero dimension, or F too wide for one block's shared memory).
 int gcn_layer_launch(const void* a, const void* x, const void* w,
                      const void* b, void* out, int batch, int n, int f, int h,
                      int relu, void* stream) {
-  if (batch < 1 || n < 1 || f < 1 || h < 1) return -1;
-  const size_t smem = smem_bytes(f);
-  if (smem > kMaxSmem) return -1;
-  static size_t attr_set = kDefaultSmem;
-  if (smem > attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gcn_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = kMaxSmem;
+  Layers ly = {};
+  ly.w[0] = static_cast<const float*>(w);
+  ly.b[0] = static_cast<const float*>(b);
+  ly.dim[0] = f;
+  ly.dim[1] = h;
+  ly.n_layers = 1;
+  ly.relu_last = relu;
+  return launch(a, x, ly, Head{}, out, batch, n, stream);
+}
+
+// The actor's action. a (n, n), x (batch, n, dims[0]); w[l]
+// (dims[l], dims[l + 1]) and b[l] (dims[l + 1],) for l < n_layers; w1
+// (dims[n_layers] + dims[0], hidden), b1 (hidden,), w2 (hidden, 1), b2
+// (1,); noise and mask null or rows of n, *_bs apart; out (batch, n).
+// Contiguous f32 device pointers. Returns as gcn_layer_launch; -1 also for
+// more than 4 layers or a graph too large for one block's shared memory.
+int gcn_actor_launch(const void* a, const void* x, const void* const* w,
+                     const void* const* b, const int* dims, int n_layers,
+                     const void* w1, const void* b1, const void* w2,
+                     const void* b2, int hidden, const void* noise,
+                     int noise_bs, const void* mask, int mask_bs, void* out,
+                     int batch, int n, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || w1 == nullptr) return -1;
+  Layers ly = {};
+  for (int l = 0; l < n_layers; ++l) {
+    ly.w[l] = static_cast<const float*>(w[l]);
+    ly.b[l] = static_cast<const float*>(b[l]);
   }
-  const dim3 grid((n + kTM - 1) / kTM, batch);
-  gcn_layer_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(x),
-      static_cast<const float*>(w), static_cast<const float*>(b),
-      static_cast<float*>(out), n, f, h, relu);
-  return static_cast<int>(cudaGetLastError());
+  for (int l = 0; l <= n_layers; ++l) ly.dim[l] = dims[l];
+  ly.n_layers = n_layers;
+  Head hd = {};
+  hd.w1 = static_cast<const float*>(w1);
+  hd.b1 = static_cast<const float*>(b1);
+  hd.w2 = static_cast<const float*>(w2);
+  hd.b2 = static_cast<const float*>(b2);
+  hd.noise = static_cast<const float*>(noise);
+  hd.mask = static_cast<const float*>(mask);
+  hd.hidden = hidden;
+  hd.noise_bs = noise_bs;
+  hd.mask_bs = mask_bs;
+  return launch(a, x, ly, hd, out, batch, n, stream);
 }
 
 const char* gcn_layer_error_string(int code) {
-  return code < 0 ? "unsupported sizes (a zero dimension, or F above the "
-                    "shared-memory limit)"
+  return code < 0 ? "unsupported sizes (a zero dimension, more than 4 "
+                    "layers, or a graph above the shared-memory limit)"
                   : cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,4 +1,5 @@
-"""Public wrappers of the port's kernels: one per kernel.
+"""Public wrappers of the port's kernels: one per kernel, and for the GCN
+kernel a second, ``gcn_actor``, its whole-action entry point.
 
 A wrapper runs the kernel's plain version (``kernels.ref``) when its
 tensors lie on the CPU, and launches the CUDA kernel when they lie on a
@@ -6,7 +7,7 @@ CUDA device; there it checks device, dtype, shape and strides first and
 raises on anything the kernel does not take. Nothing falls back: a CUDA
 tensor either reaches the kernel or raises.
 
-``LAUNCHES`` counts kernel launches (plain integers, one per wrapper); only
+``LAUNCHES`` counts kernel launches (plain integers, one per kernel); only
 a launch of the CUDA kernel adds to it, so a run can show that its path
 went through the kernels.
 """
@@ -154,6 +155,80 @@ def gcn_layer(a_hat: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     gcn_fused.launch(a_hat, x3, w, b, out, relu)
     LAUNCHES["gcn_layer"] += 1
     return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+def gcn_actor_fits(n: int, f: int, h: int, hidden: int,
+                   n_layers: int = 2) -> bool:
+    """Whether ``gcn_actor`` takes an actor of ``n_layers`` GCN layers at
+    most ``h`` wide over ``n`` nodes of ``f`` features with a head of
+    ``hidden`` units: one block's shared memory must hold the whole
+    graph's features, two layer outputs and the head's partials."""
+    return 1 <= n_layers <= gcn_fused.MAX_LAYERS and gcn_fused.smem_bytes(
+        n, [f] + [h] * n_layers, hidden) <= gcn_fused.MAX_SMEM
+
+
+def _rows(name: str, t, lead: tuple, n: int) -> int:
+    """The batch stride of ``t``, a row of n for every observation (n) or
+    one for all (0)."""
+    if tuple(t.shape) == lead + (n,):
+        return n if lead else 0
+    if tuple(t.shape) == (n,):
+        return 0
+    raise ValueError(f"gcn_actor: {name} {tuple(t.shape)} is neither "
+                     f"{lead + (n,)} nor ({n},)")
+
+
+def gcn_actor(a_hat: torch.Tensor, obs: torch.Tensor, gcn_params: dict,
+              head_params: dict, up_mask: torch.Tensor | None = None,
+              noise: torch.Tensor | None = None) -> torch.Tensor:
+    """The balancer's greedy action (``core.ddpg.actor_action``) in one
+    launch: the GCN layers of ``gcn_params`` (relu on all but the last),
+    the head of ``head_params`` over [h_L, obs], ``+ noise``, -1e9 where
+    ``up_mask`` <= 0, softmax over the nodes. obs: (N, F) or (Bt, N, F);
+    up_mask, noise: (N,) or obs' (..., N); all f32 and contiguous. Returns
+    the fractions (N,) or (Bt, N)."""
+    ws, bs = list(gcn_params["w"]), list(gcn_params["b"])
+    head = [head_params[k] for k in ("w1", "b1", "w2", "b2")]
+    rows = [t for t in (up_mask, noise) if t is not None]
+    if not _on_cuda("gcn_actor", a_hat, obs, *ws, *bs, *head, *rows):
+        return ref.gcn_actor_ref(a_hat, obs, gcn_params, head_params,
+                                 up_mask=up_mask, noise=noise)
+    for t in (a_hat, obs, *ws, *bs, *head, *rows):
+        if t.dtype != torch.float32:
+            raise TypeError(f"gcn_actor: f32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("gcn_actor: inputs must be contiguous, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+    if obs.dim() not in (2, 3) or not ws or len(ws) != len(bs):
+        raise ValueError(f"gcn_actor: obs {tuple(obs.shape)}, {len(ws)} "
+                         f"weights, {len(bs)} biases")
+    n, f = obs.shape[-2:]
+    dims = [f] + [w.shape[1] for w in ws]
+    w1, b1, w2, b2 = head
+    hidden = w1.shape[-1]
+    if tuple(a_hat.shape) != (n, n) or any(
+            tuple(w.shape) != (dims[i], dims[i + 1])
+            or tuple(b.shape) != (dims[i + 1],)
+            for i, (w, b) in enumerate(zip(ws, bs))) \
+            or tuple(w1.shape) != (dims[-1] + f, hidden) \
+            or tuple(b1.shape) != (hidden,) \
+            or tuple(w2.shape) != (hidden, 1) or tuple(b2.shape) != (1,):
+        raise ValueError(
+            f"gcn_actor: a_hat {tuple(a_hat.shape)}, obs {tuple(obs.shape)}, "
+            f"layers {[tuple(w.shape) for w in ws]}, head "
+            f"{[tuple(t.shape) for t in head]} do not chain")
+    if not gcn_actor_fits(n, f, max(dims[1:]), hidden, len(ws)):
+        raise ValueError(f"gcn_actor: {len(ws)} layers over {n} nodes "
+                         f"(F {f}, widths {dims[1:]}, hidden {hidden}) do "
+                         "not fit one block (gcn_actor_fits)")
+    lead = tuple(obs.shape[:-2])
+    mask_bs = 0 if up_mask is None else _rows("up_mask", up_mask, lead, n)
+    noise_bs = 0 if noise is None else _rows("noise", noise, lead, n)
+    out = torch.empty(lead + (n,), dtype=torch.float32, device=obs.device)
+    gcn_fused.launch_actor(a_hat, obs.reshape(-1, n, f), ws, bs, head,
+                           noise, noise_bs, up_mask, mask_bs, out)
+    LAUNCHES["gcn_layer"] += 1
+    return out
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,

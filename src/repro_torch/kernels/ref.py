@@ -7,7 +7,10 @@ card. Both take a ragged S (no tile size assumed), and ``flash_decode_ref``
 takes a per-row ``pos`` (B,) -- the serving slot pool, where every slot sits
 at its own fill depth; ``flash_decode_split_ref`` is the same function
 computed as the split-KV kernel does, chunk partials merged by their
-log-sum-exp. ``gcn_layer_ref`` is one layer of the paper's Eq. 6.
+log-sum-exp. ``gcn_layer_ref`` is one layer of the paper's Eq. 6, and
+``gcn_actor_ref`` the balancer's whole greedy action over it (GCN layers,
+``actor_head_ref``'s head, mask and softmax) -- ``core.ddpg``'s layered
+path runs the same head after its GCN layers.
 ``ssd_scan_ref`` is the Mamba-2 SSD blocked scan over chunks of
 ``ssd_chunk_ref``; ``ssd_scan_tiled_ref`` is the same scan computed as the
 CUDA kernel computes it (step tiles, heads in groups sharing one C.B^T
@@ -207,3 +210,29 @@ def gcn_layer_ref(a_hat, x, w, b, *, relu=True):
     if relu:
         h = torch.relu(h)
     return h.to(x.dtype)
+
+
+def actor_head_ref(h, obs, head, up_mask=None, noise=None):
+    """The actor's head over the GCN's output: logits relu([h, obs] . w1 +
+    b1) . w2 + b2, ``+ noise``, -1e9 where ``up_mask`` <= 0, softmax over
+    the nodes. h: (..., N, H); obs: (..., N, F); up_mask, noise: broadcast
+    to (..., N). Returns the fractions (..., N) in f32."""
+    z = torch.cat([h, obs], dim=-1)            # local skip (info fusion)
+    logits = (torch.relu(z @ head["w1"] + head["b1"]) @ head["w2"]
+              + head["b2"])[..., 0]
+    if noise is not None:
+        logits = logits + noise
+    if up_mask is not None:
+        logits = torch.where(up_mask > 0, logits, -1e9)
+    return torch.softmax(logits, dim=-1)
+
+
+def gcn_actor_ref(a_hat, obs, gcn, head, up_mask=None, noise=None):
+    """The balancer's greedy action (``repro.core.ddpg.actor_action``): the
+    GCN layers of ``gcn`` ({"w": [...], "b": [...]}, relu on all but the
+    last) over obs (..., N, F), then ``actor_head_ref``. Returns the
+    fractions (..., N)."""
+    h = obs
+    for i, (w, b) in enumerate(zip(gcn["w"], gcn["b"])):
+        h = gcn_layer_ref(a_hat, h, w, b, relu=i < len(gcn["w"]) - 1)
+    return actor_head_ref(h, obs, head, up_mask, noise)

@@ -14,11 +14,11 @@ Two modes, with the reference's flags and defaults:
         PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
             --policy ours --autoscale gpso --ticks 10
 
-    ``--policy ours`` runs the GCN+DDPG balancer acting greedily (both GCN
-    layers through the ``gcn_layer`` kernel); ``--autoscale gpso`` runs the
-    Eq.9-11 GPSO planner. ``--plane-device`` (default: ``--device``) names
-    where the control plane's tensors live; on a card it runs on a CUDA
-    stream of its own.
+    ``--policy ours`` runs the GCN+DDPG balancer acting greedily (its
+    whole action one launch of the GCN kernel, where the graph fits one
+    block); ``--autoscale gpso`` runs the Eq.9-11 GPSO planner. The control
+    plane's tensors live on ``--device``; on a card the plane runs on a
+    CUDA stream of its own.
 
   * **Drain mode** -- ``--policy rr|lc|fractions`` with ``--autoscale
     none`` (the default): a fixed batch of requests through the static
@@ -28,8 +28,10 @@ Two modes, with the reference's flags and defaults:
 The model is the reduced config of ``--arch`` with f32 weights from
 ``--seed``, as in the reference; ``--device`` (default ``cuda``) names
 where it runs and raises when CUDA is asked for and absent.
-``--attn-backend kernel`` (the default) runs attention through the
-hand-written CUDA kernels, ``einsum`` through the reference's dense path.
+``--attn-backend pallas`` (the port's default; the reference's is
+``einsum``) runs attention through the hand-written CUDA kernels -- the
+reference's name for its kernel path, which is Pallas there -- and
+``einsum`` through the reference's dense path.
 TF32 is off for every f32 product.
 
 Not yet ported, and raising when asked for: ``--cells > 1`` and
@@ -66,6 +68,19 @@ def unported(args) -> str:
     return ""
 
 
+def cluster_config(args):
+    """The control loop's ``ClusterConfig`` from the serve flags, as
+    ``repro.launch.serve`` builds it."""
+    from repro_torch.configs.paper_cluster import ClusterConfig
+
+    return ClusterConfig(
+        num_nodes=args.nodes, horizon=8, forecast_window=16,
+        provisioning_delay=args.provision_delay,
+        max_replicas_per_node=args.max_replicas,
+        min_replicas_per_node=1,      # never plan a node to zero capacity
+        scale_interval=5, cooldown=8, straggler_prob=0.0, node_mtbf=1e12)
+
+
 def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                      rl=None, scaler_key=None) -> dict:
     """The single-cell control loop of ``repro.launch.serve`` over
@@ -76,7 +91,6 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
     plane's; returns {"fe", "plane", "ticks" (per tick: replicas,
     fractions, dispatch and sync counts, the async tick's sync accounting,
     host seconds), "wall"}."""
-    from repro_torch.configs.paper_cluster import ClusterConfig
     from repro_torch.control import ControlPlane
     from repro_torch.core import balancer as bal
     from repro_torch.serving.elastic import (ChaosSchedule,
@@ -89,14 +103,8 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
     if what:
         raise SystemExit(f"[serve] {what} is not yet ported")
     tiers = parse_tiers(args.tiers)
-    ccfg = ClusterConfig(
-        num_nodes=args.nodes, horizon=8, forecast_window=16,
-        provisioning_delay=args.provision_delay,
-        max_replicas_per_node=args.max_replicas,
-        min_replicas_per_node=1,      # never plan a node to zero capacity
-        scale_interval=5, cooldown=8, straggler_prob=0.0, node_mtbf=1e12)
+    ccfg = cluster_config(args)
     rng = np.random.default_rng(args.seed)
-    plane_device = args.plane_device or args.device
 
     def make_replica(rid: int) -> ReplicaEngine:
         # heterogeneous pool: mixed hardware generations + batch budgets
@@ -136,7 +144,7 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
         rl = None
     elif rl is None:
         rl = bal.RLBalancer(ccfg, 4 + ccfg.horizon, seed=args.seed,
-                            device=plane_device)
+                            device=args.device)
     unit_cap = args.max_batch / est_tokens     # replica requests/tick
     trace = generate_trace(TraceConfig(ticks=args.ticks, base_rate=args.rate,
                                        diurnal_period=max(args.ticks, 2)),
@@ -147,14 +155,14 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                          forecast_scale=float(arrivals.mean()),
                          seed=args.seed,
                          init_arrival=float(arrivals[:5].mean()),
-                         device=plane_device)
+                         device=args.device)
     if scaler_key is not None:
         plane.scaler.key = scaler_key
 
     print(f"[serve] unified loop: balancer={balancer} "
           f"autoscale={args.autoscale} nodes={args.nodes} "
-          f"ticks={args.ticks} device={args.device} "
-          f"plane-device={plane_device}"
+          f"ticks={args.ticks} device={args.device}"
+          + (f" actor={rl.actor}" if rl is not None else "")
           + (f" chaos={args.chaos!r}" if chaos else ""))
     ticks = []
     t0 = time.time()
@@ -391,12 +399,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "on ticks that admit nothing (async mode; 1 = one "
                          "step per tick; >1 trades <= K-1 ticks of "
                          "admission lag under a full slab)")
-    ap.add_argument("--attn-backend", default="kernel",
-                    choices=["kernel", "einsum"],
-                    help="attention backend: the hand-written CUDA kernels "
-                         "(flash-attention prefill, flash-decode; their "
-                         "plain versions on the CPU) or the dense einsum "
-                         "reference")
+    ap.add_argument("--attn-backend", default="pallas",
+                    choices=["einsum", "pallas"],
+                    help="attention backend: 'pallas', the reference's "
+                         "name for the kernel path, here the hand-written "
+                         "CUDA kernels (flash-attention prefill, "
+                         "flash-decode, the SSD scan; their plain versions "
+                         "on the CPU), or the dense einsum reference")
     ap.add_argument("--chunk-len", type=int, default=0,
                     help="chunked-prefill width: prompts longer than this "
                          "admit in fixed-size chunks interleaved with decode "
@@ -415,14 +424,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="explicit serving mesh spec (not yet ported)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="torch device the replicas run on; 'cuda' raises "
-                         "when no CUDA device is present (pass 'cpu' to run "
-                         "on the CPU)")
-    ap.add_argument("--plane-device", default=None,
-                    help="torch device of the control plane's tensors (the "
-                         "GCN actor, GPSO); default: --device. 'cpu' beside "
-                         "a 'cuda' --device runs the GCN layers through "
-                         "gcn_layer's plain version on the host")
+                    help="torch device the replicas and the control "
+                         "plane run on; 'cuda' raises when no CUDA device "
+                         "is present (pass 'cpu' to run on the CPU)")
     return ap
 
 

@@ -7,9 +7,10 @@ G = physical kv heads and qpg = physical q-heads-per-group (see
 
 Two backends compute the same function:
 
-  * ``"kernel"`` (default) -- prefill through ``ops.flash_attention`` and
-    decode through ``ops.flash_decode``: the hand-written CUDA kernels on
-    a CUDA tensor, their plain versions on a CPU tensor;
+  * ``"pallas"`` (default; the reference's name for its kernel path) --
+    prefill through ``ops.flash_attention`` and decode through
+    ``ops.flash_decode``: the hand-written CUDA kernels on a CUDA tensor,
+    their plain versions on a CPU tensor;
   * ``"einsum"`` -- the reference's dense path, kept as the oracle.
 
 Caches are updated in place: a per-layer cache argument is a view of one
@@ -91,7 +92,7 @@ def _attend(q, k, v, q_pos, k_pos, causal: bool):
 
 
 def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
-                      rope_theta=0.0, backend: str = "kernel"):
+                      rope_theta=0.0, backend: str = "pallas"):
     """Causal attention over the prompt that also writes its K/V into
     positions [0, S) of the per-layer caches (B, S_cache, G, hd), in place.
     Returns (B, S, d_model)."""
@@ -103,7 +104,7 @@ def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
         k = apply_rope(k, positions, rope_theta)
     k_cache[:, :S].copy_(k)
     v_cache[:, :S].copy_(v)
-    if backend == "kernel":
+    if backend == "pallas":
         ctx = ops.flash_attention(q, k, v, causal=True)
     elif backend == "einsum":
         ctx = _attend(q, k, v, positions, positions, causal=True)
@@ -138,13 +139,13 @@ def write_kv(k_cache, v_cache, k_new, v_new, pos, rows=None):
 
 
 def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
-                  backend: str = "kernel"):
+                  backend: str = "pallas"):
     """Read-only attention of a single-token q (B,1,G,qpg,hd) over
-    cache[0..pos[b]] per row (pos: (B,) int32 tensor). ``"kernel"`` goes
+    cache[0..pos[b]] per row (pos: (B,) int32 tensor). ``"pallas"`` goes
     through ``ops.flash_decode``, which skips the unfilled cache;
     ``"einsum"`` is the reference's dense path over the whole cache with a
     mask. Returns (B, 1, d_model)."""
-    if backend == "kernel":
+    if backend == "pallas":
         ctx = ops.flash_decode(q[:, 0], k_cache, v_cache, pos)[:, None]
         return _out_proj(params, ctx, dims)
     if backend != "einsum":

@@ -129,7 +129,7 @@ def lm_init_cache(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
-              *, attn_backend: str = "kernel", write_rows=None):
+              *, attn_backend: str = "pallas", write_rows=None):
     """One decode step. tokens: (B,1) int; pos: (B,) int32 tensor -- the
     cache write index of each row. Writes the new K/V into ``cache`` in
     place (only rows ``write_rows``, an int index tensor, when given: the
@@ -144,7 +144,7 @@ def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
 
 
 def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
-               cache_dtype=torch.bfloat16, attn_backend: str = "kernel"):
+               cache_dtype=torch.bfloat16, attn_backend: str = "pallas"):
     """Prefill: full forward + cache fill. Returns (last-token logits, cache,
     pos (B,) int32).
 

@@ -54,8 +54,8 @@ class Model:
                     resolve_device(device))
 
     def prefill(self, params, batch, cache_len: int,
-                cache_dtype=torch.bfloat16, attn_backend: str = "kernel"):
-        """``attn_backend="kernel"`` runs the prompt through the kernels
+                cache_dtype=torch.bfloat16, attn_backend: str = "pallas"):
+        """``attn_backend="pallas"`` runs the prompt through the kernels
         (flash-attention; the SSD scan for ssm/hybrid); ``"einsum"`` through
         the reference's dense paths."""
         prefill = lm.lm_prefill if self._dense else ssm_lm.ssm_prefill
@@ -63,9 +63,9 @@ class Model:
                        cache_len=cache_len, cache_dtype=cache_dtype,
                        attn_backend=attn_backend)
 
-    def decode(self, params, state, tokens, pos, attn_backend: str = "kernel",
+    def decode(self, params, state, tokens, pos, attn_backend: str = "pallas",
                write_rows=None):
-        """``attn_backend="kernel"`` decodes attention through the
+        """``attn_backend="pallas"`` decodes attention through the
         flash-decode kernel; ``"einsum"`` keeps the reference's dense path.
         ``write_rows`` limits the state write to those rows (see
         ``lm.lm_decode``, ``ssm_lm.ssm_decode``)."""

@@ -7,7 +7,7 @@ Recurrence (per head h, state (P, N)):
 
 Two backends compute the prefill scan:
 
-  * ``"kernel"`` (default) -- ``ops.ssd_scan``: the hand-written CUDA
+  * ``"pallas"`` (default) -- ``ops.ssd_scan``: the hand-written CUDA
     kernel on a CUDA tensor, its plain version on a CPU tensor;
   * ``"einsum"`` -- ``ssd_chunked``, the reference's blocked scan written
     as dense tensor code, kept as the oracle.
@@ -182,7 +182,7 @@ def _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk: int):
 
 
 def mamba2_forward(params, x, cfg, *, return_state=False, lengths=None,
-                   attn_backend: str = "kernel"):
+                   attn_backend: str = "pallas"):
     """Full-sequence Mamba-2 block from a zero state. x: (B, T, d_model).
 
     ``lengths`` (B,) marks the true length of each right-padded row:
@@ -206,7 +206,7 @@ def mamba2_forward(params, x, cfg, *, return_state=False, lengths=None,
                          0.0)
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(Bsz, T, H, P)
-    if attn_backend == "kernel":
+    if attn_backend == "pallas":
         y, state = _ssd_kernel_path(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
     elif attn_backend == "einsum":
         y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)

@@ -94,13 +94,13 @@ def ssm_init_state(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
                 cache_len: int, cache_dtype=torch.bfloat16,
-                attn_backend: str = "kernel"):
+                attn_backend: str = "pallas"):
     """Prefill: returns (last-token logits, serve state, pos (B,) int32).
 
     ``batch["lengths"]`` (B,) enables right-padded bucketed prompts: padded
     steps are exactly inert for the SSM state (dt = 0), the conv state is
     gathered from the last real positions, and logits come from
-    ``lengths - 1``. ``attn_backend="kernel"`` runs every layer's scan
+    ``lengths - 1``. ``attn_backend="pallas"`` runs every layer's scan
     through ``ops.ssd_scan`` and the shared block through
     ``ops.flash_attention``; ``"einsum"`` runs the reference's dense
     paths."""
@@ -127,7 +127,7 @@ def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
 
 
 def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
-               dims: PaddedDims, *, attn_backend: str = "kernel",
+               dims: PaddedDims, *, attn_backend: str = "pallas",
                write_rows=None):
     """One decode step. tokens: (B, 1) int; pos: (B,) int32, each row's
     cache write index (the hybrid's attention). Updates ``state`` in place

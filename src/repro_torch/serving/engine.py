@@ -386,7 +386,7 @@ class ReplicaEngine:
     positions on ``device``, its tiered queue, and the admit / decode /
     retire loop (``step``). ``speed`` is its relative decode speed (the
     elastic frontend runs speed>1 replicas several sub-steps per tick).
-    ``attn_backend`` is ``"kernel"`` (the CUDA kernels; their plain versions
+    ``attn_backend`` is ``"pallas"`` (the CUDA kernels; their plain versions
     on the CPU) or ``"einsum"``."""
 
     def __init__(self, model: Model, params, *, max_batch: int = 4,
@@ -394,8 +394,8 @@ class ReplicaEngine:
                  speed: float = 1.0, min_bucket: int = 8,
                  bucket_prompts: Optional[bool] = None, chunk_len: int = 0,
                  tiers: Optional[TierSet] = None,
-                 attn_backend: str = "kernel", device="cuda"):
-        if attn_backend not in ("kernel", "einsum"):
+                 attn_backend: str = "pallas", device="cuda"):
+        if attn_backend not in ("pallas", "einsum"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}")
         if chunk_len:
             raise NotImplementedError("chunked prefill (chunk_len > 0) is "
@@ -721,7 +721,7 @@ class FleetGroup:
 
     def __init__(self, model: Model, params, *, max_batch: int, max_seq: int,
                  cache_dtype=torch.float32, async_mode: bool = False,
-                 decode_block: int = 1, attn_backend: str = "kernel",
+                 decode_block: int = 1, attn_backend: str = "pallas",
                  mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("fleet-mesh sharding (mesh=) is not "

@@ -21,7 +21,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.paper_cluster import ClusterConfig as JaxClusterConfig
@@ -153,6 +152,7 @@ def test_cli_control_loop_runs_on_cpu():
     assert out.returncode == 0, out.stderr
     assert "balanced=True" in out.stdout and "plane host ms/tick" \
         in out.stdout
+    assert "actor=fused" in out.stdout       # one launch an action
 
 
 @pytest.mark.parametrize("flags", [
@@ -204,20 +204,3 @@ def test_sync_contract_catches_a_wait_after_every_dispatch():
     doubled = deferred[:1] + [dict(tick, syncs=4, reconciles=4,
                                    in_flight_groups=2)]
     assert async_tick_violations(doubled)
-
-
-def test_plane_device_flag_places_the_control_plane(models):
-    """``--plane-device`` puts the plane's tensors (GCN actor, GPSO) on its
-    own device, apart from the replicas' ``--device``."""
-    _, _, tm, tp = models
-    out = serve.run_control_loop(_control_args("--ticks", "6",
-                                               "--plane-device", "cpu"),
-                                 tm.cfg, tm, tp)
-    plane = out["plane"]
-    assert plane.device.type == plane.scaler.device.type == "cpu"
-    assert plane.rl.device.type == "cpu"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda.is_available"):
-            serve.run_control_loop(_control_args("--ticks", "6",
-                                                 "--plane-device", "cuda"),
-                                   tm.cfg, tm, tp)

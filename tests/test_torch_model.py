@@ -62,7 +62,7 @@ def _prefill_both(pair, backend):
     return (jl, jc, jpos), (tl, tc, tpos)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 def test_prefill_matches_reference(pair, backend):
     (jl, jc, jpos), (tl, tc, tpos) = _prefill_both(pair, backend)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -72,7 +72,7 @@ def test_prefill_matches_reference(pair, backend):
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 def test_decode_matches_reference(pair, backend):
     """One decode step at per-row positions over the filled caches."""
     jm, jp, tm, tp = pair
@@ -87,7 +87,7 @@ def test_decode_matches_reference(pair, backend):
                                    **TOL)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 def test_greedy_streams_match_reference(pair, backend):
     """Eight greedy steps after the prefill: identical token streams."""
     jm, jp, tm, tp = pair

@@ -78,14 +78,19 @@ def _serve_one(eng, req_cls, n=4, seed=5):
 
 
 @pytest.mark.parametrize("backend,seed,policy", [
-    ("kernel", 0, "lc"), ("einsum", 0, "lc"), ("kernel", 3, "lc"),
-    ("kernel", 1, "rr")])
+    ("pallas", 0, "lc"), ("einsum", 0, "lc"), ("pallas", 3, "lc"),
+    ("pallas", 1, "rr"), (None, 0, "lc")])
 def test_drain_mode_matches_reference(models, backend, seed, policy):
+    """The reference runs at its default backend (einsum); the port at the
+    one asked for, or at its own default (pallas, the kernel path) when
+    the flag is left out, as on both sides of the None case."""
     jm, jp, tm, tp = models
     jfe, jreps = _jax_drain(jm, jp, 12, seed, policy)
+    flag = [] if backend is None else ["--attn-backend", backend]
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--requests", "12", "--replicas", "2",
-         "--seed", str(seed), "--attn-backend", backend, "--policy", policy])
+         "--seed", str(seed), "--policy", policy] + flag)
+    assert args.attn_backend == (backend or "pallas")
     fe, reps, _ = serve.run_drain_mode(args, tm.cfg, tm, tp)
     assert _digest(fe.finished) == _digest(jfe.finished)
     assert len(fe.finished) == 12
@@ -101,7 +106,7 @@ def test_kernel_backend_matches_pallas_backend(models):
     want = _serve_one(JaxReplica(jm, jp, max_batch=2, max_seq=32,
                                  attn_backend="pallas"), JaxRequest, n=3)
     got = _serve_one(ReplicaEngine(tm, tp, max_batch=2, max_seq=32,
-                                   attn_backend="kernel", device="cpu"),
+                                   attn_backend="pallas", device="cpu"),
                      Request, n=3)
     assert got == want
 
@@ -125,6 +130,22 @@ def test_cli_drain_mode_runs_on_cpu():
         text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "6/6 finished" in out.stdout
+
+
+def test_cli_takes_the_references_backend_names(capsys):
+    """``--attn-backend pallas`` (the reference's name for the kernel path)
+    serves; the port's old name ``kernel`` is refused by the parser."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--attn-backend", "pallas", "--requests", "2"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "2/2 finished" in out.stdout
+    assert "attn-backend=pallas" in out.stdout
+    with pytest.raises(SystemExit):
+        serve.build_parser().parse_args(["--attn-backend", "kernel"])
+    assert "invalid choice: 'kernel'" in capsys.readouterr().err
 
 
 def test_cli_control_mode_not_yet_ported():

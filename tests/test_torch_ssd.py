@@ -199,7 +199,7 @@ def _block_input(cfg, B, T, seed):
     return rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 @pytest.mark.parametrize("T,lengths", [(12, None), (40, None),
                                        (16, [16, 5]), (40, [33, 1])])
 def test_mamba2_forward_matches_reference(pair, backend, T, lengths):
@@ -223,7 +223,7 @@ def test_mamba2_forward_matches_reference(pair, backend, T, lengths):
         np.testing.assert_allclose(st[k].numpy(), np.asarray(jst[k]), **TOL)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 def test_mamba2_forward_across_chunk_sizes(pair, backend):
     """The port at chunk 8 against the reference at its chunk (32)."""
     jm, jp, tm, tp = pair
@@ -296,7 +296,7 @@ def _close_state(tst, jst):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 def test_prefill_and_decode_match_reference(pair, backend):
     """Prefill logits, state and pos (ragged lengths, one of them 1), then
     one decode step at per-row positions: logits and every state leaf."""
@@ -313,7 +313,7 @@ def test_prefill_and_decode_match_reference(pair, backend):
     _close_state(tst2, jst2)
 
 
-@pytest.mark.parametrize("backend", ["kernel", "einsum"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
 def test_greedy_streams_match_reference(pair, backend):
     """Ten greedy steps after the prefill: identical token streams."""
     jm, jp, tm, tp = pair
