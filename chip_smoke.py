@@ -21,23 +21,27 @@ the script exits non-zero:
      also alone, which must give its in-batch result bit for bit;
      attention over S in {1, 4, 8, 100, 2048}, causal and full, and fleet
      prefills of K in {1,2,4,8} prompts of bucket 4, 8 or 16), at
-     granite-3-8b's head layout (8 kv x 4 q heads, hd 128) and
-     zamba2-2.7b's shared block (32 x 1, hd 80); gcn_layer in f32 (1e-5,
-     the reference's tolerance) at the control plane's shapes and beyond,
-     relu on and off, and batched, and the balancer's whole action in one
-     launch (gcn_actor: both GCN layers, the head, the masked softmax) at
-     the serve defaults and the paper's 16-node cluster, with a node down
-     and noise, batched, every node down, at the largest graph one block
-     holds and one node above it (the layered path); ssd_scan in f32
+     granite-3-8b's and mistral-nemo-12b's head layout (8 kv x 4 q heads,
+     hd 128), zamba2-2.7b's shared block (32 x 1, hd 80) and
+     command-r-35b's layers (8 x 8, hd 128; not served); gcn_layer in f32
+     (1e-5, the reference's tolerance) at the control plane's shapes and
+     beyond, relu on and off, and batched, and the balancer's whole action
+     in one launch (gcn_actor: both GCN layers, the head, the masked
+     softmax) at the serve defaults and the paper's 16-node cluster, with
+     a node down and noise, batched, every node down, at the largest graph
+     one block holds and one node above it (the layered path); ssd_scan in f32
      (1e-4, the reference's tolerance) at mamba2-1.3b's and zamba2-2.7b's
      heads, at the drain mode's prefills (8 x 512, 2 x 96, 8 x 200) and
      the control loop's (K x 8 or 16) and at T 24, with ragged lengths, so
      that each arch reaches every (step tile, heads a block)
      instantiation;
   4.-8. for each served architecture in turn -- granite-3-8b (dense),
-     then mamba2-1.3b (ssm) and zamba2-2.7b (hybrid), each at full width
-     with random bf16 weights from a seed (bf16 KV and conv state, f32 SSM
-     state), depth not cut:
+     mamba2-1.3b (ssm), zamba2-2.7b (hybrid), then mistral-nemo-12b
+     (dense, queries 32 x 128 = 4096 wide against d_model 5120) -- each at
+     full width with random bf16 weights from a seed (bf16 KV and conv
+     state, f32 SSM state), depth not cut. Every decode dispatch replays a
+     captured CUDA graph (a drain replica's step, the fleet's one or four
+     micro-steps), whose launches ``ops.LAUNCHES`` counts per replay:
   4. drain mode: 2 replicas (max_batch 8, max_seq 1024) behind
      ``ClusterFrontend(policy="lc")``, 16 requests with prompts up to 512
      tokens and up to 64 new tokens. Launch counts are zeroed just before
@@ -49,8 +53,9 @@ the script exits non-zero:
      last-token logits and first decode logits (both paths decoding the
      einsum prefill's token) within a stated tolerance (granite in bf16;
      the ssm family in f32, its bf16 gap reported), and
-     identical greedy streams at full width cut to 2 layers in f32; for
-     granite then one fleet decode dispatch of a sub-step round (some slab
+     identical greedy streams at full width cut to 2 layers in f32 (and
+     the replicas' graph-replayed steps against eager ones); for the
+     dense archs then one fleet decode dispatch of a sub-step round (some slab
      rows step, the others must keep their cache bit for bit) at 32 rows,
      f32, 2 layers, kernel logits against einsum logits;
   6. the control loop: ``run_control_loop`` with ``--policy ours
@@ -62,7 +67,18 @@ the script exits non-zero:
      drain mode; every request
      finishes, the ledger balances, GPSO scales up, no host sync hides in
      the engine (torch's sync debug mode), and every tick keeps the async
-     tick's sync contract (``async_tick_violations``). For granite, one
+     tick's sync contract (``async_tick_violations``). The ``[graphs]``
+     line: the decode graphs' captures, recaptures after a slab growth,
+     replays and pool memory, and the largest group's dispatch through the
+     engine (host ms to enqueue, to the results, device ms, idle share).
+     Then ``--decode-block 4`` (``phase_block``): the loop at full width,
+     counted (blocks engaged, fewer syncs, launches of the micro-steps; its
+     contents and clocks against K = 1 reported), the contents at 2 layers
+     in f32 equal to K = 1's, and the reference's bounded case (one
+     replica, 6 requests) with equal contents and a lag of 0 to 3 ticks.
+     mistral-nemo-12b then runs the loop under ``--clients 16`` and as
+     ``--cells 2 --hierarchy`` with cell 0 blacked out (ledger balanced,
+     nothing served twice, launches counted). For granite, one
      GPSO plan's host time, split into the random key's own work and the
      rest, and the plane's balance host ms a tick with the action fused
      against layered (two gcn_layer launches and the eager head), the
@@ -81,11 +97,13 @@ the script exits non-zero:
      action -- against the layered chain, its yardstick -- mamba2's largest
      fleet prefill for ssd_scan); the drain mode's shapes, zamba2's and
      head dim 80 are timed and printed beside them. Then each model's
-     drain-mode decode step's and prefill's host and device times;
-  8. the control loop's oracles: the same run with ``--no-async`` gives
-     the same digest of (rid, output, first-token and finish ticks) in
-     bf16, and at full width cut to 2 layers in f32 the fleet kernel run,
-     ``--no-fleet`` and ``--attn-backend einsum`` do too.
+     drain-mode decode step's (eager and as its graph) and prefill's host
+     and device times;
+  8. the control loop's oracles: the same run with ``--no-async`` (eager
+     decode, the graphs' oracle) gives the same digest of (rid, output,
+     first-token and finish ticks) in bf16, and at full width cut to 2
+     layers in f32 the fleet kernel run, ``--no-fleet`` and
+     ``--attn-backend einsum`` do too.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
@@ -133,8 +151,15 @@ KERNELS = {
     "ssd_scan": dict(source="src/repro_torch/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:24"),
 }
-# the ssm/hybrid family, served at full width after granite-3-8b
+# the ssm/hybrid family, served at full width after granite-3-8b, then
+# mistral-nemo-12b (dense, a query width of 4096 against d_model 5120)
 SSM_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+SERVED = ("granite-3-8b",) + SSM_ARCHS + ("mistral-nemo-12b",)
+BLOCK = 4                       # --decode-block of the fused-window runs
+# the federation run of mistral-nemo-12b: two cells under the hierarchy,
+# cell 0 blacked out for 15 ticks
+CELL_FLAGS = ["--cells", "2", "--hierarchy", "--cell-chaos",
+              "cell_down@15:c0,cell_up@30:c0"]
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)  # tests/test_kernels.py's tolerance
 SSD_OPS_BLOCK = 64    # the block of _time_ssd's operation count (PR 13's)
 SSD_PASSES = 3        # its products: split TF32, three tensor-core passes
@@ -145,8 +170,9 @@ SSD_PASSES = 3        # its products: split TF32, three tensor-core passes
 SSD_CASES = ((8, 512), (2, 96), (8, 200), (1, 8), (4, 16), (8, 16), (2, 24),
              (8, 24))
 # attention head layouts (G kv heads, qpg q heads a group, head dim) at
-# full width: granite-3-8b's layers and zamba2-2.7b's shared block
-HEAD_LAYOUTS = ((8, 4, 128), (32, 1, 80))
+# full width: granite-3-8b's and mistral-nemo-12b's layers, zamba2-2.7b's
+# shared block, command-r-35b's layers (64 q / 8 kv, qpg 8; not served)
+HEAD_LAYOUTS = ((8, 4, 128), (32, 1, 80), (8, 8, 128))
 GCN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py's tolerance
 # (N, F, H): the serve path's two layers (2 nodes, horizon 8, gcn_hidden
 # 64), the paper's 16-node cluster (horizon 32), the reference's sweep, and
@@ -627,24 +653,29 @@ def phase_paths(torch, cfg, model, params, workload, small):
     torch.cuda.empty_cache()
 
     # f32, full width, 2 layers: identical greedy streams through the
-    # whole drain-mode path
+    # whole drain-mode path, kernel against einsum, and the replicas'
+    # graph-replayed steps against eager ones
     cfg2, model2, params2 = small
     streams = {}
-    for backend in ("pallas", "einsum"):
+    for name, backend, graph in (("pallas", "pallas", True),
+                                 ("einsum", "einsum", True),
+                                 ("eager", "pallas", False)):
         fe, _, _ = serve.run_drain_mode(_serve_args(serve, backend), cfg2,
                                         model2, params2,
                                         cache_dtype=torch.float32,
-                                        workload=workload)
-        streams[backend] = sorted((r.rid, tuple(r.output), r.first_token_time,
-                                   r.finish_time) for r in fe.finished)
+                                        workload=workload, decode_graph=graph)
+        streams[name] = sorted((r.rid, tuple(r.output), r.first_token_time,
+                                r.finish_time) for r in fe.finished)
     same = streams["pallas"] == streams["einsum"]
+    eager = streams["pallas"] == streams["eager"]
     n_tok = sum(len(s[1]) for s in streams["pallas"])
     log(f"[paths] {cfg.name} f32 full width, 2 layers: "
         f"{len(streams['pallas'])} "
-        f"requests, {n_tok} tokens, streams identical: {same}")
-    if not same:
+        f"requests, {n_tok} tokens, streams identical: {same}; graph-"
+        f"replayed steps against eager ones identical: {eager}")
+    if not (same and eager):
         raise AssertionError("f32 greedy streams differ between kernel and "
-                             "einsum paths")
+                             "einsum paths or graph and eager steps")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -670,7 +701,8 @@ def _digest(fe) -> list:
 
 
 def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
-    """The main path, counted: the control loop at full width."""
+    """The main path, counted: the control loop at full width, its decode
+    dispatches replaying captured CUDA graphs."""
     from repro_torch.launch import serve
 
     from repro_torch.serving.elastic import async_tick_violations
@@ -704,7 +736,7 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
                              f"{hidden}")
     fe, plane, ticks = out["fe"], out["plane"], out["ticks"]
     L = cfg.num_layers
-    decode, prefill = fe.decode_dispatches(), fe.prefill_dispatches()
+    decode, prefill = fe.decode_steps(), fe.prefill_dispatches()
     syncs = fe.sync_count()
     toks = sum(len(r.output) for r in fe.finished)
     tick_ms = sorted(t["s"] * 1e3 for t in ticks)
@@ -733,6 +765,7 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
     if fe.replicas_spawned <= args.nodes * args.replicas:
         raise AssertionError("GPSO never scaled up")
     _check_launches(cfg, launches, prefill, decode, len(ticks))
+    _graph_report(torch, cfg, fe)
     _fleet_step_times(torch, model, params, fe.peak_slab_rows(),
                       args.max_seq)
     # the async tick's sync contract, tick by tick: each sync consumes one
@@ -752,7 +785,52 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
         _plan_times(plane)
     return {"launches": launches, "digest": _digest(fe),
             "rows": fe.peak_slab_rows(), "shapes": fe.prefill_shapes(),
-            "balance_ms": hs["balance"]}
+            "balance_ms": hs["balance"], "syncs": syncs,
+            "tok_s": toks / out["wall"], "tick_ms": tick_ms}
+
+
+def _graph_report(torch, cfg, fe) -> None:
+    """The fleet groups' decode graphs after a control loop: captures,
+    recaptures after a slab growth, replays and the graphs' pool memory;
+    then the largest group's full dispatch through the engine's own path
+    (graph replay, the pinned copy of its outputs, the reconcile's wait):
+    host ms to enqueue, host ms to the results, device ms (CUDA events
+    around the replay) and the dispatch's idle share."""
+    from repro_torch.serving.engine import _Pending, _timed_wait
+
+    groups = list(fe._fleets.values())
+    g = max(groups, key=lambda g: g.cap * g.max_batch)
+    pool = sum(x.graphs.pool_bytes() for x in groups)
+    stats = fe.graph_stats()
+
+    def dispatch():
+        return g.graphs.run((False, 1),
+                            lambda: g._micro_steps(1, masked=False))
+
+    dispatch()
+    torch.cuda.synchronize()
+    enq, done, dev = [], [], []
+    for _ in range(11):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        outs = dispatch()
+        b.record()
+        pend = _Pending("decode", outs, [])
+        t1 = time.perf_counter()
+        _timed_wait(g, [pend])
+        t2 = time.perf_counter()
+        enq.append((t1 - t0) * 1e3)
+        done.append((t2 - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    host, device = statistics.median(done[1:]), statistics.median(dev[1:])
+    log(f"[graphs] {cfg.name}: {stats}; graph pools "
+        f"{pool / 2**20:.1f} MiB; fleet decode dispatch (graph replay), "
+        f"{g.cap * g.max_batch} slab rows x {g.max_seq}: host "
+        f"{statistics.median(enq[1:]):.3f} ms to enqueue, {host:.2f} ms to "
+        f"the results, device busy {device:.2f} ms (CUDA events, medians "
+        f"of 10): idle share {1 - device / host:.3f}")
 
 
 def phase_balance_ab(torch, ops, cfg, model, params, control) -> None:
@@ -849,6 +927,166 @@ def _balance_by_nodes(torch, ops, ccfg, calls: int = 200) -> None:
             f"{statistics.mean(ms['fused']):.4f} layered "
             f"{statistics.mean(ms['layered']):.4f}")
     ops.reset_launches()
+
+
+def _lags(digest, base) -> collections.Counter:
+    """Histogram of each request's larger TTFT or finish lag behind
+    ``base`` (the same rids, another run), in ticks."""
+    return collections.Counter(max(a[2] - b[2], a[3] - b[3])
+                               for a, b in zip(digest, base))
+
+
+def _differing(digest, base) -> int:
+    """Requests whose token contents differ from ``base``'s."""
+    return sum(a[1] != b[1] for a, b in zip(digest, base))
+
+
+def phase_block(torch, ops, cfg, model, params, control, small) -> dict:
+    """``--decode-block 4``: a fused dispatch replays one graph of 4
+    micro-steps on ticks that admit nothing (the reference's rules).
+
+    1. The control loop at full width, counted: every request finishes,
+       the ledger balances, the blocks engaged (more micro-steps than
+       dispatches), syncs fall below K = 1's, and the launches are those
+       of the micro-steps. Its contents and clocks against K = 1's are
+       reported, not gated: the blocks change the schedule and the
+       scaling, so a request may be prefilled or decoded beside other rows
+       than at K = 1, and cuBLAS's bf16 products are not invariant to the
+       batch around a row; the clocks' lag compounds along the queues (the
+       reference's schedule, which the CPU tests hold the port to, shows
+       it too).
+    2. At full width cut to 2 layers, f32: the control loop's token
+       contents at K = 4 equal K = 1's.
+    3. The reference's bounded case (``tests/test_async_serve.py``), at
+       full width, bf16: one replica of 2 slots, 6 requests of 6 new
+       tokens, 4 of them queued behind it. Contents equal K = 1's, each
+       TTFT and finish lags by 0 to K - 1 ticks, fewer syncs."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.serving.elastic import ElasticClusterFrontend
+    from repro_torch.serving.engine import ReplicaEngine, Request
+
+    args = _control_args(serve, "--decode-block", str(BLOCK))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = serve.run_control_loop(args, cfg, model, params,
+                                 cache_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    fe, ticks = out["fe"], out["ticks"]
+    led, digest = fe.ledger, _digest(fe)
+    toks = sum(len(r.output) for r in fe.finished)
+    tick_ms = sorted(t["s"] * 1e3 for t in ticks)
+    lags = _lags(digest, control["digest"])
+    log(f"[block] {cfg.name} --decode-block {BLOCK}: launches {launches}; "
+        f"decode dispatches {fe.decode_dispatches()} running "
+        f"{fe.decode_steps()} micro-steps, prefill dispatches "
+        f"{fe.prefill_dispatches()}; syncs {fe.sync_count()} (K = 1: "
+        f"{control['syncs']}); graphs {fe.graph_stats()}; {toks} tokens in "
+        f"{out['wall']:.2f}s: {toks / out['wall']:.1f} tok/s (K = 1: "
+        f"{control['tok_s']:.1f}); tick wall ms p50 "
+        f"{statistics.median(tick_ms):.2f} p95 "
+        f"{tick_ms[int(0.95 * (len(tick_ms) - 1))]:.2f} (K = 1: "
+        f"{statistics.median(control['tick_ms']):.2f}, "
+        f"{control['tick_ms'][int(0.95 * (len(control['tick_ms']) - 1))]:.2f})"
+        f"; against K = 1: contents differ in "
+        f"{_differing(digest, control['digest'])}/{len(digest)} requests, "
+        f"TTFT-or-finish lag histogram {dict(sorted(lags.items()))}")
+    if not (led.balanced() and len(fe.finished) == led.submitted
+            and all(r.done for r in fe.finished)):
+        raise AssertionError(f"ledger {led.balance()}")
+    if not (fe.decode_steps() > fe.decode_dispatches()
+            and fe.sync_count() < control["syncs"]):
+        raise AssertionError("the fused blocks did not engage")
+    _check_launches(cfg, launches, fe.prefill_dispatches(),
+                    fe.decode_steps(), len(ticks))
+    del out, fe
+    torch.cuda.empty_cache()
+
+    cfg2, model2, params2 = small
+    runs = {}
+    for k in (1, BLOCK):
+        o = serve.run_control_loop(
+            _control_args(serve, "--decode-block", str(k)), cfg2, model2,
+            params2, cache_dtype=torch.float32)
+        runs[k] = (_digest(o["fe"]), o["fe"].sync_count())
+    same = [r[1] for r in runs[BLOCK][0]] == [r[1] for r in runs[1][0]]
+    log(f"[block] {cfg.name} f32 full width, 2 layers: contents at K = "
+        f"{BLOCK} equal K = 1's: {same}; syncs {runs[BLOCK][1]} against "
+        f"{runs[1][1]}; lag histogram "
+        f"{dict(sorted(_lags(runs[BLOCK][0], runs[1][0]).items()))}")
+    if not same:
+        raise AssertionError("f32 contents differ at --decode-block")
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, rng.integers(3, 9)).tolist()
+               for _ in range(6)]
+    bounded = {}
+    for k in (1, BLOCK):
+        fe = ElasticClusterFrontend(
+            lambda rid: ReplicaEngine(model, params, max_batch=2,
+                                      max_seq=CONTROL_MAX_SEQ, rid=rid,
+                                      cache_dtype=torch.bfloat16,
+                                      device="cuda"), 1,
+            initial_replicas=1, max_replicas_per_node=1, seed=SEED,
+            decode_block=k)
+        for i, p in enumerate(prompts):
+            fe.submit(Request(i, p, max_new_tokens=6))
+        fe.run_until_drained()
+        bounded[k] = (_digest(fe), fe.sync_count())
+    (dk, sk), (d1, s1) = bounded[BLOCK], bounded[1]
+    lags = [(a[2] - b[2], a[3] - b[3]) for a, b in zip(dk, d1)]
+    ok = (_differing(dk, d1) == 0 and sk < s1
+          and all(0 <= x <= BLOCK - 1 for pair in lags for x in pair))
+    log(f"[block] {cfg.name} bounded case (1 replica of 2 slots, 6 requests "
+        f"of 6 tokens): contents equal {_differing(dk, d1) == 0}; (TTFT, "
+        f"finish) lags {lags}; syncs {sk} against {s1}")
+    if not ok:
+        raise AssertionError("the bounded decode-block case broke its "
+                             "contract")
+    return {"syncs": runs, "lags": lags}
+
+
+def phase_federation(torch, ops, cfg, model, params) -> None:
+    """The control loop at full width under closed-loop clients
+    (``--clients 16``) and as a federation (``--cells 2 --hierarchy`` with
+    cell 0 blacked out from tick 15 to 30), counted: the ledger balances
+    with nothing served twice and every rid in a terminal state, and the
+    launches are those of the runs' dispatches and plane ticks."""
+    from repro_torch.launch import serve
+
+    for label, extra in (("clients", ["--clients", "16"]),
+                         ("cells", CELL_FLAGS)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = serve.run_control_loop(_control_args(serve, *extra), cfg,
+                                     model, params,
+                                     cache_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        fe, led = out["fe"], out["fe"].ledger
+        bal = led.balance()
+        extra_log = ""
+        if out["pool"] is not None:
+            extra_log = f"; clients {out['pool'].summary()}"
+        if out["sup"] is not None:
+            extra_log = (f"; cell downs {fe.cell_downs}, evacuated "
+                         f"{fe.evacuated_total}; hierarchy "
+                         f"{out['sup'].summary()}")
+        log(f"[federation] {cfg.name} {' '.join(extra)}: launches "
+            f"{launches}; decode dispatches {fe.decode_dispatches()}, "
+            f"prefill dispatches {fe.prefill_dispatches()}, syncs "
+            f"{fe.sync_count()}; ledger {bal}{extra_log}; {out['wall']:.2f}s")
+        if not (led.balanced() and bal["double_served"] == 0
+                and bal["live"] == 0):
+            raise AssertionError(f"{label}: ledger {bal}")
+        if label == "cells" and fe.cell_downs != 1:
+            raise AssertionError("the blackout did not land")
+        _check_launches(cfg, launches, fe.prefill_dispatches(),
+                        fe.decode_steps(), out["plane"].t)
+        del out, fe
+        torch.cuda.empty_cache()
 
 
 def _plan_times(plane) -> None:
@@ -1122,7 +1360,9 @@ def _time_actor(torch, ops, ref, gen) -> dict:
 def phase_step_times(torch, cfg, model, params, reps, workload):
     """Host-clock times of one decode step and one prefill of the served
     model, each ending in a synchronise (the engine's own blocking fetch),
-    and the decode step's device time alone."""
+    and the decode step's device time alone: the step eager (the model's
+    ops launched from Python) and as the drain replica dispatches it (its
+    captured graph replayed)."""
     eng = reps[0]
     pos = torch.tensor([min(len(w["prompt"]) + MAX_NEW // 2, MAX_SEQ - 1)
                         for w in workload[:MAX_BATCH]], dtype=torch.int32,
@@ -1160,13 +1400,34 @@ def phase_step_times(torch, cfg, model, params, reps, workload):
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
         out[name] = statistics.median(times)
-    log(f"[steps] {cfg.name} bf16, {MAX_BATCH} slots: decode step "
+    # the engine's own step: its captured graph over its static operands
+    eng._step_ops["toks"].copy_(tok)
+    eng._step_ops["pos"].copy_(pos)
+    eng.graphs.run("decode", eng._decode_next)
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(11):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        nxt = eng.graphs.run("decode", eng._decode_next)[0]
+        b.record()
+        nxt.cpu()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    graph_ms, graph_dev = statistics.median(host[1:]), statistics.median(
+        dev[1:])
+    log(f"[steps] {cfg.name} bf16, {MAX_BATCH} slots: decode step eager "
         f"{out['decode step']:.2f} ms (host clock, median of 10), of which "
         f"the device is busy {device_ms:.2f} ms (CUDA-graph replay, median "
-        f"of 5): idle share {1 - device_ms / out['decode step']:.2f}; "
-        f"prefill {tuple(batch['tokens'].shape)} {out['prefill']:.2f} ms "
-        f"(host clock, median of 3), device {prefill_device_ms:.2f} ms "
-        f"(CUDA-graph replay, median of 3)")
+        f"of 5): idle share {1 - device_ms / out['decode step']:.2f}; the "
+        f"engine's graph-replayed step {graph_ms:.2f} ms host, device "
+        f"{graph_dev:.2f} ms (CUDA events, medians of 10): idle share "
+        f"{1 - graph_dev / graph_ms:.3f}; prefill "
+        f"{tuple(batch['tokens'].shape)} {out['prefill']:.2f} ms (host "
+        f"clock, median of 3), device {prefill_device_ms:.2f} ms (CUDA-graph "
+        f"replay, median of 3)")
 
 
 def _fleet_step_times(torch, model, params, rows: int, max_seq: int):
@@ -1190,8 +1451,8 @@ def _fleet_step_times(torch, model, params, rows: int, max_seq: int):
         step().cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     host_ms = statistics.median(times[1:])
-    log(f"[control] fleet decode dispatch, {rows} slab rows x {max_seq}: "
-        f"{host_ms:.2f} ms host clock (median of 5), device busy "
+    log(f"[control] fleet decode dispatch eager, {rows} slab rows x "
+        f"{max_seq}: {host_ms:.2f} ms host clock (median of 5), device busy "
         f"{device_ms:.2f} ms (CUDA-graph replay, median of 5): idle share "
         f"{1 - device_ms / host_ms:.2f}")
 
@@ -1206,9 +1467,9 @@ def phase_oracles(torch, cfg, model, params, control, small):
     out = serve.run_control_loop(_control_args(serve, "--no-async"), cfg,
                                  model, params, cache_dtype=torch.bfloat16)
     same = _digest(out["fe"]) == control["digest"]
-    log(f"[oracle] bf16 full width: async vs --no-async digests identical: "
-        f"{same} ({len(control['digest'])} requests; eager syncs "
-        f"{out['fe'].sync_count()})")
+    log(f"[oracle] bf16 full width: async (graph replays) vs --no-async "
+        f"(eager) digests identical: {same} ({len(control['digest'])} "
+        f"requests; eager syncs {out['fe'].sync_count()})")
     if not same:
         raise AssertionError("async and eager control loops differ")
     del out
@@ -1331,11 +1592,15 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
     phase_paths(torch, cfg, model, params, workload, small)
     if dense:
         phase_fleet_write(torch, small)
-    control = phase_control(torch, ops, cfg, model, params, plan_times=dense)
-    if dense:
+    control = phase_control(torch, ops, cfg, model, params,
+                            plan_times=cfg.name == SERVED[0])
+    phase_block(torch, ops, cfg, model, params, control, small)
+    if cfg.name == SERVED[-1]:
+        phase_federation(torch, ops, cfg, model, params)
+    if cfg.name == SERVED[0]:
         phase_balance_ab(torch, ops, cfg, model, params, control)
     rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes,
-                       control) if dense else {}
+                       control) if cfg.name == SERVED[0] else {}
     phase_step_times(torch, cfg, model, params, reps, workload)
     phase_oracles(torch, cfg, model, params, control, small)
     return {"launches": control["launches"], "rows": rows,
@@ -1463,7 +1728,7 @@ def main() -> int:
     errs = phase_parity(torch, ops, ref)
 
     served = {}
-    for name in ("granite-3-8b",) + SSM_ARCHS:
+    for name in SERVED:
         served[name] = serve_arch(torch, F, ops, ref, get_config(name))
         torch.cuda.empty_cache()
     rows = dict(served["granite-3-8b"]["rows"])

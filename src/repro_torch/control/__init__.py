@@ -1,7 +1,13 @@
 """The unified control plane: one forecast -> balance -> scale loop over any
-``ClusterBackend`` (the port of ``repro.control``; the multi-cell routing
-plane and the two-level hierarchy are not yet ported)."""
+``ClusterBackend``, the multi-cell routing plane and the two-level control
+hierarchy (the port of ``repro.control``)."""
 from repro_torch.control.backend import ClusterBackend  # noqa: F401
+from repro_torch.control.cells import (  # noqa: F401
+    CellRouter, MetricsView, MultiCellBackend,
+)
+from repro_torch.control.hierarchy import (  # noqa: F401
+    CellController, CellLease, GlobalPlanner, PlaneSupervisor,
+)
 from repro_torch.control.plane import (  # noqa: F401
     METHOD_SPECS, ControlPlane, make_autoscaler,
 )

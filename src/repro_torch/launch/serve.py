@@ -25,6 +25,20 @@ Two modes, with the reference's flags and defaults:
     ``ClusterFrontend`` of standalone replicas, reporting throughput, TTFT
     and finish percentiles, decode steps and prefill shapes.
 
+The control loop takes the reference's robustness and federation flags:
+``--clients N`` (closed-loop clients with ``--think-time``, ``--timeout``,
+``--retries``, ``--spawn-rate`` replace the open-loop trace), ``--cells N``
+(the multi-cell routing plane, with ``--cell-chaos``, ``--shed-threshold``,
+``--static-split``), ``--hierarchy`` (per-cell autoscalers under the
+global planner's leases, ``--plan-interval-global``, ``--lease-slack``) and
+``--decode-block K`` (K fused decode micro-steps a dispatch on ticks that
+admit nothing).
+
+On a card every decode dispatch replays a captured CUDA graph (the fleet's
+one or K micro-steps, a drain-mode replica's step); ``--no-async`` is the
+eager oracle (eager decode, blocking syncs). On the CPU everything runs
+eagerly.
+
 The model is the reduced config of ``--arch`` with f32 weights from
 ``--seed``, as in the reference; ``--device`` (default ``cuda``) names
 where it runs and raises when CUDA is asked for and absent.
@@ -34,10 +48,8 @@ reference's name for its kernel path, which is Pallas there -- and
 ``einsum`` through the reference's dense path.
 TF32 is off for every f32 product.
 
-Not yet ported, and raising when asked for: ``--cells > 1`` and
-``--hierarchy`` (the multi-cell routing plane and the two-level control
-hierarchy), ``--clients > 0`` (closed-loop clients), ``--chunk-len > 0``,
-``--decode-block > 1``, ``--devices`` and ``--mesh``.
+Not yet ported, and raising when asked for: ``--chunk-len > 0``,
+``--devices`` and ``--mesh``.
 """
 from __future__ import annotations
 
@@ -53,14 +65,24 @@ def _percentiles(xs, qs=(50, 95)):
     return [float(np.percentile(xs, q)) for q in qs]
 
 
+def _parse_timeout(spec: str):
+    """'8' -> scalar ticks; 'premium:4,batch:16' -> per-tier dict."""
+    try:
+        return float(spec)
+    except ValueError:
+        out = {}
+        for part in filter(None, (p.strip() for p in spec.split(","))):
+            name, _, val = part.partition(":")
+            if not val:
+                raise ValueError(f"bad timeout entry {part!r}")
+            out[name] = float(val)
+        return out
+
+
 def unported(args) -> str:
     """The first flag of ``args`` that asks for a path not yet ported, or
     an empty string."""
-    for bad, what in ((args.cells > 1, "--cells > 1"),
-                      (args.hierarchy, "--hierarchy"),
-                      (args.clients > 0, "--clients > 0"),
-                      (args.chunk_len > 0, "--chunk-len > 0"),
-                      (args.decode_block > 1, "--decode-block > 1"),
+    for bad, what in ((args.chunk_len > 0, "--chunk-len > 0"),
                       (args.devices > 0 or bool(args.mesh),
                        "--devices/--mesh")):
         if bad:
@@ -70,32 +92,42 @@ def unported(args) -> str:
 
 def cluster_config(args):
     """The control loop's ``ClusterConfig`` from the serve flags, as
-    ``repro.launch.serve`` builds it."""
+    ``repro.launch.serve`` builds it: with ``--cells > 1`` the plane sees
+    the cells as its nodes, and a scale target is a cell's total replica
+    budget."""
     from repro_torch.configs.paper_cluster import ClusterConfig
 
+    multi = args.cells > 1
     return ClusterConfig(
-        num_nodes=args.nodes, horizon=8, forecast_window=16,
+        num_nodes=args.cells if multi else args.nodes,
+        horizon=8, forecast_window=16,
         provisioning_delay=args.provision_delay,
-        max_replicas_per_node=args.max_replicas,
+        max_replicas_per_node=(args.nodes * args.max_replicas
+                               if multi else args.max_replicas),
         min_replicas_per_node=1,      # never plan a node to zero capacity
         scale_interval=5, cooldown=8, straggler_prob=0.0, node_mtbf=1e12)
 
 
 def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                      rl=None, scaler_key=None) -> dict:
-    """The single-cell control loop of ``repro.launch.serve`` over
-    ``model``/``params``: ``--ticks`` ticks of the plane over the trace,
-    then drain. ``rl`` (an ``RLBalancer``) and ``scaler_key`` (a GPSO key,
-    see ``core.gpso``) replace the ones drawn from ``--seed`` (the tests
-    pass the reference's). Prints the reference's report lines plus the
-    plane's; returns {"fe", "plane", "ticks" (per tick: replicas,
+    """The control loop of ``repro.launch.serve`` over ``model``/
+    ``params``: ``--ticks`` ticks of the plane (under ``--hierarchy``, of
+    the ``PlaneSupervisor``) over the trace or the closed-loop clients,
+    then drain, on one elastic cell or a federation of ``--cells``. ``rl``
+    (an ``RLBalancer``) and ``scaler_key`` (a GPSO key, see ``core.gpso``)
+    replace the ones drawn from ``--seed`` (the tests pass the
+    reference's). Prints the reference's report lines plus the plane's;
+    returns {"fe", "plane", "pool", "sup", "ticks" (per tick: replicas,
     fractions, dispatch and sync counts, the async tick's sync accounting,
     host seconds), "wall"}."""
-    from repro_torch.control import ControlPlane
+    from repro_torch.control import (CellController, CellRouter,
+                                     ControlPlane, GlobalPlanner,
+                                     MultiCellBackend, PlaneSupervisor)
     from repro_torch.core import balancer as bal
     from repro_torch.serving.elastic import (ChaosSchedule,
                                              ElasticClusterFrontend)
     from repro_torch.serving.engine import ReplicaEngine, Request
+    from repro_torch.workload.clients import ClientPool
     from repro_torch.workload.trace import (TraceConfig, generate_trace,
                                             parse_tiers)
 
@@ -103,6 +135,10 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
     if what:
         raise SystemExit(f"[serve] {what} is not yet ported")
     tiers = parse_tiers(args.tiers)
+    multi = args.cells > 1
+    if args.hierarchy and not multi:
+        raise SystemExit("--hierarchy needs --cells > 1 (the two-level "
+                         "split is over a federation of cells)")
     ccfg = cluster_config(args)
     rng = np.random.default_rng(args.seed)
 
@@ -115,7 +151,8 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                              cache_dtype=cache_dtype,
                              chunk_len=args.chunk_len, tiers=tiers,
                              attn_backend=args.attn_backend,
-                             device=args.device)
+                             device=args.device,
+                             decode_graph=not args.no_async)
 
     def request_factory(rid: int, tick: int) -> Request:
         plen = int(rng.integers(2, 12))
@@ -127,16 +164,45 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
 
     est_tokens = 8.0
     chaos = ChaosSchedule.parse(args.chaos) if args.chaos else None
-    fe = ElasticClusterFrontend(
-        make_replica, args.nodes, initial_replicas=args.replicas,
-        provisioning_delay=args.provision_delay,
-        max_replicas_per_node=args.max_replicas,
-        failure_rate=args.failure_rate, request_factory=request_factory,
-        seed=args.seed, est_tokens=est_tokens,
-        fleet_batch=not args.no_fleet,
-        fleet_prefill=not args.no_fleet_prefill,
-        async_tick=not args.no_async, decode_block=args.decode_block,
-        tiers=tiers, preempt_notice=args.preempt_notice, chaos=chaos)
+
+    def build_cell(cell_chaos):
+        return ElasticClusterFrontend(
+            make_replica, args.nodes, initial_replicas=args.replicas,
+            provisioning_delay=args.provision_delay,
+            max_replicas_per_node=args.max_replicas,
+            failure_rate=args.failure_rate, request_factory=request_factory,
+            seed=args.seed, est_tokens=est_tokens,
+            fleet_batch=not args.no_fleet,
+            fleet_prefill=not args.no_fleet_prefill,
+            async_tick=not args.no_async, decode_block=args.decode_block,
+            tiers=tiers, preempt_notice=args.preempt_notice,
+            chaos=cell_chaos)
+
+    if multi:
+        # node-level --chaos lands on cell 0 (the scripted victim); cell
+        # events drive the router
+        cell_chaos = ChaosSchedule.parse(args.cell_chaos) \
+            if args.cell_chaos else None
+        router = CellRouter(args.cells, tiers=tiers,
+                            shed_threshold=args.shed_threshold or None,
+                            adaptive=not args.static_split)
+        fe = MultiCellBackend(
+            [build_cell(chaos if c == 0 else None)
+             for c in range(args.cells)],
+            tiers=tiers, router=router, chaos=cell_chaos,
+            request_factory=request_factory, seed=args.seed)
+    else:
+        fe = build_cell(chaos)
+    pool = None
+    if args.clients > 0:
+        # closed loop: the pool replaces the open-loop arrival trace (the
+        # frontend's request_factory goes unused at arrival_rate 0)
+        pool = ClientPool(
+            fe, args.clients, request_factory=request_factory,
+            think_time=args.think_time,
+            timeout=_parse_timeout(args.timeout),
+            max_retries=args.retries, spawn_rate=args.spawn_rate,
+            seed=args.seed + 1)
 
     balancer = {"ours": "rl", "rr": "rr", "lc": "lc", "wrr": "wrr",
                 "fractions": "wrr"}[args.policy]
@@ -150,33 +216,64 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                                        diurnal_period=max(args.ticks, 2)),
                            seed=args.seed)
     arrivals = trace["arrivals"]
-    plane = ControlPlane(ccfg, fe, balancer=balancer, scaler=args.autoscale,
+    # hierarchy mode: the ControlPlane keeps forecast + balance, scaling
+    # authority moves to the per-cell controllers under leases
+    plane = ControlPlane(ccfg, fe, balancer=balancer,
+                         scaler="none" if args.hierarchy else args.autoscale,
                          unit_capacity=unit_cap, rl=rl,
                          forecast_scale=float(arrivals.mean()),
                          seed=args.seed,
                          init_arrival=float(arrivals[:5].mean()),
                          device=args.device)
-    if scaler_key is not None:
+    if scaler_key is not None and plane.scaler is not None:
         plane.scaler.key = scaler_key
+    sup = None
+    if args.hierarchy:
+        cell_cap = args.nodes * args.max_replicas
+        planner = GlobalPlanner(args.cells,
+                                total_budget=args.cells * cell_cap,
+                                max_per_cell=cell_cap,
+                                lease_slack=args.lease_slack)
+        controllers = [CellController(fe, c) for c in range(args.cells)]
+        sup = PlaneSupervisor(fe, planner, controllers, plane=plane,
+                              plan_interval=args.plan_interval_global)
 
     print(f"[serve] unified loop: balancer={balancer} "
           f"autoscale={args.autoscale} nodes={args.nodes} "
           f"ticks={args.ticks} device={args.device}"
           + (f" actor={rl.actor}" if rl is not None else "")
-          + (f" chaos={args.chaos!r}" if chaos else ""))
+          + (f" cells={args.cells}" if multi else "")
+          + (" hierarchy=on"
+             f" plan-interval={args.plan_interval_global}" if sup else "")
+          + (f" clients={args.clients}" if pool else "")
+          + (f" chaos={args.chaos!r}" if chaos else "")
+          + (f" cell-chaos={args.cell_chaos!r}"
+             if multi and args.cell_chaos else ""))
     ticks = []
     t0 = time.time()
     for t in range(args.ticks):
         t1 = time.perf_counter()
-        m = plane.step(float(arrivals[t]))
+        if pool is not None:
+            pool.tick()                     # closed loop drives arrivals
+        rate = 0.0 if pool is not None else float(arrivals[t])
+        if sup is not None:
+            m = sup.step(rate)
+        elif getattr(fe, "plane_alive", True):
+            m = plane.step(rate)
+        else:
+            # centralized loop under a plane outage: the one brain is gone
+            # -- tick the data plane, no planning/balancing/scaling
+            m = fe.tick(rate)
         ticks.append({"s": time.perf_counter() - t1,
                       "replicas": m["active_replicas"].tolist(),
                       "fractions": plane.fractions.copy(),
                       "decode_dispatches": m["decode_dispatches"],
                       "prefill_dispatches": m["prefill_dispatches"],
-                      "syncs": m["syncs"], "reconciles": m["reconciles"],
-                      "last_round_dispatches": m["last_round_dispatches"],
-                      "in_flight_groups": m["in_flight_groups"]})
+                      "syncs": m["syncs"],
+                      "reconciles": m.get("reconciles"),
+                      "last_round_dispatches": m.get(
+                          "last_round_dispatches"),
+                      "in_flight_groups": m.get("in_flight_groups")})
         if t % 10 == 0 or t == args.ticks - 1:
             print(f"[serve] t={t:3d} arrivals={arrivals[t]:5.1f}/tick "
                   f"replicas={m['active_replicas'].tolist()} "
@@ -184,7 +281,11 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                   f"util={m['mean_utilization']:.2f} "
                   f"resp={m['response_time']:.1f}t "
                   f"goodput={m['goodput']:.0f}")
+    if pool is not None:
+        pool.quiesce()
     fe.run_until_drained()
+    if pool is not None:
+        pool.finalize()
     wall = time.time() - t0
 
     done = fe.finished
@@ -251,15 +352,54 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
     if fe.preempted_nodes or fe.preempted_replicas:
         print(f"[serve] preemptions: nodes={fe.preempted_nodes} "
               f"replicas={fe.preempted_replicas}")
-    return {"fe": fe, "plane": plane, "ticks": ticks, "wall": wall}
+    if multi:
+        # degraded-mode report: what the routing plane absorbed
+        stale = fe.cell_staleness().astype(int).tolist()
+        print(f"[serve] cells: downs={fe.cell_downs} "
+              f"evacuated={fe.evacuated_total} shed={fe.shed_total} "
+              f"quarantine-ticks={fe.quarantine_ticks} "
+              f"parked={len(fe.pending)} staleness={stale} "
+              f"weights={np.round(fe._weights, 3).tolist()}")
+        if fe.plane_outages:
+            print(f"[serve] plane: outages={fe.plane_outages} "
+                  f"dark-ticks={fe.plane_outage_ticks} "
+                  f"local-actions={fe.local_actions_total}")
+        if sup is not None:
+            hs = sup.summary()
+            print(f"[serve] hierarchy: plans={hs['plans']} "
+                  f"local-actions={hs['local_actions']} "
+                  f"(up={hs['local_up_actions']}) "
+                  f"outage-steps={hs['outage_steps']} "
+                  f"restores={hs['restores']} "
+                  f"leases={hs['leases']}")
+    if pool is not None:
+        s = pool.summary()
+        lm = s["latency_mean"]
+        lp = s["latency_p95"]
+        print(f"[serve] clients: n={s['clients']} issued={s['issued']} "
+              f"ok={s['ok']} timed_out={s['timed_out']} "
+              f"retries={s['retries']} abandoned={s['abandoned']} "
+              f"rejected={s['rejected']} shed={s['shed']}"
+              + (f" e2e mean={lm:.1f}t p95={lp:.1f}t"
+                 if lm is not None else ""))
+        for tname, row in sorted(s["per_tier"].items()):
+            n_rids = max(row["ok"] + row["abandoned"], 1)
+            print(f"[serve]   clients tier {tname:<10} "
+                  f"goodput={row['ok']}/{n_rids} "
+                  f"({row['ok'] / n_rids:.0%}) "
+                  f"retries={row['retries']} abandoned={row['abandoned']}")
+    return {"fe": fe, "plane": plane, "pool": pool, "sup": sup,
+            "ticks": ticks, "wall": wall}
 
 
 def run_drain_mode(args, cfg, model, params, cache_dtype=torch.float32,
-                   workload=None):
+                   workload=None, decode_graph=True):
     """Serve ``workload`` (default: ``prompt_workload(vocab, --requests,
     --seed)``) through ``--replicas`` standalone replicas behind a
-    ``ClusterFrontend`` until every request finishes. Prints the report
-    and returns (frontend, replicas, wall seconds)."""
+    ``ClusterFrontend`` until every request finishes; on a card each
+    decode step replays the replica's captured graph (``decode_graph=
+    False``: eager, the oracle). Prints the report and returns (frontend,
+    replicas, wall seconds)."""
     from repro_torch.data.pipeline import prompt_workload
     from repro_torch.serving.engine import (ClusterFrontend, ReplicaEngine,
                                             Request, total_prefill_traces)
@@ -273,7 +413,7 @@ def run_drain_mode(args, cfg, model, params, cache_dtype=torch.float32,
                               cache_dtype=cache_dtype,
                               chunk_len=args.chunk_len,
                               attn_backend=args.attn_backend,
-                              device=args.device)
+                              device=args.device, decode_graph=decode_graph)
                 for i in range(args.replicas)]
     caps = np.ones(args.replicas)
 

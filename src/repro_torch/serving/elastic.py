@@ -32,7 +32,14 @@ applies at ONE reconcile sync at the next tick's start, so the host half
 of tick t (metrics, queues, the control plane's forecast -> balance ->
 scale) overlaps the device computing tick t's decode. Token streams and
 finish ticks are bit-identical to ``async_tick=False`` (the eager oracle);
-only host-side observation lags one tick.
+only host-side observation lags one tick. On a card each group's decode
+dispatch replays a captured CUDA graph (``serving.graphs``).
+``decode_block=K`` additionally fuses K decode micro-steps into one
+dispatch and one sync on ticks with no pending admissions, dropping
+syncs a tick to 1/K in the saturated-decode regime -- at the cost that a
+slot retiring mid-block re-admits only at the block-end reconcile
+(admission lag <= K - 1 ticks under a full slab; see the engine
+docstring).
 
 **SLO tiers, the exactly-once ``RequestLedger``, deadlines, scripted chaos
 (``ChaosSchedule``: fail / preempt / recover / slow), spot preemption and
@@ -43,7 +50,7 @@ reference's keys, plus the async tick's sync accounting (``reconciles``,
 ``async_tick_violations`` holds to its contract.
 
 Not yet ported, and raising when asked for: ``mesh=`` (fleet-mesh
-sharding) and ``decode_block > 1``.
+sharding).
 """
 from __future__ import annotations
 
@@ -359,9 +366,6 @@ class ElasticClusterFrontend:
         if mesh is not None:
             raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
                                       "yet ported")
-        if int(decode_block) > 1:
-            raise NotImplementedError("fused decode windows (decode_block "
-                                      "> 1) are not yet ported")
         self.make_replica = make_replica
         self.num_nodes = num_nodes
         self.tiers = tiers or DEFAULT_TIERS
@@ -379,6 +383,8 @@ class ElasticClusterFrontend:
         # either oracle mode (per-replica decode or per-replica admission)
         # the tick falls back to eager, blocking syncs
         self.async_tick = bool(async_tick) and self.fleet_prefill
+        self.decode_block = max(1, int(decode_block)) if self.async_tick \
+            else 1
         self.rng = np.random.default_rng(seed)
         self.nodes = [_Node(self.tiers) for _ in range(num_nodes)]
         self._rid = 0                # engine ids (replicas ever created)
@@ -413,6 +419,8 @@ class ElasticClusterFrontend:
         self._tick_last_round = 0    # decode dispatches of the last round
         self._tick_sync_wait = 0.0   # seconds blocked on device this tick
         self._retired_dispatches = 0  # dispatch counts of evicted groups
+        self._retired_steps = 0      # decode micro-steps of evicted groups
+        self._retired_graphs: dict = {}  # graph counts of evicted groups
         self._retired_prefill_dispatches = 0  # of evicted groups + engines
         self._retired_syncs = 0      # sync counts of evicted groups/engines
         self._retired_sync_wait = 0.0
@@ -446,6 +454,7 @@ class ElasticClusterFrontend:
                     eng.model, eng.params, max_batch=eng.max_batch,
                     max_seq=eng.max_seq, cache_dtype=eng.cache_dtype,
                     async_mode=self.async_tick,
+                    decode_block=self.decode_block,
                     attn_backend=eng.attn_backend, device=eng.device)
             g.add(eng)
         return eng
@@ -460,6 +469,9 @@ class ElasticClusterFrontend:
             # device memory forever (a re-spawn re-allocates from zeros)
             self._async_stash.extend(g.reconcile(force=True))
             self._retired_dispatches += g.dispatches
+            self._retired_steps += g.decode_steps
+            for k, n in g.graphs.stats().items():
+                self._retired_graphs[k] = self._retired_graphs.get(k, 0) + n
             self._retired_prefill_dispatches += g.prefill_dispatches
             self._retired_syncs += g.syncs
             self._retired_sync_wait += g.sync_wait
@@ -479,6 +491,21 @@ class ElasticClusterFrontend:
         including groups since evicted."""
         return self._retired_dispatches + \
             sum(g.dispatches for g in self._fleets.values())
+
+    def decode_steps(self) -> int:
+        """Total fleet decode micro-steps run (a block of K counts K),
+        including groups since evicted."""
+        return self._retired_steps + \
+            sum(g.decode_steps for g in self._fleets.values())
+
+    def graph_stats(self) -> dict:
+        """The fleet groups' decode-graph counts (captures, recaptures
+        after slab growth, replays), evicted groups included."""
+        out = dict(self._retired_graphs)
+        for g in self._fleets.values():
+            for k, n in g.graphs.stats().items():
+                out[k] = out.get(k, 0) + n
+        return out
 
     def prefill_dispatches(self) -> int:
         """Total admission dispatches issued: per-engine bucketed /
@@ -1018,6 +1045,11 @@ class ElasticClusterFrontend:
         # Engines are independent within a tick (node queues were dispatched
         # above), so round interleaving matches stepping them one by one.
         max_sub = max((n for _, n in stepping), default=0)
+        # a fused decode block may engage on single-round ticks whose
+        # admission phase dispatched nothing (the group checks that);
+        # unrouted work would mean admissions are imminent, so hold off
+        allow_block = (self.decode_block > 1 and max_sub == 1
+                       and not self.pending)
         for r in range(max_sub):
             if r > 0 and self.async_tick:
                 # hetero sub-rounds: round r's admission may use slots the
@@ -1036,7 +1068,8 @@ class ElasticClusterFrontend:
             round_start = self._tick_dispatches
             for g in self._fleets.values():
                 before = g.dispatches
-                finished_now.extend(g.decode_round(ids))
+                finished_now.extend(g.decode_round(
+                    ids, allow_block=allow_block))
                 self._tick_dispatches += g.dispatches - before
             for eng, _ in round_engines:     # engines outside any fleet
                 if eng._fleet is None:

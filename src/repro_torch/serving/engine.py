@@ -50,6 +50,20 @@ formed).
 ``ReplicaEngine.step()`` remains the standalone per-replica path and is the
 parity oracle for the fleet path.
 
+**Decode graphs.** On a card every decode dispatch of the async fleet tick
+and of a standalone replica replays a captured CUDA graph (``serving.
+graphs``): the port's counterpart of the reference's jitted dispatch. The
+fleet's graphs are keyed by (masked, micro-steps): the masked
+variant of a sub-step round reads the stepping rows from fixed-size
+device buffers (``_masks``: a (cap,) row mask and a (cap * B,) write
+index, padded by repeating the movers' own rows, so a row written twice
+gets the same value twice), and a slab growth drops every graph (a grow
+reallocates the slab, the operands and the masks; a backfill on remove
+copies in place). A standalone replica's graph reads its tokens and
+positions from static buffers. On the CPU the same code runs eagerly.
+The eager oracle is ``async_mode=False`` (``decode_round``'s blocking
+path) and ``ReplicaEngine(decode_graph=False)``.
+
 **Async tick contract.** With ``async_mode`` the fleet dispatch methods
 never block on the device. The decode operands (``toks``/``pos``/``rem``/
 ``eos``/``active``, ``(cap, max_batch)`` each) live on the device next to
@@ -68,10 +82,18 @@ only the host-side observation is one tick late. Membership churn
 (scale-up joins, drain retire, failure) force-flushes pending results
 first.
 
+``decode_block=K`` fuses K decode micro-steps into one dispatch (on a card
+one graph of K micro-steps: the reference's ``lax.scan``), engaged by the
+reference's rules: only with the async tick, on a single-round tick that
+admitted nothing (no pending prefill, no single admit) over the full group.
+One block counts as one dispatch and covers the next K - 1 ticks' decode;
+its (K, cap, B) results reconcile at the block's end with finish clocks
+``dispatch_clock + k``, so an admission landing inside the window starts
+decoding at its end (a lag of at most K - 1 ticks).
+
 Not yet ported, and raising when asked for: chunked prefill
-(``chunk_len > 0``), the int8 KV codec, fused decode windows
-(``decode_block > 1``), fleet-mesh sharding (``mesh``) and families other
-than dense, ssm and hybrid.
+(``chunk_len > 0``), the int8 KV codec, fleet-mesh sharding (``mesh``) and
+families other than dense, ssm and hybrid.
 """
 from __future__ import annotations
 
@@ -86,6 +108,7 @@ import torch
 
 from repro_torch.device import host_to_device, resolve_device
 from repro_torch.models.model import SEQ_LEAVES, Model
+from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
 
 # families whose prefill accepts per-row ``lengths`` (bucketed prompts are
@@ -155,16 +178,25 @@ def _stage(device: torch.device, *arrays) -> list:
     return out
 
 
+def _stage_into(dst, *arrays) -> None:
+    """Host arrays into the fixed device tensors ``dst`` (a captured graph
+    reads them by address): one staging copy, then a device copy each."""
+    for d, src in zip(dst, _stage(dst[0].device, *arrays)):
+        d.copy_(src)
+
+
 class _Pending:
     """A dispatched device result not yet applied on the host. ``host``
     holds the small outputs: on a card, pinned host tensors whose copy was
-    enqueued right behind the dispatch, with ``ready`` recorded after it;
-    on the CPU, the outputs themselves. ``meta`` is the host bookkeeping
-    context captured at dispatch time (engines, slots, requests and the
+    enqueued right behind the dispatch (before any later replay can
+    overwrite a graph's outputs), with ``ready`` recorded after it; on the
+    CPU, the outputs themselves (the CPU runs eagerly: each dispatch's
+    outputs are new tensors). ``meta`` is the host bookkeeping context
+    captured at dispatch time (engines, slots, requests and the
     dispatch-time clocks that stamp TTFT/finish)."""
 
     def __init__(self, kind: str, arrays, meta: list):
-        self.kind = kind                # "decode" | "prefill"
+        self.kind = kind                # "decode" | "block" | "prefill"
         self.meta = meta
         self.ready = None
         if arrays[0].device.type == "cuda":
@@ -387,14 +419,17 @@ class ReplicaEngine:
     retire loop (``step``). ``speed`` is its relative decode speed (the
     elastic frontend runs speed>1 replicas several sub-steps per tick).
     ``attn_backend`` is ``"pallas"`` (the CUDA kernels; their plain versions
-    on the CPU) or ``"einsum"``."""
+    on the CPU) or ``"einsum"``. On a card the standalone decode step
+    replays a captured graph; ``decode_graph=False`` keeps it eager (the
+    oracle)."""
 
     def __init__(self, model: Model, params, *, max_batch: int = 4,
                  max_seq: int = 256, cache_dtype=torch.float32, rid: int = 0,
                  speed: float = 1.0, min_bucket: int = 8,
                  bucket_prompts: Optional[bool] = None, chunk_len: int = 0,
                  tiers: Optional[TierSet] = None,
-                 attn_backend: str = "pallas", device="cuda"):
+                 attn_backend: str = "pallas", device="cuda",
+                 decode_graph: bool = True):
         if attn_backend not in ("pallas", "einsum"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}")
         if chunk_len:
@@ -433,6 +468,15 @@ class ReplicaEngine:
         self.bucket_prompts = bucket_prompts
         self._shapes = get_prefill_shapes(model, max_seq, cache_dtype,
                                           attn_backend)
+        # the standalone decode step: its operands' fixed device buffers and
+        # its graph, keyed by the addresses of the pool it was captured on
+        self._step_ops = {
+            "toks": torch.zeros((max_batch, 1), dtype=torch.int32,
+                                device=self.device),
+            "pos": torch.zeros(max_batch, dtype=torch.int32,
+                               device=self.device)}
+        self.graphs = DecodeGraphs(self.device, eager=not decode_graph)
+        self._captured_on = ()
 
     @property
     def fleet_key(self) -> tuple:
@@ -623,13 +667,16 @@ class ReplicaEngine:
             return self._fleet.decode_round({id(self)})
         if self.n_active == 0:
             return []
-        toks, pos = _stage(self.device, self.last_tok[:, None], self.pos)
-        logits, self.cache = self.model.decode(
-            self.params, self.cache, toks, pos,
-            attn_backend=self.attn_backend)
+        _stage_into((self._step_ops["toks"], self._step_ops["pos"]),
+                    self.last_tok[:, None], self.pos)
+        pool = tuple(c.data_ptr() for c in self.cache.values())
+        if pool != self._captured_on:  # a pool handed back by a fleet
+            self.graphs.drop()
+            self._captured_on = pool
+        nxt = self.graphs.run("decode", self._decode_next)
         self.steps += 1
         finished: list = []
-        next_toks = _timed_get(self, (torch.argmax(logits, dim=-1),))[0]
+        next_toks = _timed_get(self, nxt)[0]
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -644,6 +691,14 @@ class ReplicaEngine:
                 finished.append(req)
                 self.slots[slot] = None
         return finished
+
+    def _decode_next(self) -> tuple:
+        """One decode of the pool from the static operands (in place):
+        each slot's greedy next token."""
+        logits, _ = self.model.decode(
+            self.params, self.cache, self._step_ops["toks"],
+            self._step_ops["pos"], attn_backend=self.attn_backend)
+        return (torch.argmax(logits, dim=-1),)
 
     def commit_decode(self, next_toks: np.ndarray, done: np.ndarray) -> list:
         """Apply one eager fleet decode result to the host bookkeeping.
@@ -716,8 +771,12 @@ class FleetGroup:
     With ``async_mode`` the dispatch methods never block: device results
     queue on ``pending`` and the deferred host bookkeeping applies at the
     next ``reconcile()`` -- one blocking sync per tick (``syncs``), with
-    the decode operands persistent on the device (``ops``).
-    ``decode_block > 1`` and ``mesh`` are not yet ported."""
+    the decode operands persistent on the device (``ops``). Each async
+    decode dispatch runs through ``graphs`` (a captured CUDA graph on a
+    card); ``decode_block=K`` fuses K micro-steps into one on the ticks
+    the reference's rules allow (module docstring). ``decode_steps``
+    counts the micro-steps run (K a block). ``mesh`` is not yet
+    ported."""
 
     def __init__(self, model: Model, params, *, max_batch: int, max_seq: int,
                  cache_dtype=torch.float32, async_mode: bool = False,
@@ -726,9 +785,6 @@ class FleetGroup:
         if mesh is not None:
             raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
                                       "yet ported")
-        if int(decode_block) > 1:
-            raise NotImplementedError("fused decode windows (decode_block "
-                                      "> 1) are not yet ported")
         self.device = resolve_device(device)
         self.model = model
         self.params = params
@@ -743,9 +799,15 @@ class FleetGroup:
         self.dispatches = 0         # fleet decode dispatches issued
         self.prefill_dispatches = 0  # fleet admission dispatches issued
         self.async_mode = bool(async_mode)
+        self.decode_block = max(1, int(decode_block))
+        self.decode_steps = 0       # decode micro-steps run (K a block)
         self.ops = None             # device decode operands (async mode)
+        self._masks = None          # the masked dispatch's (async mode)
+        self.graphs = DecodeGraphs(self.device)   # the async decode's
         self.pending: list = []     # _Pending device results, unapplied
         self._stash: list = []      # finishes from forced flushes (churn)
+        self._admitted = False      # a single admit landed this tick
+        self._block_credit = 0      # ticks already covered by a block
         self.syncs = 0              # blocking host syncs performed
         self.sync_wait = 0.0        # seconds spent blocked on the device
         self._shapes = get_prefill_shapes(model, max_seq, cache_dtype,
@@ -787,6 +849,15 @@ class FleetGroup:
                     self.ops = {n: torch.cat([o, o.new_zeros(
                         (new_cap - self.cap, B))]) for n, o in
                         self.ops.items()}
+            if self.async_mode:
+                # the graphs read the slab, the operands and the masks by
+                # address: all three are new
+                self._masks = {
+                    "rows": torch.zeros(new_cap, dtype=torch.bool,
+                                        device=self.device),
+                    "write": torch.zeros(new_cap * B, dtype=torch.int32,
+                                         device=self.device)}
+                self.graphs.drop()
             self.cap = new_cap
             self.peak_rows = max(self.peak_rows, new_cap * B)
         for n, s in self.slab.items():
@@ -794,6 +865,7 @@ class FleetGroup:
         if self.async_mode:
             self._seed_ops_row(row, eng)
         eng.cache = None
+        eng.graphs.drop()
         eng._fleet, eng._fleet_row = self, row
         self.members.append(eng)
 
@@ -853,6 +925,9 @@ class FleetGroup:
             o["rem"][f, slot] = req.rem_tokens(self.members[f].clock)
             o["eos"][f, slot] = int(req.eos_id)
             o["active"][f, slot] = True
+            # single admits bypass ``pending`` (their sync was eager), so
+            # they veto a fused block separately
+            self._admitted = True
 
     # -------------------------------------------------------------- admit
     def admit_round(self, stepping_ids=None) -> list:
@@ -963,15 +1038,18 @@ class FleetGroup:
                                (e._fleet_row + 1) * self.max_batch))
         return rows, np.asarray(write, np.int32)
 
-    def decode_round(self, stepping_ids=None) -> list:
+    def decode_round(self, stepping_ids=None, allow_block: bool = False
+                     ) -> list:
         """One fused decode step for every member (or the ``id(engine)``
         subset in ``stepping_ids``). Returns finished requests. Eager: one
         dispatch plus one small (cap, B) host fetch. Async: one dispatch,
-        no sync (results apply at the next ``reconcile``)."""
+        no sync (results apply at the next ``reconcile``), and with
+        ``allow_block`` a K-micro-step block may engage on a tick that
+        admitted nothing -- covering the next K - 1 ticks' decode."""
         movers = [e for e in self.members
                   if stepping_ids is None or id(e) in stepping_ids]
         if self.async_mode:
-            return self._decode_round_async(movers)
+            return self._decode_round_async(movers, allow_block)
         if not movers or not any(e.n_decoding for e in movers):
             return []
         cap, B = self.cap, self.max_batch
@@ -999,6 +1077,7 @@ class FleetGroup:
             rows, write = dev[5].bool(), dev[6]
         nxt, done = self._fleet_core(*dev[:4], dev[4].bool(), rows, write)
         self.dispatches += 1
+        self.decode_steps += 1
         nxt, done = _timed_get(self, (nxt, done))   # ONE small host fetch
         finished: list = []
         for e in movers:
@@ -1006,31 +1085,72 @@ class FleetGroup:
             finished.extend(e.commit_decode(nxt[f], done[f]))
         return finished
 
-    def _decode_round_async(self, movers: list) -> list:
+    def _decode_round_async(self, movers: list, allow_block: bool) -> list:
         """Sync-free decode round: the operands already live on the device
         and advance in place; only the stepping-row masks (heterogeneous
-        speeds) go up, through the staging copy. Results queue on
+        speeds) go up, staged into the fixed mask buffers. One replay (one
+        graph of K micro-steps for a block); results queue on
         ``pending``."""
+        if self._block_credit > 0:      # a fused block covers this tick
+            self._block_credit -= 1
+            return []
         if not movers or not any(e.n_decoding for e in movers):
             return []
-        o = self.ops
-        rows = write = None
-        if len(movers) != len(self.members):
-            rows, write = _stage(self.device, *self._row_masks(movers))
-            rows = rows.bool()
+        if any(p.kind != "prefill" for p in self.pending):
+            raise RuntimeError("a decode of this group is still pending: "
+                               "its outputs would be overwritten")
+        full = len(movers) == len(self.members)
         meta = [(e, e._fleet_row, e.clock) for e in movers]
-        nxt, done = self._fleet_core(o["toks"], o["pos"], o["rem"], o["eos"],
-                                     o["active"], rows, write)
-        stepped = o["active"].clone() if rows is None else \
-            o["active"] & rows[:, None]
-        inc = stepped.to(torch.int32)
-        o["toks"].copy_(torch.where(stepped, nxt, o["toks"]))
-        o["pos"].add_(inc)
-        o["rem"].sub_(inc)
-        o["active"].logical_and_(~done)
+        # fused-block engagement, the reference's rules: only on ticks with
+        # no admissions at all -- ``pending`` holds this tick's fleet
+        # prefills (the tick-start reconcile cleared the previous window)
+        # and ``_admitted`` the single admits -- over the full group. Queued
+        # work behind a FULL slab does not veto it: an admission landing
+        # inside the window starts decoding at its end (lag <= K - 1 ticks)
+        admitted, self._admitted = self._admitted, False
+        K = self.decode_block
+        steps = K if (allow_block and K > 1 and full and not self.pending
+                      and not admitted) else 1
+        if not full:
+            rows, write = self._row_masks(movers)
+            _stage_into((self._masks["rows"], self._masks["write"]), rows,
+                        np.resize(write, self.cap * self.max_batch))
+        nxt, done, stepped = self.graphs.run(
+            (not full, steps),
+            lambda: self._micro_steps(steps, masked=not full))
         self.dispatches += 1
-        self.pending.append(_Pending("decode", (nxt, done, stepped), meta))
+        self.decode_steps += steps
+        if steps > 1:
+            self._block_credit = steps - 1
+        self.pending.append(_Pending("block" if steps > 1 else "decode",
+                                     (nxt, done, stepped), meta))
         return []
+
+    def _micro_steps(self, K: int, masked: bool) -> tuple:
+        """K async decode micro-steps over the slab, the device twin of
+        ``ReplicaEngine.apply_decode`` each: the operands advance in place
+        (a slot retired at micro-step k is inactive from k + 1). Reads only
+        fixed tensors (slab, ``ops``, ``_masks``): a graph's body. Returns
+        (next tokens, retire mask, stepped mask), (cap, B) each, stacked
+        (K, cap, B) when K > 1."""
+        o = self.ops
+        rows = self._masks["rows"] if masked else None
+        write = self._masks["write"] if masked else None
+        outs = []
+        for _ in range(K):
+            nxt, done = self._fleet_core(o["toks"], o["pos"], o["rem"],
+                                         o["eos"], o["active"], rows, write)
+            stepped = o["active"].clone() if rows is None else \
+                o["active"] & rows[:, None]
+            inc = stepped.to(torch.int32)
+            o["toks"].copy_(torch.where(stepped, nxt, o["toks"]))
+            o["pos"].add_(inc)
+            o["rem"].sub_(inc)
+            o["active"].logical_and_(~done)
+            outs.append((nxt, done, stepped))
+        if K == 1:
+            return outs[0]
+        return tuple(torch.stack(x) for x in zip(*outs))
 
     # ----------------------------------------------------------- reconcile
     def take_stash(self) -> list:
@@ -1046,20 +1166,23 @@ class FleetGroup:
         order (prefill first tokens before the same tick's decode tokens --
         the exact replay of the eager host effects, one tick late). Returns
         newly finished requests, stamped with their dispatch-time clocks.
-        ``force`` is the churn flush (there are no fused blocks to defer
-        for)."""
+        While a decode block still covers upcoming ticks the wait is
+        deferred (fewer than one sync a tick) unless ``force``d by
+        membership churn."""
         # mutate the stash in place: callers flush via
         # ``self._stash += self.reconcile(...)`` and a reassignment here
         # would strand their appends on the orphaned old list (the in-place
         # target resolves BEFORE this call runs)
         finished: list = list(self._stash)
         self._stash.clear()
-        if not self.pending:
+        if not self.pending or (self._block_credit > 0 and not force):
             return finished
         pend, self.pending = self.pending, []
         for p, vals in zip(pend, _timed_wait(self, pend)):
             if p.kind == "decode":
                 self._apply_decode(vals, p.meta, finished)
+            elif p.kind == "block":
+                self._apply_block(vals, p.meta, finished)
             else:
                 self._apply_admit(vals[0], p.meta, finished)
         return finished
@@ -1069,6 +1192,13 @@ class FleetGroup:
         for e, row, clock in meta:
             finished.extend(e.apply_decode(nxt[row], done[row], stepped[row],
                                            clock))
+
+    def _apply_block(self, arrays, meta: list, finished: list):
+        nxt, done, stepped = arrays                  # (K, cap, B)
+        for k in range(nxt.shape[0]):                # micro-step k: clock + k
+            for e, row, clock in meta:
+                finished.extend(e.apply_decode(nxt[k, row], done[k, row],
+                                               stepped[k, row], clock + k))
 
     def _apply_admit(self, first, meta: list, finished: list):
         """Deferred ``commit_admit``: the slot was reserved at dispatch; now

@@ -1,2 +1,2 @@
-"""SLO tier specs and the synthetic arrival trace (copies of
-``repro.workload.trace``)."""
+"""SLO tier specs, the synthetic arrival trace and the closed-loop client
+pool (copies of ``repro.workload.trace`` and ``repro.workload.clients``)."""

@@ -10,6 +10,9 @@ weights bridged in, and GPSO drawing through ``JaxKey``. The digest over
 (rid, tier, output, arrival, first_token_time, finish_time) is computed
 live on both sides and must be equal, as must the per-tick replica counts,
 dispatch and sync counts; the routing fractions agree within 1e-6.
+``reference_loop``, ``port_loop`` and ``assert_loops_match`` take every
+flag of the loop (cells, hierarchy, clients, decode blocks, tiers, chaos)
+and serve the other parity tests of the serve flags.
 """
 import hashlib
 import os
@@ -24,13 +27,19 @@ import pytest
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.paper_cluster import ClusterConfig as JaxClusterConfig
+from repro.control import (CellController, CellRouter, GlobalPlanner,
+                           MultiCellBackend, PlaneSupervisor)
 from repro.control.plane import ControlPlane as JaxPlane
 from repro.core import balancer as jbal
 from repro.models import make_model as jax_make_model
+from repro.launch.serve import _parse_timeout
+from repro.serving import ChaosSchedule as JaxChaos
 from repro.serving import ElasticClusterFrontend as JaxElastic
 from repro.serving import ReplicaEngine as JaxReplica
 from repro.serving import Request as JaxRequest
+from repro.workload import ClientPool as JaxPool
 from repro.workload import TraceConfig, generate_trace
+from repro.workload import parse_tiers as jax_parse_tiers
 from repro_torch.bridge import params_from_jax, rl_from_jax
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_cluster import ClusterConfig
@@ -53,16 +62,23 @@ def models():
 
 
 def _cluster(cls, args):
-    return cls(num_nodes=args.nodes, horizon=8, forecast_window=16,
-               provisioning_delay=args.provision_delay,
-               max_replicas_per_node=args.max_replicas,
+    multi = args.cells > 1
+    return cls(num_nodes=args.cells if multi else args.nodes, horizon=8,
+               forecast_window=16, provisioning_delay=args.provision_delay,
+               max_replicas_per_node=(args.nodes * args.max_replicas
+                                      if multi else args.max_replicas),
                min_replicas_per_node=1, scale_interval=5, cooldown=8,
                straggler_prob=0.0, node_mtbf=1e12)
 
 
-def _reference(jm, jp, args):
-    """``repro.launch.serve.run_control_loop`` (single cell, open loop),
-    returning the frontend and the per-tick record."""
+def reference_loop(jm, jp, args) -> dict:
+    """``repro.launch.serve.run_control_loop`` over ``jm``/``jp`` with the
+    serve flags ``args`` -- one cell or ``--cells``, ``--hierarchy``,
+    ``--clients``, ``--decode-block``, tiers and chaos -- returning the
+    frontend, the balancer, the pool, the supervisor and the per-tick
+    record."""
+    tiers = jax_parse_tiers(args.tiers)
+    multi = args.cells > 1
     ccfg = _cluster(JaxClusterConfig, args)
     rng = np.random.default_rng(args.seed)
 
@@ -70,38 +86,131 @@ def _reference(jm, jp, args):
         speed = float(rng.choice([0.7, 1.0, 1.4]))
         mb = int(rng.choice([max(2, args.max_batch // 2), args.max_batch]))
         return JaxReplica(jm, jp, max_batch=mb, max_seq=args.max_seq,
-                          rid=rid, speed=speed)
+                          rid=rid, speed=speed, tiers=tiers)
 
     def request_factory(rid, tick):
         plen = int(rng.integers(2, 12))
-        return JaxRequest(rid, rng.integers(1, jm.cfg.vocab_size,
-                                            plen).tolist(),
-                          max_new_tokens=int(rng.integers(4, 12)))
+        req = JaxRequest(rid, rng.integers(1, jm.cfg.vocab_size,
+                                           plen).tolist(),
+                         max_new_tokens=int(rng.integers(4, 12)))
+        if len(tiers) > 1:
+            req.tier = tiers.sample(rng)
+        return req
 
-    fe = JaxElastic(make_replica, args.nodes, initial_replicas=args.replicas,
-                    provisioning_delay=args.provision_delay,
-                    max_replicas_per_node=args.max_replicas,
-                    failure_rate=args.failure_rate,
-                    request_factory=request_factory, seed=args.seed,
-                    est_tokens=8.0, preempt_notice=args.preempt_notice)
+    chaos = JaxChaos.parse(args.chaos) if args.chaos else None
+
+    def build_cell(cell_chaos):
+        return JaxElastic(
+            make_replica, args.nodes, initial_replicas=args.replicas,
+            provisioning_delay=args.provision_delay,
+            max_replicas_per_node=args.max_replicas,
+            failure_rate=args.failure_rate,
+            request_factory=request_factory, seed=args.seed,
+            est_tokens=8.0, fleet_batch=not args.no_fleet,
+            fleet_prefill=not args.no_fleet_prefill,
+            async_tick=not args.no_async, decode_block=args.decode_block,
+            tiers=tiers, preempt_notice=args.preempt_notice,
+            chaos=cell_chaos)
+
+    if multi:
+        fe = MultiCellBackend(
+            [build_cell(chaos if c == 0 else None)
+             for c in range(args.cells)],
+            tiers=tiers,
+            router=CellRouter(args.cells, tiers=tiers,
+                              shed_threshold=args.shed_threshold or None,
+                              adaptive=not args.static_split),
+            chaos=JaxChaos.parse(args.cell_chaos) if args.cell_chaos
+            else None, request_factory=request_factory, seed=args.seed)
+    else:
+        fe = build_cell(chaos)
+    pool = None
+    if args.clients > 0:
+        pool = JaxPool(fe, args.clients, request_factory=request_factory,
+                       think_time=args.think_time,
+                       timeout=_parse_timeout(args.timeout),
+                       max_retries=args.retries, spawn_rate=args.spawn_rate,
+                       seed=args.seed + 1)
     rl = jbal.RLBalancer(ccfg, 4 + ccfg.horizon, seed=args.seed)
     arrivals = generate_trace(TraceConfig(
         ticks=args.ticks, base_rate=args.rate,
         diurnal_period=max(args.ticks, 2)), seed=args.seed)["arrivals"]
-    plane = JaxPlane(ccfg, fe, balancer="rl", scaler="gpso",
+    plane = JaxPlane(ccfg, fe, balancer="rl",
+                     scaler="none" if args.hierarchy else args.autoscale,
                      unit_capacity=args.max_batch / 8.0, rl=rl,
                      forecast_scale=float(arrivals.mean()), seed=args.seed,
                      init_arrival=float(arrivals[:5].mean()))
+    sup = None
+    if args.hierarchy:
+        cap = args.nodes * args.max_replicas
+        sup = PlaneSupervisor(
+            fe, GlobalPlanner(args.cells, total_budget=args.cells * cap,
+                              max_per_cell=cap,
+                              lease_slack=args.lease_slack),
+            [CellController(fe, c) for c in range(args.cells)],
+            plane=plane, plan_interval=args.plan_interval_global)
     ticks = []
     for t in range(args.ticks):
-        m = plane.step(float(arrivals[t]))
+        if pool is not None:
+            pool.tick()
+        rate = 0.0 if pool is not None else float(arrivals[t])
+        if sup is not None:
+            m = sup.step(rate)
+        elif getattr(fe, "plane_alive", True):
+            m = plane.step(rate)
+        else:
+            m = fe.tick(rate)
         ticks.append({"replicas": m["active_replicas"].tolist(),
                       "fractions": plane.fractions.copy(),
                       "decode_dispatches": m["decode_dispatches"],
                       "prefill_dispatches": m["prefill_dispatches"],
                       "syncs": m["syncs"]})
+    if pool is not None:
+        pool.quiesce()
     fe.run_until_drained()
-    return fe, rl, ticks
+    if pool is not None:
+        pool.finalize()
+    return {"fe": fe, "rl": rl, "ticks": ticks, "pool": pool, "sup": sup}
+
+
+def port_loop(tm, tp, args, ref) -> dict:
+    """The port's ``run_control_loop`` with the reference's actor weights
+    bridged in and GPSO drawing through ``JaxKey``."""
+    rl = RLBalancer(_cluster(ClusterConfig, args), 4 + 8, seed=args.seed,
+                    device="cpu",
+                    state=rl_from_jax(_np(ref["rl"].state), "cpu"))
+    return serve.run_control_loop(
+        args, tm.cfg, tm, tp, rl=rl,
+        scaler_key=JaxKey(jax.random.PRNGKey(args.seed)))
+
+
+def assert_loops_match(out, ref):
+    """Streams, finish clocks, ledger terminals, per-tick replicas,
+    dispatch and sync counts exact; the routing fractions within 1e-6 (the
+    reference's jitted GPSO rounds the last ulp of a fitness differently);
+    the clients' and the hierarchy's own reports exact."""
+    fe, jfe = out["fe"], ref["fe"]
+    assert _digest(fe) == _digest(jfe)
+    assert len(out["ticks"]) == len(ref["ticks"])
+    for got, want in zip(out["ticks"], ref["ticks"]):
+        np.testing.assert_allclose(got["fractions"], want["fractions"],
+                                   atol=1e-6)
+        for k in ("replicas", "decode_dispatches", "prefill_dispatches",
+                  "syncs"):
+            assert got[k] == want[k], k
+    assert (fe.decode_dispatches(), fe.prefill_dispatches(),
+            fe.sync_count(), fe.replicas_spawned, fe.failed_replicas) == (
+        jfe.decode_dispatches(), jfe.prefill_dispatches(),
+        jfe.sync_count(), jfe.replicas_spawned, jfe.failed_replicas)
+    assert fe.prefill_retraces() == jfe.prefill_retraces()
+    assert fe.ledger.balanced() and fe.ledger.balance() == \
+        jfe.ledger.balance()
+    assert fe.ledger.per_tier == jfe.ledger.per_tier
+    if ref["pool"] is not None:
+        assert out["pool"].summary() == ref["pool"].summary()
+    if ref["sup"] is not None:
+        assert out["sup"].plan_log == ref["sup"].plan_log
+        assert out["sup"].summary() == ref["sup"].summary()
 
 
 def _digest(fe):
@@ -118,29 +227,11 @@ def test_control_loop_matches_reference(models, extra):
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
          "--ticks", str(TICKS)] + extra)
-    jfe, jrl, jticks = _reference(jm, jp, args)
-    rl = RLBalancer(_cluster(ClusterConfig, args), 4 + 8, seed=args.seed,
-                    device="cpu", state=rl_from_jax(_np(jrl.state), "cpu"))
-    out = serve.run_control_loop(
-        args, tm.cfg, tm, tp, rl=rl,
-        scaler_key=JaxKey(jax.random.PRNGKey(args.seed)))
-    fe, ticks = out["fe"], out["ticks"]
-    assert _digest(fe) == _digest(jfe)
-    for got, want in zip(ticks, jticks):
-        np.testing.assert_allclose(got["fractions"], want["fractions"],
-                                   atol=1e-6)
-        for k in ("replicas", "decode_dispatches", "prefill_dispatches",
-                  "syncs"):
-            assert got[k] == want[k], k
-    assert len(ticks) == len(jticks) == TICKS
-    assert (fe.decode_dispatches(), fe.prefill_dispatches(),
-            fe.sync_count(), fe.replicas_spawned, fe.failed_replicas) == (
-        jfe.decode_dispatches(), jfe.prefill_dispatches(),
-        jfe.sync_count(), jfe.replicas_spawned, jfe.failed_replicas)
-    assert fe.prefill_retraces() == jfe.prefill_retraces()
-    assert fe.ledger.balanced() and fe.ledger.balance() == \
-        jfe.ledger.balance()
-    assert fe.replicas_spawned > 2 * args.replicas     # GPSO scaled up
+    ref = reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    assert len(out["ticks"]) == TICKS
+    assert out["fe"].replicas_spawned > 2 * args.replicas  # GPSO scaled up
 
 
 def test_cli_control_loop_runs_on_cpu():
@@ -156,9 +247,7 @@ def test_cli_control_loop_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cells", "2"], ["--cells", "2", "--hierarchy"], ["--clients", "4"],
-    ["--chunk-len", "8"], ["--decode-block", "4"], ["--devices", "2"],
-    ["--mesh", "2:fleet"]])
+    ["--chunk-len", "8"], ["--devices", "2"], ["--mesh", "2:fleet"]])
 def test_unported_control_flags_raise(flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--device", "cpu", "--policy", "ours"] + flags)

@@ -389,7 +389,5 @@ def test_unported_fleet_options_raise(models):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ElasticClusterFrontend(mk, 1, mesh=object())
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ElasticClusterFrontend(mk, 1, decode_block=4)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FleetGroup(tm, tp, max_batch=2, max_seq=MAX_SEQ, decode_block=2,
+        FleetGroup(tm, tp, max_batch=2, max_seq=MAX_SEQ, mesh=object(),
                    device="cpu")

@@ -149,10 +149,15 @@ def test_cli_takes_the_references_backend_names(capsys):
 
 
 def test_cli_control_mode_not_yet_ported():
-    """The control loop itself is ported (tests/test_torch_control_loop.py);
-    its multi-cell federation is not, and asking for it raises."""
+    """The control loop and its multi-cell federation are ported
+    (tests/test_torch_control_loop.py, tests/test_torch_cells.py); chunked
+    prefill is not, and asking for it in control mode raises. --hierarchy
+    without --cells > 1 exits with the reference's message."""
     with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2"])
+        serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2",
+                    "--chunk-len", "8"])
+    with pytest.raises(SystemExit, match="needs --cells > 1"):
+        serve.main(["--device", "cpu", "--hierarchy"])
 
 
 def test_cuda_requested_without_cuda_raises(models, monkeypatch):

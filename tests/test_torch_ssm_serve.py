@@ -22,16 +22,13 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import make_model as jax_make_model
-from repro_torch.bridge import params_from_jax, rl_from_jax
+from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.core.balancer import RLBalancer
-from repro_torch.configs.paper_cluster import ClusterConfig
 from repro_torch.launch import serve
 from repro_torch.models.model import make_model
 from repro_torch.serving.engine import FleetGroup, ReplicaEngine, Request
-from test_torch_control import JaxKey, _np
-from test_torch_control_loop import _cluster, _reference
-from test_torch_control_loop import _digest as _loop_digest
+from test_torch_control_loop import (assert_loops_match, port_loop,
+                                     reference_loop)
 from test_torch_serve import _digest, _jax_drain
 
 ARCHS = ["mamba2-1.3b", "zamba2-2.7b"]
@@ -74,27 +71,10 @@ def test_control_loop_matches_reference(models):
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
          "--ticks", str(TICKS), "--arch", tm.cfg.name])
-    jfe, jrl, jticks = _reference(jm, jp, args)
-    rl = RLBalancer(_cluster(ClusterConfig, args), 4 + 8, seed=args.seed,
-                    device="cpu", state=rl_from_jax(_np(jrl.state), "cpu"))
-    out = serve.run_control_loop(
-        args, tm.cfg, tm, tp, rl=rl,
-        scaler_key=JaxKey(jax.random.PRNGKey(args.seed)))
-    fe, ticks = out["fe"], out["ticks"]
-    assert _loop_digest(fe) == _loop_digest(jfe)
-    assert len(ticks) == len(jticks) == TICKS
-    for got, want in zip(ticks, jticks):
-        np.testing.assert_allclose(got["fractions"], want["fractions"],
-                                   atol=1e-6)
-        for k in ("replicas", "decode_dispatches", "prefill_dispatches",
-                  "syncs"):
-            assert got[k] == want[k], k
-    assert (fe.decode_dispatches(), fe.prefill_dispatches(),
-            fe.sync_count(), fe.replicas_spawned) == (
-        jfe.decode_dispatches(), jfe.prefill_dispatches(),
-        jfe.sync_count(), jfe.replicas_spawned)
-    assert fe.prefill_retraces() == jfe.prefill_retraces()
-    assert fe.ledger.balanced() and fe.replicas_spawned > 2
+    ref = reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    assert len(out["ticks"]) == TICKS and out["fe"].replicas_spawned > 2
 
 
 @pytest.mark.parametrize("name", ARCHS)
