@@ -104,6 +104,27 @@ the script exits non-zero:
      first-token and finish ticks) in bf16, and at full width cut to 2
      layers in f32 the fleet kernel run, ``--no-fleet`` and
      ``--attn-backend einsum`` do too.
+  9. chunked prefill and the int8 KV cache, at full width with the bf16
+     weights. ``--chunk-len`` for granite-3-8b, mamba2-1.3b and
+     zamba2-2.7b with an f32 cache (a replica chunks only with one): drain
+     mode with ``--chunk-len 128`` and the control loop of phase 6 with
+     ``--chunk-len 4``, counted -- every chunk dispatch launches
+     flash_attention (at its cache offset) once per attention layer and
+     ssd_scan (from the carried state) once per mamba layer, each run's
+     launches are those of its dispatches, every request finishes, the
+     ledger balances -- with the streams against single-shot's, one chunk
+     dispatch's host / device ms and the chunked prompts' TTFT reported;
+     at 2 layers in f32 chunked equals single-shot on both backends. The
+     int8 cache for granite-3-8b (``cache_dtype="int8"``): drain mode and
+     the control loop with int8 replicas, counted (flash_decode over the
+     int8 pool once a layer a step), the async digest equal to the int8
+     ``--no-async`` oracle's, at 2 layers in f32 the kernel path equal to
+     einsum's; pool bytes, the decode dispatch's host / device ms against
+     the bf16 cache's and the streams against phase 6's reported. Phase 3
+     also holds this round's kernel variants to their plain versions
+     (ssd_scan from a random ``init_state``, flash_attention at ragged
+     ``q_offset`` over pool rows, flash_decode over an int8 pool), and
+     phase 7 times them (``variants`` in the kernels line).
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
@@ -114,6 +135,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -192,6 +214,14 @@ CONTROL_DEPTH = (2, 22)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _free(torch) -> None:
+    """Give the card back what finished runs held: a frontend and its fleet
+    groups reference each other, so their caches and slabs go only with a
+    collection, then the allocator's cache."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 1-3
@@ -1430,13 +1460,16 @@ def phase_step_times(torch, cfg, model, params, reps, workload):
         f"replay, median of 3)")
 
 
-def _fleet_step_times(torch, model, params, rows: int, max_seq: int):
+def _fleet_step_times(torch, model, params, rows: int, max_seq: int,
+                      cache_dtype=None) -> tuple:
     """One fleet decode dispatch at the run's largest slab (``rows`` rows of
     ``max_seq``, every row 24 positions deep, about a prompt and half its
-    output): host clock ending in a synchronise, and the device time alone
-    from a CUDA-graph replay -- the control loop's idle share."""
-    slab = model.init_serve_state(rows, max_seq, torch.bfloat16,
-                                  device="cuda")
+    output) over a ``cache_dtype`` pool (bf16 by default): host clock
+    ending in a synchronise, and the device time alone from a CUDA-graph
+    replay -- the control loop's idle share. Returns (host ms, device
+    ms)."""
+    cache_dtype = cache_dtype or torch.bfloat16
+    slab = model.init_serve_state(rows, max_seq, cache_dtype, device="cuda")
     tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((rows,), 24, dtype=torch.int32, device="cuda")
 
@@ -1452,9 +1485,10 @@ def _fleet_step_times(torch, model, params, rows: int, max_seq: int):
         times.append((time.perf_counter() - t0) * 1e3)
     host_ms = statistics.median(times[1:])
     log(f"[control] fleet decode dispatch eager, {rows} slab rows x "
-        f"{max_seq}: {host_ms:.2f} ms host clock (median of 5), device busy "
-        f"{device_ms:.2f} ms (CUDA-graph replay, median of 5): idle share "
-        f"{1 - device_ms / host_ms:.2f}")
+        f"{max_seq}, {cache_dtype} cache: {host_ms:.2f} ms host clock "
+        f"(median of 5), device busy {device_ms:.2f} ms (CUDA-graph replay, "
+        f"median of 5): idle share {1 - device_ms / host_ms:.2f}")
+    return host_ms, device_ms
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1545,6 +1579,596 @@ def phase_fleet_write(torch, small):
         raise AssertionError(f"fleet decode logits differ by {rel:.3e}")
 
 
+# ------------------------------------------------------------------ phase 9
+# chunked prefill and the int8 KV cache, at full width: the archs whose
+# chunk path runs (dense, ssm, hybrid), with an f32 cache (the only cache a
+# replica chunks with) under the bf16 weights
+CHUNK_ARCHS = SERVED[:3]
+DRAIN_CHUNK, CONTROL_CHUNK = 128, 4
+
+
+class _ChunkCounter:
+    """Counts the engine's chunk dispatches and checks each one's launches:
+    ``serving.engine._chunk_dispatch`` wrapped for one run (a dispatch's
+    launch counts are host-side, so the difference across the call is that
+    dispatch's own)."""
+
+    def __init__(self, engine_mod, ops, per: dict):
+        self.mod, self.ops, self.per = engine_mod, ops, per
+        self.orig = engine_mod._chunk_dispatch
+        self.calls, self.rows, self.bad = 0, 0, []
+
+    def __enter__(self):
+        def counted(*args, **kw):
+            before = dict(self.ops.LAUNCHES)
+            out = self.orig(*args, **kw)
+            got = {k: self.ops.LAUNCHES[k] - before[k] for k in before}
+            if {k: got[k] for k in self.per} != self.per:
+                self.bad.append(got)
+            self.calls += 1
+            self.rows += len(args[5])
+            return out
+        self.mod._chunk_dispatch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._chunk_dispatch = self.orig
+
+
+def _chunk_launches(cfg) -> dict:
+    """Launches of one chunk dispatch: flash_attention once per attention
+    layer (the hybrid's shared block once per invocation), ssd_scan once
+    per mamba layer, no decode."""
+    return {k: p for k, (p, d) in _per_dispatch(cfg).items()}
+
+
+def _ttft_report(finished, chunk: int, max_seq: int) -> str:
+    """Chunked prompts' TTFT in ticks (first token - arrival) against
+    ceil(len / chunk): the first chunk runs in the admission tick, so a
+    prompt of n chunks has its first token n - 1 ticks after admission,
+    and TTFT >= n - 1."""
+    import math
+    reqs = [r for r in finished if r.first_token_time is not None
+            and min(len(r.prompt), max_seq - 1) > chunk]
+    if not reqs:
+        return "no chunked prompts"
+    ttft = [r.first_token_time - r.arrival for r in reqs]
+    need = [math.ceil(min(len(r.prompt), max_seq - 1) / chunk) for r in reqs]
+    return (f"{len(reqs)} chunked prompts: TTFT mean {statistics.mean(ttft):.2f} "
+            f"ticks (min {min(ttft):.0f}, max {max(ttft):.0f}) against "
+            f"ceil(len / {chunk}) mean {statistics.mean(need):.2f} (min "
+            f"{min(need)}, max {max(need)}); TTFT >= ceil - 1 for "
+            f"{sum(t >= n - 1 for t, n in zip(ttft, need))}/{len(reqs)}")
+
+
+def _outputs(finished) -> dict:
+    return {r.rid: tuple(r.output) for r in finished}
+
+
+def _differ(a: dict, b: dict) -> int:
+    return sum(a[k] != b.get(k) for k in a)
+
+
+def _chunk_dispatch_ms(torch, model, params, cache, chunk: int, rows: int,
+                       offset: int, backend: str = "pallas") -> tuple:
+    """One chunk dispatch (``rows`` rows of ``chunk`` tokens at cache
+    offset ``offset``) on ``cache``: host ms to the results through the
+    engine's own path (staging, the eager model, the engine's fetch;
+    median of 5 after a warm-up), and the device ms of the same chunk step
+    replayed from a CUDA graph (the device's busy time alone; CUDA events
+    around an eager dispatch would span the host's launch gaps too). It
+    writes the rows' cache at [offset, offset + chunk): the cache is
+    scratch here."""
+    import numpy as np
+
+    from repro_torch.serving.engine import _chunk_dispatch, _stage
+
+    items = [(r, np.arange(1, chunk + 1, dtype=np.int32), offset, chunk,
+              False) for r in range(rows)]
+    dev = torch.device("cuda")
+    host = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        first, _ = _chunk_dispatch(model, params, cache, dev, backend,
+                                   items, chunk)
+        first.cpu()
+        host.append((time.perf_counter() - t0) * 1e3)
+    toks, offs, lens, idx = _stage(
+        dev, np.tile(np.arange(1, chunk + 1, dtype=np.int32), (rows, 1)),
+        np.full(rows, offset), np.full(rows, chunk), np.arange(rows))
+    device = _graph_ms(torch, lambda: model.prefill_chunk(
+        params, cache, toks, offs, lens, rows=idx, attn_backend=backend), 1,
+        reps=5)
+    return statistics.median(host[1:]), device
+
+
+def phase_chunk(torch, ops, cfg, model, params, workload, small) -> dict:
+    """``--chunk-len`` at full width with an f32 cache (bf16 weights):
+
+    1. drain mode over the 16-request workload with ``--chunk-len 128``
+       (prompts up to 512 tokens: up to 4 chunks), counted: every request
+       finishes, every chunk dispatch launches flash_attention once per
+       attention layer and ssd_scan once per mamba layer (and nothing of
+       decode), the run's launches are those of its prefill, chunk and
+       decode dispatches; its streams against the single-shot run's with
+       the same f32 cache are reported, as are one chunk dispatch's host
+       and device ms;
+    2. the control loop of phase 6 with ``--chunk-len 4`` (its prompts are
+       2-11 tokens), counted the same way, ledger balanced, the chunked
+       prompts' TTFT against ceil(len / 4), streams against single-shot
+       reported;
+    3. at full width cut to 2 layers, f32 weights: drain mode chunked
+       equals single-shot, token for token, on both backends."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as engine_mod
+
+    per = _chunk_launches(cfg)
+    f32 = torch.float32
+    out = {}
+    # 1. drain mode
+    args = _serve_args(serve)
+    args.chunk_len = DRAIN_CHUNK
+    runs = {}
+    for label, chunk in (("chunked", DRAIN_CHUNK), ("single-shot", 0)):
+        args.chunk_len = chunk
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with _ChunkCounter(engine_mod, ops, per) as cc:
+            fe, reps, wall = serve.run_drain_mode(args, cfg, model, params,
+                                                  cache_dtype=f32,
+                                                  workload=workload)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        steps = sum(r.steps for r in reps)
+        dispatches = sum(r.prefill_dispatches for r in reps)
+        if len(fe.finished) != N_REQUESTS or not all(r.done
+                                                     for r in fe.finished):
+            raise AssertionError(f"{label}: {len(fe.finished)}/{N_REQUESTS} "
+                                 "finished")
+        _check_launches(cfg, launches, dispatches, steps)
+        if cc.bad or (chunk and not cc.calls):
+            raise AssertionError(f"chunk dispatches {cc.calls}, with launches "
+                                 f"other than {per}: {cc.bad[:3]}")
+        toks = sum(len(r.output) for r in fe.finished)
+        runs[label] = _outputs(fe.finished)
+        log(f"[chunk] {cfg.name} drain mode, f32 cache, --chunk-len {chunk}: "
+            f"launches {launches}; decode steps {steps}, prefill dispatches "
+            f"{dispatches} of which chunk dispatches {cc.calls} ({cc.rows} "
+            f"chunk rows, each dispatch {per}); {toks} tokens in "
+            f"{wall:.2f}s: {toks / wall:.1f} tok/s")
+        if chunk:
+            out["drain_launches"] = launches
+            out["chunk_calls"] = cc.calls
+            cache = reps[0].cache
+            host, dev = _chunk_dispatch_ms(torch, model, params, cache,
+                                           DRAIN_CHUNK, MAX_BATCH,
+                                           DRAIN_CHUNK)
+            out["chunk_ms"] = (host, dev)
+            log(f"[chunk] {cfg.name} one chunk dispatch, {MAX_BATCH} rows x "
+                f"{DRAIN_CHUNK} tokens at offset {DRAIN_CHUNK}: host "
+                f"{host:.2f} ms to the results (median of 5), device busy "
+                f"{dev:.2f} ms (CUDA-graph replay, median of 5): idle share "
+                f"{1 - dev / host:.3f}")
+        del fe, reps
+    log(f"[chunk] {cfg.name} full width bf16 weights, f32 cache: streams "
+        f"differing between chunked and single-shot drain runs "
+        f"{_differ(runs['chunked'], runs['single-shot'])}/{N_REQUESTS} "
+        "(reported: the chunk's attention reads the f32 pool, single-shot "
+        "attends its bf16 projections)")
+    _free(torch)
+
+    # 2. the control loop
+    digests = {}
+    for chunk in (CONTROL_CHUNK, 0):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with _ChunkCounter(engine_mod, ops, per) as cc:
+            res = serve.run_control_loop(
+                _control_args(serve, "--chunk-len", str(chunk)), cfg, model,
+                params, cache_dtype=f32)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        fe = res["fe"]
+        led = fe.ledger
+        if not (led.balanced() and len(fe.finished) == led.submitted
+                and all(r.done for r in fe.finished)):
+            raise AssertionError(f"ledger {led.balance()}")
+        _check_launches(cfg, launches, fe.prefill_dispatches(),
+                        fe.decode_steps(), len(res["ticks"]))
+        if cc.bad or (chunk and not cc.calls):
+            raise AssertionError(f"chunk dispatches {cc.calls}, with launches "
+                                 f"other than {per}: {cc.bad[:3]}")
+        digests[chunk] = _outputs(fe.finished)
+        toks = sum(len(r.output) for r in fe.finished)
+        tick_ms = statistics.median(t["s"] * 1e3 for t in res["ticks"])
+        log(f"[chunk] {cfg.name} control loop, f32 cache, --chunk-len "
+            f"{chunk}: {toks / res['wall']:.1f} tok/s, tick wall p50 "
+            f"{tick_ms:.2f} ms")
+        if chunk:
+            out["control_launches"] = launches
+            out["control_chunk_calls"] = cc.calls
+            log(f"[chunk] {cfg.name} control loop, f32 cache, --chunk-len "
+                f"{chunk}: launches {launches}; decode dispatches "
+                f"{fe.decode_dispatches()}, prefill dispatches "
+                f"{fe.prefill_dispatches()} of which chunk dispatches "
+                f"{cc.calls} ({cc.rows} chunk rows); syncs "
+                f"{fe.sync_count()}; {len(fe.finished)} requests, ledger "
+                f"balanced; {_ttft_report(fe.finished, chunk, CONTROL_MAX_SEQ)}")
+        del res, fe
+    log(f"[chunk] {cfg.name} control loop streams differing between "
+        f"--chunk-len {CONTROL_CHUNK} and single-shot (f32 cache): "
+        f"{_differ(digests[CONTROL_CHUNK], digests[0])}/"
+        f"{len(digests[0])} (reported: chunking changes the schedule, so "
+        "rows decode beside other rows)")
+    _free(torch)
+
+    # 3. exactness at 2 layers, f32
+    cfg2, model2, params2 = small
+    same = {}
+    for backend in ("pallas", "einsum"):
+        streams = {}
+        for chunk in (DRAIN_CHUNK, 0):
+            a = _serve_args(serve, backend)
+            a.chunk_len = chunk
+            fe, _, _ = serve.run_drain_mode(a, cfg2, model2, params2,
+                                            cache_dtype=f32,
+                                            workload=workload)
+            streams[chunk] = _outputs(fe.finished)
+        same[backend] = streams[DRAIN_CHUNK] == streams[0]
+    log(f"[chunk] {cfg.name} f32 full width, 2 layers, drain mode: chunked "
+        f"streams equal single-shot: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"chunked streams differ from single-shot: "
+                             f"{same}")
+    _free(torch)
+    return out
+
+
+def _pool_bytes(model, dtype) -> int:
+    """Device bytes of one slot's KV pool at the drain mode's max_seq."""
+    st = model.init_serve_state(1, MAX_SEQ, dtype, device="cuda")
+    n = sum(t.numel() * t.element_size() for t in st.values())
+    del st
+    return n
+
+
+def phase_int8(torch, ops, cfg, model, params, workload, small,
+               control) -> dict:
+    """The int8 KV cache at full width (``cache_dtype="int8"``, the engine
+    API: the reference's serve has no flag for it), bf16 weights:
+
+    1. drain mode, counted: every request finishes, every decode step reads
+       the int8 pool through flash_decode once per layer;
+    2. the control loop with int8 replicas (async, decode graphs),
+       counted, ledger balanced, its digest equal to the int8 ``--no-async``
+       oracle's; its streams against phase 6's bf16 cache reported
+       (quantization may change tokens);
+    3. at full width cut to 2 layers, f32 weights: the int8 control loop on
+       the kernel path equals ``--attn-backend einsum``'s;
+    4. pool bytes a slot and the fleet decode dispatch's host / device ms
+       against the bf16 cache's."""
+    from repro_torch.launch import serve
+
+    out = {}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fe, reps, wall = serve.run_drain_mode(_serve_args(serve), cfg, model,
+                                          params, cache_dtype="int8",
+                                          workload=workload)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    steps = sum(r.steps for r in reps)
+    dispatches = sum(r.prefill_dispatches for r in reps)
+    if len(fe.finished) != N_REQUESTS:
+        raise AssertionError(f"int8: {len(fe.finished)}/{N_REQUESTS} "
+                             "finished")
+    if set(reps[0].cache) != {"k_q", "v_q", "k_s", "v_s"}:
+        raise AssertionError(f"int8 pool leaves {set(reps[0].cache)}")
+    _check_launches(cfg, launches, dispatches, steps)
+    toks = sum(len(r.output) for r in fe.finished)
+    log(f"[int8] {cfg.name} drain mode, int8 cache: launches {launches}; "
+        f"decode steps {steps} (flash_decode over int8 once a layer a "
+        f"step), prefill dispatches {dispatches}; {toks} tokens in "
+        f"{wall:.2f}s: {toks / wall:.1f} tok/s")
+    out["drain_launches"] = launches
+    del fe, reps
+    _free(torch)
+
+    digests = {}
+    for name, extra in (("async", ()), ("eager", ("--no-async",))):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        res = serve.run_control_loop(_control_args(serve, *extra), cfg, model,
+                                     params, cache_dtype="int8")
+        torch.cuda.synchronize()
+        fe = res["fe"]
+        led = fe.ledger
+        if not (led.balanced() and len(fe.finished) == led.submitted):
+            raise AssertionError(f"int8 ledger {led.balance()}")
+        _check_launches(cfg, dict(ops.LAUNCHES), fe.prefill_dispatches(),
+                        fe.decode_steps(), len(res["ticks"]))
+        digests[name] = _digest(fe)
+        if name == "async":
+            out["control_launches"] = dict(ops.LAUNCHES)
+            rows = fe.peak_slab_rows()
+            toks = sum(len(r.output) for r in fe.finished)
+            tick_ms = statistics.median(t["s"] * 1e3 for t in res["ticks"])
+            log(f"[int8] {cfg.name} control loop, int8 replicas: "
+                f"{toks / res['wall']:.1f} tok/s, tick wall p50 "
+                f"{tick_ms:.2f} ms; launches "
+                f"{dict(ops.LAUNCHES)}; decode dispatches "
+                f"{fe.decode_dispatches()}, prefill dispatches "
+                f"{fe.prefill_dispatches()}, syncs {fe.sync_count()}; graphs "
+                f"{fe.graph_stats()}; peak slab rows {rows}")
+        del res, fe
+    same = digests["async"] == digests["eager"]
+    bf16 = {d[0]: d[1] for d in control["digest"]}
+    differ = sum(bf16.get(d[0]) != d[1] for d in digests["async"])
+    log(f"[int8] {cfg.name} int8 async (graph replays) vs --no-async digests "
+        f"identical: {same}; streams differing from the bf16 cache's "
+        f"control loop (phase 6): {differ}/{len(digests['async'])} "
+        "(reported: quantization may change tokens)")
+    if not same:
+        raise AssertionError("int8 async and eager control loops differ")
+    _free(torch)
+
+    cfg2, model2, params2 = small
+    runs = {}
+    for backend in ("pallas", "einsum"):
+        res = serve.run_control_loop(
+            _control_args(serve, "--attn-backend", backend), cfg2, model2,
+            params2, cache_dtype="int8")
+        runs[backend] = _digest(res["fe"])
+        del res
+    log(f"[int8] f32 full width, 2 layers, int8 cache: control-loop digest "
+        f"kernel path == --attn-backend einsum: "
+        f"{runs['pallas'] == runs['einsum']}")
+    if runs["pallas"] != runs["einsum"]:
+        raise AssertionError("int8 kernel and einsum control loops differ")
+
+    b8, b16 = _pool_bytes(model, "int8"), _pool_bytes(model, torch.bfloat16)
+    log(f"[int8] {cfg.name} KV pool a slot at max_seq {MAX_SEQ}: int8 "
+        f"{b8 / 2**20:.1f} MiB against bf16 {b16 / 2**20:.1f} MiB "
+        f"({b8 / b16:.3f} of it)")
+    rows = control["rows"]
+    for dt in ("int8", torch.bfloat16):
+        host, dev = _fleet_step_times(torch, model, params, rows,
+                                      CONTROL_MAX_SEQ, cache_dtype=dt)
+        out[f"step_{dt}"] = (host, dev)
+    _free(torch)
+    return out
+
+
+def _variant_inputs_offset(torch, gen, R, B, C, Sk, G, qpg, hd, dt):
+    q = torch.randn(B, C, G, qpg, hd, generator=gen, device="cuda").to(dt)
+    k = torch.randn(R, Sk, G, hd, generator=gen, device="cuda").to(dt)
+    v = torch.randn(R, Sk, G, hd, generator=gen, device="cuda").to(dt)
+    off = torch.randint(0, Sk - C + 1, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    off[0] = 0
+    off[-1] = Sk - C
+    rows = torch.randperm(R, generator=gen, device="cuda")[:B].to(torch.int32)
+    return q, k, v, off, rows
+
+
+def _int8_cache(torch, gen, B, S, G, hd):
+    from repro_torch.serving import kv_quant
+    kq, ks = kv_quant.quantize(torch.randn(B, S, G, hd, generator=gen,
+                                           device="cuda"))
+    vq, vs = kv_quant.quantize(torch.randn(B, S, G, hd, generator=gen,
+                                           device="cuda"))
+    return kq, vq, ks, vs
+
+
+def phase_parity_variants(torch, ops, ref, gen) -> dict:
+    """This round's three kernel variants against their plain versions on
+    the card: ssd_scan from a random non-zero ``init_state`` at both ssm
+    archs' chunk shapes (the drain mode's 8 x 128, the control loop's K x
+    4, a chunk of 8, and 384 steps padded to 512 against ssm_chunk 256),
+    every (tile, hpb) instantiation; flash_attention with ragged
+    ``q_offset`` (0 and S - C among them) and ``kv_rows`` over a larger
+    pool at every head layout, f32 and bf16 (the drain chunk, 8 x 128 over
+    8 x 1024; the control loop's, up to 8 x 4 over 32 x 256); flash_decode
+    over an int8 pool (the drain pool, 8 x 1024, and the 32-row slab x
+    256) at every head layout, q in f32 and bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+
+    errs = {"ssd_scan": 0.0, "flash_attention": 0.0, "flash_decode": 0.0}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for name in SSM_ARCHS:
+        cfg = get_config(name)
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        for B, T in ((8, 128), (16, 4), (8, 8), (1, 512)):
+            x, a, bm, cm = _ssd_inputs(torch, gen, B, T, H, P, N)
+            s0 = torch.randn(B, H, P, N, generator=gen, device="cuda") * 0.3
+            chunk = min(cfg.ssm_chunk, T)
+            y_ref, st_ref = ref.ssd_scan_ref(x, a, bm, cm, chunk,
+                                             init_state=s0)
+            worst = 0.0
+            for tile in ssd.TILES:
+                for h in range(1, ssd.MAX_HPB + 1):
+                    y, st = torch.empty_like(x), torch.empty_like(s0)
+                    ssd.launch(x, a, bm, cm, y, st, instantiation=(tile, h),
+                               init_state=s0)
+                    torch.cuda.synchronize()
+                    for got, want in ((y, y_ref), (st, st_ref)):
+                        torch.testing.assert_close(
+                            got, want, **SSD_TOL,
+                            msg=lambda m: f"ssd_scan init_state {name} "
+                            f"({B}, {T}) tile {tile} hpb {h}: {m}")
+                    worst = max(worst, (y - y_ref).abs().max().item(),
+                                (st - st_ref).abs().max().item())
+            y, st = ops.ssd_scan(x, a, bm, cm, chunk=chunk, init_state=s0)
+            torch.testing.assert_close(y, y_ref, **SSD_TOL)
+            errs["ssd_scan"] = max(errs["ssd_scan"], worst)
+            log(f"[parity] ssd_scan init_state {name} B={B} T={T} H={H} "
+                f"P={P} N={N} chunk={chunk} f32, every (tile, hpb): max|err| "
+                f"{worst:.3e} (atol/rtol {SSD_TOL['atol']})")
+    for G, qpg, hd in HEAD_LAYOUTS:
+        for R, B, C, Sk in ((MAX_BATCH, MAX_BATCH, DRAIN_CHUNK, MAX_SEQ),
+                            (32, 8, CONTROL_CHUNK, CONTROL_MAX_SEQ),
+                            (32, 3, CONTROL_CHUNK, CONTROL_MAX_SEQ)):
+            for dname, dt in dtypes.items():
+                q, k, v, off, rows = _variant_inputs_offset(
+                    torch, gen, R, B, C, Sk, G, qpg, hd, dt)
+                got = ops.flash_attention(q, k, v, q_offset=off,
+                                          kv_rows=rows)
+                torch.cuda.synchronize()
+                err = _close("flash_attention q_offset", got,
+                             ref.flash_attention_ref(q, k, v, q_offset=off,
+                                                     kv_rows=rows),
+                             dname, torch)
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError("flash_attention q_offset: "
+                                         "non-finite rows")
+                errs["flash_attention"] = max(errs["flash_attention"], err)
+                log(f"[parity] flash_attention q_offset Hq={G * qpg} "
+                    f"Hkv={G} hd={hd} pool {R} x {Sk}, {B} rows x {C} at "
+                    f"offsets {off.tolist()} rows {rows.tolist()} {dname}: "
+                    f"max|err|={err:.3e} (atol/rtol {TOLS[dname]['atol']})")
+        for B, S in ((MAX_BATCH, MAX_SEQ), (32, CONTROL_MAX_SEQ)):
+            kq, vq, ks, vs = _int8_cache(torch, gen, B, S, G, hd)
+            pos = _ragged_pos(torch, gen, B, 0, S - 1)
+            for dname, dt in dtypes.items():
+                q = torch.randn(B, G, qpg, hd, generator=gen,
+                                device="cuda").to(dt)
+                got = ops.flash_decode(q, kq, vq, pos, ks, vs)
+                torch.cuda.synchronize()
+                err = _close("flash_decode int8", got,
+                             ref.flash_decode_ref(q, kq, vq, pos, k_scale=ks,
+                                                  v_scale=vs), dname, torch)
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+                log(f"[parity] flash_decode int8 B={B} Hq={G * qpg} Hkv={G} "
+                    f"hd={hd} S={S} q {dname}: max|err|={err:.3e} (atol/rtol "
+                    f"{TOLS[dname]['atol']})")
+    return errs
+
+
+def phase_times_variants(torch, F, ops, ref, served) -> dict:
+    """Times of the three variants at the main paths' shapes: kernel,
+    plain version, the library call on the same inputs and the bound.
+    flash_attention with q_offset: granite's drain chunk (8 rows x 128
+    tokens at ragged offsets over its 8 x 1024 f32 pool; the chunk path
+    attends in the cache's f32, so the f32 peak bounds it); the library
+    call is SDPA over the rows' pool slices with the offset mask. ssd_scan
+    from init_state: mamba2's drain chunk (8 x 128) and control-loop chunk
+    (8 x 4); no library call. flash_decode over int8: granite's control
+    slab (32 x 256) and drain pool (8 x 1024); the library call is SDPA on
+    the dequantized cache (the dequant not timed). Bytes count each input
+    once (the int8 pool's live rows and scales), operations what these
+    inputs need."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    out = {}
+    cfg = get_config("granite-3-8b")
+    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    qpg = cfg.num_heads // G
+    L = 10            # layer views timed in one graph
+    # flash_attention, q_offset
+    f32 = torch.float32
+    R, B, C, Sk = MAX_BATCH, MAX_BATCH, DRAIN_CHUNK, MAX_SEQ
+    q, k, v, off, rows = _variant_inputs_offset(torch, gen, R, B, C, Sk, G,
+                                                qpg, hd, f32)
+    off = torch.arange(B, dtype=torch.int32, device="cuda") % 4 * C
+    kr, vr = k[rows.long()], v[rows.long()]
+    qpos = off.long()[:, None] + torch.arange(C, device="cuda")
+    mask = (torch.arange(Sk, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]                # (B, 1, C, Sk)
+    q4 = q.reshape(B, C, G * qpg, hd).transpose(1, 2)
+    ms = _graph_ms(torch, lambda: [ops.flash_attention(
+        q, k, v, q_offset=off, kv_rows=rows) for _ in range(L)], L)
+    plain = _graph_ms(torch, lambda: [ref.flash_attention_ref(
+        q, k, v, q_offset=off, kv_rows=rows) for _ in range(L)], L)
+    lib = _graph_ms(torch, lambda: [F.scaled_dot_product_attention(
+        q4, kr.transpose(1, 2), vr.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True) for _ in range(L)], L)
+    keys = int((qpos + 1).sum())                 # (query, key) pairs a head
+    frontier = int((off.long() + C).sum())       # K/V rows read, per group
+    nbytes = 4 * (2 * B * C * G * qpg * hd + 2 * frontier * G * hd + 2 * B)
+    flops = 4 * hd * G * qpg * keys
+    bound, by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+    log(f"[times] flash_attention q_offset granite drain chunk {B} rows x "
+        f"{C} at offsets {off.tolist()} over {R} x {Sk} f32: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}: {nbytes} B, {flops} flop at f32)")
+    out["flash_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                  bound_by=by, library_ms=lib,
+                                  shape=f"{B}x{C} at offsets over {R}x{Sk}, "
+                                  "f32")
+    # ssd_scan, init_state
+    m2 = get_config(SSM_ARCHS[0])
+    H, P, N = m2.ssm_heads, m2.ssm_head_dim, m2.ssm_state
+    for label, (Bs, T) in (("drain chunk", (MAX_BATCH, DRAIN_CHUNK)),
+                           ("control chunk", (MAX_BATCH, CONTROL_CHUNK))):
+        x, a, bm, cm = _ssd_inputs(torch, gen, Bs, T, H, P, N)
+        s0 = torch.randn(Bs, H, P, N, generator=gen, device="cuda") * 0.3
+        n = 10
+        ms = _graph_ms(torch, lambda: [ops.ssd_scan(
+            x, a, bm, cm, chunk=T, init_state=s0) for _ in range(n)], n)
+        plain = _graph_ms(torch, lambda: [ref.ssd_scan_ref(
+            x, a, bm, cm, T, init_state=s0) for _ in range(n)], n)
+        fma = 0
+        for t0 in range(0, T, SSD_OPS_BLOCK):
+            qq = min(SSD_OPS_BLOCK, T - t0)
+            tri = qq * (qq + 1) // 2
+            fma += tri * N + H * (tri * P + 2 * qq * P * N)
+        flops = 2 * Bs * fma
+        nbytes = 4 * (2 * Bs * T * H * P + Bs * T * H + 2 * Bs * T * N
+                      + 2 * Bs * H * P * N)     # init state in, state out
+        bound, by = _bound(nbytes, SSD_PASSES * flops, TF32_FLOPS_PER_S)
+        log(f"[times] ssd_scan init_state {m2.name} {label} B={Bs} T={T} "
+            f"f32: kernel {ms:.4f} ms, plain {plain:.4f} ms, library none, "
+            f"bound {bound:.4f} ms ({by}: {nbytes} B, {SSD_PASSES} x {flops} "
+            "flop at TF32)")
+        if label.startswith("drain"):
+            out["ssd_scan"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                   bound_by=by, library_ms=None,
+                                   shape=f"{Bs}x{T}, H {H} P {P} N {N}")
+    # flash_decode, int8
+    bf = torch.bfloat16
+    n_rows = served["granite-3-8b"]["slab_rows"]
+    for label, (Bd, S, pos) in (
+            ("control slab", (n_rows, CONTROL_MAX_SEQ,
+                              _ragged_pos(torch, gen, n_rows,
+                                          *CONTROL_DEPTH))),
+            ("drain pool", (MAX_BATCH, MAX_SEQ,
+                            _ragged_pos(torch, gen, MAX_BATCH, 300, 700)))):
+        views = [_int8_cache(torch, gen, Bd, S, G, hd) for _ in range(L)]
+        q = torch.randn(Bd, G, qpg, hd, generator=gen, device="cuda").to(bf)
+        deq = [(ref.dequantize_kv(kq, ks, bf), ref.dequantize_kv(vq, vs, bf))
+               for kq, vq, ks, vs in views]
+        dmask = (torch.arange(S, device="cuda")[None, :]
+                 <= pos[:, None])[:, None, None, :]
+        qs = q.reshape(Bd, G * qpg, 1, hd)
+        ms = _graph_ms(torch, lambda: [ops.flash_decode(q, kq, vq, pos, ks, vs)
+                                       for kq, vq, ks, vs in views], L)
+        plain = _graph_ms(torch, lambda: [ref.flash_decode_ref(
+            q, kq, vq, pos, k_scale=ks, v_scale=vs)
+            for kq, vq, ks, vs in views], L)
+        lib = _graph_ms(torch, lambda: [F.scaled_dot_product_attention(
+            qs, kd.transpose(1, 2), vd.transpose(1, 2), attn_mask=dmask,
+            enable_gqa=True) for kd, vd in deq], L)
+        filled = int((pos.long() + 1).sum())
+        nbytes = (2 * Bd * G * qpg * hd * 2          # q in, out (bf16)
+                  + 2 * filled * G * hd              # int8 K and V rows
+                  + 2 * filled * G * 4 + Bd * 4)     # their scales, pos
+        flops = 4 * hd * G * qpg * filled
+        bound, by = _bound(nbytes, flops)
+        log(f"[times] flash_decode int8 granite {label} B={Bd} S={S} "
+            f"pos={pos.tolist()} q bf16: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, sdpa (dequantized) {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {nbytes} B, {flops} flop)")
+        if label.startswith("control"):
+            out["flash_decode"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                       bound_by=by, library_ms=lib,
+                                       shape=f"{Bd}x{S} int8, q bf16")
+        del views, deq
+    _free(torch)
+    return out
+
+
 # ----------------------------------------------------- one architecture
 def _describe(cfg) -> str:
     parts = [f"{cfg.num_layers} layers", f"d {cfg.d_model}"]
@@ -1603,9 +2227,15 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
                        control) if cfg.name == SERVED[0] else {}
     phase_step_times(torch, cfg, model, params, reps, workload)
     phase_oracles(torch, cfg, model, params, control, small)
+    del reps
+    _free(torch)
+    chunk = phase_chunk(torch, ops, cfg, model, params, workload, small) \
+        if cfg.name in CHUNK_ARCHS else None
+    int8 = phase_int8(torch, ops, cfg, model, params, workload, small,
+                      control) if cfg.name == SERVED[0] else None
     return {"launches": control["launches"], "rows": rows,
             "drain_shapes": shapes, "control_shapes": control["shapes"],
-            "slab_rows": control["rows"]}
+            "slab_rows": control["rows"], "chunk": chunk, "int8": int8}
 
 
 def _largest(shapes, kind):
@@ -1726,15 +2356,42 @@ def main() -> int:
     phase_card(torch)
     phase_build(build)
     errs = phase_parity(torch, ops, ref)
+    variant_errs = phase_parity_variants(
+        torch, ops, ref, torch.Generator(device="cuda").manual_seed(SEED + 5))
 
     served = {}
     for name in SERVED:
         served[name] = serve_arch(torch, F, ops, ref, get_config(name))
-        torch.cuda.empty_cache()
+        _free(torch)
     rows = dict(served["granite-3-8b"]["rows"])
     rows.update(phase_times_ssm(torch, F, ops, ref, served))
     launches = dict(served["granite-3-8b"]["launches"])
     launches["ssd_scan"] = served[SSM_ARCHS[0]]["launches"]["ssd_scan"]
+    # this round's variants, beside each kernel's row: their times at the
+    # chunk and int8 paths' shapes, their parity, and their launches on
+    # those paths (granite's control loop with --chunk-len 4 and with int8
+    # replicas, mamba2's with --chunk-len 4)
+    vtimes = phase_times_variants(torch, F, ops, ref, served)
+    g_chunk = served["granite-3-8b"]["chunk"]
+    m_chunk = served[SSM_ARCHS[0]]["chunk"]
+    g_int8 = served["granite-3-8b"]["int8"]
+    variants = {
+        "flash_attention": ("q_offset", g_chunk["control_chunk_calls"]
+                            * get_config("granite-3-8b").num_layers,
+                            "chunk dispatches of granite-3-8b's control "
+                            "loop with --chunk-len 4, one a layer"),
+        "ssd_scan": ("init_state", m_chunk["control_chunk_calls"]
+                     * get_config(SSM_ARCHS[0]).num_layers,
+                     "chunk dispatches of mamba2-1.3b's control loop with "
+                     "--chunk-len 4, one a layer"),
+        "flash_decode": ("int8", g_int8["control_launches"]["flash_decode"],
+                         "every decode launch of granite-3-8b's control "
+                         "loop with int8 replicas"),
+    }
+    for name, (vname, n, of) in variants.items():
+        rows[name]["variants"] = {vname: dict(
+            launches=n, launches_of=of, max_abs_err=variant_errs[name],
+            **vtimes[name])}
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

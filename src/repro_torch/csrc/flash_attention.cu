@@ -42,12 +42,24 @@
 //   67 TFLOP/s f32 rate and runs well below it; it exists for exactness,
 //   not speed.
 //
-// Layout: q (B, S, G, qpg, hd), k / v (B, S, G, hd), each by strides with
-// a contiguous last dim -- the model's grouped layout, with no transpose.
-// out (B, S, G, qpg, hd) contiguous. S is ragged: it need not be a
-// multiple of the tile (serving buckets start at 4), and keys and queries
-// past S are masked here -- padded rows are never stored -- instead of
-// being asserted away. The bf16 body needs 16-byte aligned k / v rows and
+// A cache offset (chunked prefill). With `q_off` (B,) int32 given, q is
+// one chunk of S queries and k / v are a layer of the serve pool with Sk
+// >= S positions: query i of row b sits at position q_off[b] + i and, under
+// `causal`, sees keys 0 .. q_off[b] + i -- the prefix that earlier chunks
+// wrote and the chunk itself (the mask of the reference's
+// `chunk_prefill_attention`, k_pos <= position). Key tiles past a block's
+// last position are never loaded, so a chunk costs the filled prefix, not
+// the allocated pool. With `kv_rows` (B,) int32 given, row b of q reads row
+// kv_rows[b] of k / v, so a chunk of a few slots reads the fleet slab in
+// place, with no gather. Without them (the single-shot prefill) q_off is 0,
+// Sk = S and row b reads row b.
+//
+// Layout: q (B, S, G, qpg, hd), k / v (B or more, Sk, G, hd), each by
+// strides with a contiguous last dim -- the model's grouped layout, with no
+// transpose. out (B, S, G, qpg, hd) contiguous. S is ragged: it need not be
+// a multiple of the tile (serving buckets start at 4), and keys past Sk and
+// queries past S are masked here -- padded rows are never stored -- instead
+// of being asserted away. The bf16 body needs 16-byte aligned k / v rows and
 // 4-byte aligned q rows (the wrapper checks).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +100,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
-                    int S, int G, int qpg, int causal, long long q_sb,
+                    const int* __restrict__ q_off,
+                    const int* __restrict__ kv_rows, int S, int Sk, int G,
+                    int qpg, int causal, long long q_sb,
                     long long q_ss, long long q_sg, long long q_sj,
                     long long k_sb, long long k_ss, long long k_sg,
                     long long v_sb, long long v_ss, long long v_sg,
@@ -116,9 +130,11 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int tx = tid % 16, ty = tid / 16;
   const int lane = tid & 31, warp = tid >> 5;
 
+  const int off = q_off != nullptr ? q_off[b] : 0;  // q_off + i: position
+  const long long kr = kv_rows != nullptr ? kv_rows[b] : b;
   const float* qb = q + b * q_sb + g * q_sg + j * q_sj;
-  const float* kb = k + b * k_sb + g * k_sg;
-  const float* vb = v + b * v_sb + g * v_sg;
+  const float* kb = k + kr * k_sb + g * k_sg;
+  const float* vb = v + kr * v_sb + g * v_sg;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
@@ -135,14 +151,14 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kDJ; ++c) acc[a][c] = 0.f;
 
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  const int k_end = causal ? min(Sk, off + q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's P.V is done with k_s / v_s / p_s
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD, d = i % HD;
       const int t = k0 + r;
-      k_s[r * kQS + d] = t < S ? kb[t * k_ss + d] : 0.f;
-      v_s[r * HD + d] = t < S ? vb[t * v_ss + d] : 0.f;
+      k_s[r * kQS + d] = t < Sk ? kb[t * k_ss + d] : 0.f;
+      v_s[r * HD + d] = t < Sk ? vb[t * v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -171,7 +187,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int col = tx + 16 * c;
         const int t = k0 + col;
-        const bool ok = t < S && (!causal || t <= q0 + r);
+        const bool ok = t < Sk && (!causal || t <= off + q0 + r);
         p_s[r * kPS + col] = ok ? s[a][c] * scale : -INFINITY;
       }
     }
@@ -204,7 +220,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kDJ; ++c) acc[a][c] *= alpha;
     }
-    const int n = min(kBK, S - k0);
+    const int n = min(kBK, Sk - k0);
     for (int t = 0; t < n; ++t) {
       float pa[4];
 #pragma unroll
@@ -233,10 +249,10 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int G, int qpg, int causal, const long long* qs,
-           const long long* ks, const long long* vs, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int* q_off, const int* kv_rows, int B, int S, int Sk, int G,
+           int qpg, int causal, const long long* qs, const long long* ks,
+           const long long* vs, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -249,9 +265,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + kBQ - 1) / kBQ, G * qpg, B);
   flash_attention_f32<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, G, qpg,
-      causal, qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2], vs[0], vs[1],
-      vs[2], scale);
+      static_cast<const float*>(v), static_cast<float*>(out), q_off, kv_rows,
+      S, Sk, G, qpg, causal, qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
+      vs[0], vs[1], vs[2], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,9 +455,10 @@ struct Mma<128> {
   }
 };
 
-// Rows t < kBK of K and V from key k0 on into one stage; rows past S are
-// zero-filled (their scores are masked and 0 * 0 stays 0). Consecutive
-// threads take consecutive chunks of a row, so a warp reads whole rows.
+// Rows t < kBK of K and V from key k0 on into one stage; rows past S (the
+// key extent) are zero-filled (their scores are masked and 0 * 0 stays 0).
+// Consecutive threads take consecutive chunks of a row, so a warp reads
+// whole rows.
 template <int HD>
 __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
                                         const bf16* kb, const bf16* vb,
@@ -460,12 +477,17 @@ __device__ __forceinline__ void load_kv(bf16* ks, bf16* vs,
 }
 
 // Grid: (q tiles, G, B), heaviest causal tiles first. A q tile is
-// ppt = 64 / qpg positions of all qpg heads of kv group g.
+// ppt = 64 / qpg positions of all qpg heads of kv group g. Three blocks an
+// SM (their 3 x 65 KB of shared memory fit): the bound holds the body to
+// 168 registers a thread, which at 172 (the cache offset's two values
+// more) fell to two blocks and lost 13% at the drain bucket.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                     int S, int G, int qpg, int causal, long long q_sb,
+                     const int* __restrict__ q_off,
+                     const int* __restrict__ kv_rows, int S, int Sk, int G,
+                     int qpg, int causal, long long q_sb,
                      long long q_ss, long long q_sg, long long q_sj,
                      long long k_sb, long long k_ss, long long k_sg,
                      long long v_sb, long long v_ss, long long v_sg,
@@ -485,10 +507,13 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int fr = lane >> 2, fc = 2 * (lane & 3);  // fragment row, column
+  const int off = q_off != nullptr ? q_off[b] : 0;  // query i: off + i
+  const long long kr = kv_rows != nullptr ? kv_rows[b] : b;
 
-  // this thread's two packed rows, 16 warp + fr (+ 8): position, head, and
-  // whether the row is real (past S, or past ppt * qpg when qpg does not
-  // divide 64, it is padding: loaded as zeros and never stored)
+  // this thread's two packed rows, 16 warp + fr (+ 8): query index
+  // (position off + pos), head, and whether the row is real (past S, or
+  // past ppt * qpg when qpg does not divide 64, it is padding: loaded as
+  // zeros and never stored)
   int pos[2], head[2];
   bool real[2];
 #pragma unroll
@@ -500,16 +525,16 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!real[i]) pos[i] = min(pos[i], S - 1);  // any key 0 is visible
   }
 
-  const bf16* kb = k + b * k_sb + g * k_sg;
-  const bf16* vb = v + b * v_sb + g * v_sg;
-  const int k_end = causal ? min(S, p0 + ppt) : S;
+  const bf16* kb = k + kr * k_sb + g * k_sg;
+  const bf16* vb = v + kr * v_sb + g * v_sg;
+  const int k_end = causal ? min(Sk, off + p0 + ppt) : Sk;
   const int n_kt = (k_end + kBK - 1) / kBK;
 
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
     if (st < n_kt) {
       bf16* ks = smem + st * 2 * kTileAl;
-      load_kv<HD>(ks, ks + kTileAl, kb, vb, k_ss, v_ss, st * kBK, S, tid);
+      load_kv<HD>(ks, ks + kTileAl, kb, vb, k_ss, v_ss, st * kBK, Sk, tid);
     }
     cp_async_commit();
   }
@@ -545,7 +570,8 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int nt = it + kStages - 1;
       if (nt < n_kt && !(FA_SKIP & 1)) {
         bf16* ks = smem + (nt % kStages) * 2 * kTileAl;
-        load_kv<HD>(ks, ks + kTileAl, kb, vb, k_ss, v_ss, nt * kBK, S, tid);
+        load_kv<HD>(ks, ks + kTileAl, kb, vb, k_ss, v_ss, nt * kBK, Sk,
+                    tid);
       }
       cp_async_commit();
     }
@@ -569,13 +595,13 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_wait0();
 
     // accumulator e: row fr + 8 ((e >> 1) & 1), key k0 + 8 (e >> 2) + fc
-    // + (e & 1). Mask only tiles that cross the diagonal or S.
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > p0);
+    // + (e & 1). Mask only tiles that cross the diagonal or the key extent.
+    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > off + p0);
 #pragma unroll
     for (int e = 0; e < 32; ++e) {
       const int i = (e >> 1) & 1;
       const int key = k0 + 8 * (e >> 2) + fc + (e & 1);
-      const bool ok = !edge || (key < S && (!causal || key <= pos[i]));
+      const bool ok = !edge || (key < Sk && (!causal || key <= off + pos[i]));
       s[e] = ok ? s[e] * scale_log2 : -INFINITY;
     }
     float alpha[2] = {1.f, 1.f};
@@ -661,10 +687,10 @@ flash_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int G, int qpg, int causal, const long long* qs,
-           const long long* ks, const long long* vs, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int* q_off, const int* kv_rows, int B, int S, int Sk, int G,
+           int qpg, int causal, const long long* qs, const long long* ks,
+           const long long* vs, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static bool attr_set = false;
   if (!attr_set) {
@@ -678,24 +704,26 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + ppt - 1) / ppt, G, B);
   flash_attention_bf16<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), S, G, qpg,
-      causal, qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2], vs[0], vs[1],
-      vs[2], scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), q_off, kv_rows,
+      S, Sk, G, qpg, causal, qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
+      vs[0], vs[1], vs[2], scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
 int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
-             void* out, int B, int S, int G, int qpg, int causal,
-             const long long* qs, const long long* ks, const long long* vs,
-             float scale, cudaStream_t st) {
-#define FA_CASE(HD)                                                        \
-  case HD:                                                                 \
-    return dtype == 0 ? simt::launch<HD>(q, k, v, out, B, S, G, qpg,       \
-                                         causal, qs, ks, vs, scale, st)    \
-                      : tc::launch<HD>(q, k, v, out, B, S, G, qpg, causal, \
-                                       qs, ks, vs, scale, st);
+             void* out, const int* q_off, const int* kv_rows, int B, int S,
+             int Sk, int G, int qpg, int causal, const long long* qs,
+             const long long* ks, const long long* vs, float scale,
+             cudaStream_t st) {
+#define FA_CASE(HD)                                                       \
+  case HD:                                                                \
+    return dtype == 0                                                     \
+               ? simt::launch<HD>(q, k, v, out, q_off, kv_rows, B, S, Sk, \
+                                  G, qpg, causal, qs, ks, vs, scale, st)  \
+               : tc::launch<HD>(q, k, v, out, q_off, kv_rows, B, S, Sk,   \
+                                G, qpg, causal, qs, ks, vs, scale, st);
   switch (hd) {
     FA_CASE(32)
     FA_CASE(64)
@@ -711,20 +739,26 @@ int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32 (SIMT body), 1 = bfloat16 (tensor-core body); q, k,
-// v and out share it. q_strides (b, s, g, j), k_strides / v_strides
-// (b, s, g), in elements. Returns 0, a CUDA error code from the attribute
-// call or the launch, or -1 for an unsupported dtype / head dim / shape.
+// v and out share it. S queries a row, Sk keys. q_off (B,) int32: query i
+// of row b at position q_off[b] + i, or null for 0 (then Sk must be S).
+// kv_rows (B,) int32: the k / v row of each q row, or null for row b.
+// q_strides (b, s, g, j), k_strides / v_strides (b, s, g), in elements.
+// Returns 0, a CUDA error code from the attribute call or the launch, or
+// -1 for an unsupported dtype / head dim / shape.
 int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
-                           const void* v, void* out, int B, int S, int G,
+                           const void* v, void* out, const void* q_off,
+                           const void* kv_rows, int B, int S, int Sk, int G,
                            int qpg, int causal, const long long* q_strides,
                            const long long* k_strides,
                            const long long* v_strides, float scale,
                            void* stream) {
-  if (B < 1 || S < 1 || G < 1 || qpg < 1 || qpg > tc::kM || B > 65535 ||
-      G * qpg > 65535 || (dtype != 0 && dtype != 1))
+  if (B < 1 || S < 1 || Sk < 1 || G < 1 || qpg < 1 || qpg > tc::kM ||
+      B > 65535 || G * qpg > 65535 || (dtype != 0 && dtype != 1) ||
+      (q_off == nullptr && Sk != S))
     return -1;
-  return dispatch(dtype, hd, q, k, v, out, B, S, G, qpg, causal, q_strides,
-                  k_strides, v_strides, scale,
+  return dispatch(dtype, hd, q, k, v, out, static_cast<const int*>(q_off),
+                  static_cast<const int*>(kv_rows), B, S, Sk, G, qpg, causal,
+                  q_strides, k_strides, v_strides, scale,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -43,15 +43,27 @@
 // device, zeroed once; the merging block resets its counter to 0, so every
 // launch finds them zero.
 //
+// The int8 cache (the reference's `repro.serving.kv_quant` codec: int8
+// K / V, one f32 absmax scale a (position, kv head)). The reference
+// dequantizes a layer's whole pool and then attends; here the dequant
+// happens in the loads: the tile moves into shared memory as int8, its 64
+// scales a stage beside it (4-byte `cp.async`), and each value is
+// q * scale, rounded to the query's dtype as the reference's `astype`
+// rounds it, where it is used. The HBM stream is the int8 bytes plus the
+// scales -- a quarter of an f32 pool's bytes and 0.52 of a bf16 pool's at
+// hd 128, which is what the codec is for. The split-KV design and the
+// merge are the same as for a float cache.
+//
 // Layout: q (B, G, qpg, hd) by strides, caches (B, S, G, hd) by strides
-// with 16-byte aligned rows, pos (B,) int32 on the device (read by the
-// block itself: no host sync), out (B, G, qpg, hd) contiguous, partials
-// f32 [B * G * n_chunks][qpg * hd] then [B * G * n_chunks][qpg][m, l],
-// tickets int32 [B * G]. Accumulation (max, sum, output) is f32 whatever
-// the input dtype.
+// with 16-byte aligned rows, scales (B, S, G) f32 by strides (int8 only),
+// pos (B,) int32 on the device (read by the block itself: no host sync),
+// out (B, G, qpg, hd) contiguous, partials f32 [B * G * n_chunks][qpg *
+// hd] then [B * G * n_chunks][qpg][m, l], tickets int32 [B * G].
+// Accumulation (max, sum, output) is f32 whatever the input dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -65,6 +77,20 @@ constexpr int kHGroups = kThreads / kTile;  // threads sharing one position
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+// a dequantized value rounded to the query's dtype T
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -86,6 +112,13 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
     out[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    out[i] = static_cast<float>(static_cast<int8_t>(w[i / 4] >> (8 * (i % 4))));
+}
 
 // 16-byte global -> shared copy; with `ok` false it writes zeros instead
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -93,6 +126,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool ok) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(ok ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -114,24 +153,38 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-template <typename T, int HD, int QMAX>
+// A stage holds the K and V tiles in the cache's type TC and, for int8,
+// their 2 x kTile scales after them (f32).
+template <typename TC, int HD, int QMAX>
 struct Layout {
-  static constexpr int kVec = 16 / sizeof(T);      // elements per 16 B
+  static constexpr bool kQuant = sizeof(TC) == 1;
+  static constexpr int kVec = 16 / sizeof(TC);     // elements per 16 B
   static constexpr int kKRow = HD + kVec;          // padded K row
-  static constexpr int kStage = kTile * kKRow + kTile * HD;  // K + V
+  static constexpr int kKV = kTile * kKRow + kTile * HD;  // K + V, in TC
+  static constexpr int kScaleBytes = kQuant ? 2 * kTile * 4 : 0;
+  static constexpr int kStageBytes = kKV * sizeof(TC) + kScaleBytes;
   static constexpr size_t bytes =
-      2 * kStage * sizeof(T) +
-      sizeof(float) * (QMAX * HD + QMAX * kTile + 3 * QMAX);
+      2 * kStageBytes + sizeof(float) * (QMAX * HD + QMAX * kTile + 3 * QMAX);
+  static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
 };
 
-// rows t0 .. t0+kTile-1 of K and V into one stage; rows past `last` are
-// zero-filled (their p is 0, and 0 * 0 stays 0)
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
-                                          const T* vb, long long k_ss,
-                                          long long v_ss, int t0, int last,
-                                          int tid) {
-  constexpr int kVec = 16 / sizeof(T);
+// Scales of an int8 cache: (B, S, G) f32 by strides, K's and V's alike
+struct Scales {
+  const float* k;
+  const float* v;
+  long long sb, ss, sg;
+};
+
+// rows t0 .. t0+kTile-1 of K and V (and their scales) into one stage; rows
+// past `last` are zero-filled (their p is 0, and 0 * 0 stays 0)
+template <typename TC, int HD>
+__device__ __forceinline__ void load_tile(TC* ks, TC* vs, float* sc,
+                                          const TC* kb, const TC* vb,
+                                          const float* kscb,
+                                          const float* vscb, long long k_ss,
+                                          long long v_ss, long long s_ss,
+                                          int t0, int last, int tid) {
+  constexpr int kVec = 16 / sizeof(TC);
   constexpr int kKRow = HD + kVec;
   constexpr int kPerRow = HD / kVec;
   for (int i = tid; i < kTile * kPerRow; i += kThreads) {
@@ -141,20 +194,28 @@ __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
     cp_async16(ks + r * kKRow + c, kb + t * k_ss + c, ok);
     cp_async16(vs + r * HD + c, vb + t * v_ss + c, ok);
   }
+  if constexpr (sizeof(TC) == 1) {  // K's scales, then V's
+    static_assert(kThreads == 2 * kTile, "one scale a thread");
+    const int r = tid % kTile;
+    const bool ok = t0 + r <= last;
+    const long long t = ok ? t0 + r : 0;
+    cp_async4(sc + tid, (tid < kTile ? kscb : vscb) + t * s_ss, ok);
+  }
 }
 
-// Grid: B * G * n_chunks blocks, chunk index fastest.
-template <typename T, int HD, int QMAX>
+// Grid: B * G * n_chunks blocks, chunk index fastest. T is the type of q
+// and out, TC the cache's (T, or int8_t with `sc` its scales).
+template <typename T, typename TC, int HD, int QMAX>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ pos,
-                    T* __restrict__ out, float* __restrict__ part,
-                    int* __restrict__ tickets, int G, int qpg, int S,
-                    int n_chunks, long long q_sb, long long q_sg,
-                    long long q_sj, long long k_sb, long long k_ss,
-                    long long k_sg, long long v_sb, long long v_ss,
-                    long long v_sg, float scale) {
-  using L = Layout<T, HD, QMAX>;
+flash_decode_kernel(const T* __restrict__ q, const TC* __restrict__ k,
+                    const TC* __restrict__ v, Scales kvs,
+                    const int* __restrict__ pos, T* __restrict__ out,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int G, int qpg, int S, int n_chunks, long long q_sb,
+                    long long q_sg, long long q_sj, long long k_sb,
+                    long long k_ss, long long k_sg, long long v_sb,
+                    long long v_ss, long long v_sg, float scale) {
+  using L = Layout<TC, HD, QMAX>;
   static_assert(HD % 16 == 0, "unsupported head dim");
   // output element a of a thread is o = tid + a * kThreads: q head o / HD,
   // column o % HD. When HD divides kThreads (32, 64, 128) all of a
@@ -166,8 +227,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kOwn = (QMAX + kHGroups - 1) / kHGroups;  // scored heads
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* stage0 = reinterpret_cast<T*>(smem);
-  float* q_s = reinterpret_cast<float*>(stage0 + 2 * L::kStage);  // [qpg][HD]
+  // stage i: K tile, V tile, scales, at smem + i * kStageBytes
+  const auto k_tile = [&](int i) {
+    return reinterpret_cast<TC*>(smem + i * L::kStageBytes);
+  };
+  const auto scales = [&](int i) {
+    return reinterpret_cast<float*>(smem + i * L::kStageBytes +
+                                    L::kKV * sizeof(TC));
+  };
+  float* q_s = reinterpret_cast<float*>(smem + 2 * L::kStageBytes);  // [qpg][HD]
   float* p_s = q_s + QMAX * HD;                              // [qpg][kTile]
   float* m_s = p_s + QMAX * kTile;
   float* l_s = m_s + QMAX;
@@ -185,11 +253,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (chunk >= n_live) return;  // nothing of this row's cache is here
   const int t_begin = chunk * kChunk;
   const int last = min(row_last, t_begin + kChunk - 1);
-  const T* kb = k + b * k_sb + g * k_sg;
-  const T* vb = v + b * v_sb + g * v_sg;
+  const TC* kb = k + b * k_sb + g * k_sg;
+  const TC* vb = v + b * v_sb + g * v_sg;
+  const float* kscb = L::kQuant ? kvs.k + b * kvs.sb + g * kvs.sg : nullptr;
+  const float* vscb = L::kQuant ? kvs.v + b * kvs.sb + g * kvs.sg : nullptr;
 
-  load_tile<T, HD>(stage0, stage0 + kTile * L::kKRow, kb, vb, k_ss, v_ss,
-                   t_begin, last, tid);
+  load_tile<TC, HD>(k_tile(0), k_tile(0) + kTile * L::kKRow, scales(0), kb,
+                    vb, kscb, vscb, k_ss, v_ss, kvs.ss, t_begin, last, tid);
   cp_async_commit();
   for (int i = tid; i < qpg * HD; i += kThreads) {
     const int j = i / HD, d = i % HD;
@@ -215,12 +285,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
 
   for (int t0 = t_begin, it = 0; t0 <= last; t0 += kTile, ++it) {
-    T* ks = stage0 + (it & 1) * L::kStage;
-    T* vs = ks + kTile * L::kKRow;
+    const TC* ks = k_tile(it & 1);
+    const TC* vs = ks + kTile * L::kKRow;
+    const float* ksc = scales(it & 1);      // (int8) K's scales, V's after
+    const float* vsc = ksc + kTile;
     if (t0 + kTile <= last) {  // next tile into the other stage
-      T* nk = stage0 + ((it + 1) & 1) * L::kStage;
-      load_tile<T, HD>(nk, nk + kTile * L::kKRow, kb, vb, k_ss, v_ss,
-                       t0 + kTile, last, tid);
+      const int nx = (it + 1) & 1;
+      load_tile<TC, HD>(k_tile(nx), k_tile(nx) + kTile * L::kKRow,
+                        scales(nx), kb, vb, kscb, vscb, k_ss, v_ss, kvs.ss,
+                        t0 + kTile, last, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -232,11 +305,16 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float sc[kOwn];
 #pragma unroll
     for (int a = 0; a < kOwn; ++a) sc[a] = 0.f;
-    const T* krow = ks + jj * L::kKRow;
+    const TC* krow = ks + jj * L::kKRow;
+    const float kscale = L::kQuant ? ksc[jj] : 1.f;
 #pragma unroll 4
     for (int d = 0; d < HD; d += L::kVec) {
       float kf[L::kVec];
       load16(krow + d, kf);
+      if constexpr (L::kQuant) {
+#pragma unroll
+        for (int e = 0; e < L::kVec; ++e) kf[e] = round_to<T>(kf[e] * kscale);
+      }
 #pragma unroll
       for (int a = 0; a < kOwn; ++a) {
         const int j = hg + a * kHGroups;
@@ -282,10 +360,15 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (j < qpg) acc[a] *= a_s[j];
     }
     const int n = min(kTile, last - t0 + 1);
+    // a V value: the float cache's own, or int8 * scale in T
+    const auto v_at = [&](int t, int col) {
+      const float x = to_f32(vs[t * HD + col]);
+      return L::kQuant ? round_to<T>(x * vsc[t]) : x;
+    };
 #pragma unroll 4
     for (int t = 0; t < n; ++t) {
       if constexpr (kOneCol) {
-        const float vv = to_f32(vs[t * HD + d_own]);
+        const float vv = v_at(t, d_own);
 #pragma unroll
         for (int a = 0; a < kAcc; ++a) {
           const int j = head_of(a);
@@ -295,8 +378,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int a = 0; a < kAcc; ++a) {
           const int j = head_of(a);
-          if (j < qpg)
-            acc[a] += p_s[j * kTile + t] * to_f32(vs[t * HD + col_of(a)]);
+          if (j < qpg) acc[a] += p_s[j * kTile + t] * v_at(t, col_of(a));
         }
       }
     }
@@ -361,60 +443,65 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int QMAX>
-int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, void* part, void* tickets, int B, int G, int qpg,
-           int S, const long long* qs, const long long* ks,
+template <typename T, typename TC, int HD, int QMAX>
+int launch(const void* q, const void* k, const void* v, const Scales& sc,
+           const void* pos, void* out, void* part, void* tickets, int B,
+           int G, int qpg, int S, const long long* qs, const long long* ks,
            const long long* vs, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<T, HD, QMAX>::bytes;
+  constexpr size_t smem = Layout<TC, HD, QMAX>::bytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<T, HD, QMAX>,
+        flash_decode_kernel<T, TC, HD, QMAX>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const int n_chunks = (S + kChunk - 1) / kChunk;
-  flash_decode_kernel<T, HD, QMAX>
+  flash_decode_kernel<T, TC, HD, QMAX>
       <<<B * G * n_chunks, kThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const int*>(pos),
+          static_cast<const T*>(q), static_cast<const TC*>(k),
+          static_cast<const TC*>(v), sc, static_cast<const int*>(pos),
           static_cast<T*>(out), static_cast<float*>(part),
           static_cast<int*>(tickets), G, qpg, S, n_chunks, qs[0], qs[1],
           qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, typename TC, int HD>
 int dispatch_qpg(const void* q, const void* k, const void* v,
-                 const void* pos, void* out, void* part, void* tickets,
-                 int B, int G, int qpg, int S, const long long* qs,
-                 const long long* ks, const long long* vs, float scale,
-                 cudaStream_t st) {
+                 const Scales& sc, const void* pos, void* out, void* part,
+                 void* tickets, int B, int G, int qpg, int S,
+                 const long long* qs, const long long* ks,
+                 const long long* vs, float scale, cudaStream_t st) {
   if (qpg == 1)
-    return launch<T, HD, 1>(q, k, v, pos, out, part, tickets, B, G, qpg, S,
-                            qs, ks, vs, scale, st);
+    return launch<T, TC, HD, 1>(q, k, v, sc, pos, out, part, tickets, B, G,
+                                qpg, S, qs, ks, vs, scale, st);
   if (qpg <= 4)
-    return launch<T, HD, 4>(q, k, v, pos, out, part, tickets, B, G, qpg, S,
-                            qs, ks, vs, scale, st);
-  return launch<T, HD, kMaxQpg>(q, k, v, pos, out, part, tickets, B, G, qpg,
-                                S, qs, ks, vs, scale, st);
+    return launch<T, TC, HD, 4>(q, k, v, sc, pos, out, part, tickets, B, G,
+                                qpg, S, qs, ks, vs, scale, st);
+  return launch<T, TC, HD, kMaxQpg>(q, k, v, sc, pos, out, part, tickets, B,
+                                    G, qpg, S, qs, ks, vs, scale, st);
 }
 
-template <typename T>
+template <typename T, typename TC>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const void* pos, void* out, void* part, void* tickets, int B,
-                int G, int qpg, int S, const long long* qs,
-                const long long* ks, const long long* vs, float scale,
-                cudaStream_t st) {
+                const Scales& sc, const void* pos, void* out, void* part,
+                void* tickets, int B, int G, int qpg, int S,
+                const long long* qs, const long long* ks,
+                const long long* vs, float scale, cudaStream_t st) {
+#define FD_CASE(HD)                                                         \
+  case HD:                                                                  \
+    return dispatch_qpg<T, TC, HD>(q, k, v, sc, pos, out, part, tickets, B, \
+                                   G, qpg, S, qs, ks, vs, scale, st);
   switch (hd) {
-    case 32: return dispatch_qpg<T, 32>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
-    case 64: return dispatch_qpg<T, 64>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
-    case 80: return dispatch_qpg<T, 80>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
-    case 128: return dispatch_qpg<T, 128>(q, k, v, pos, out, part, tickets, B, G, qpg, S, qs, ks, vs, scale, st);
+    FD_CASE(32)
+    FD_CASE(64)
+    FD_CASE(80)
+    FD_CASE(128)
     default: return -1;
   }
+#undef FD_CASE
 }
 
 }  // namespace
@@ -440,14 +527,44 @@ int flash_decode_launch(int dtype, int hd, const void* q, const void* k,
                         void* stream) {
   if (qpg < 1 || qpg > kMaxQpg || B < 1 || G < 1 || S < 1) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Scales none{nullptr, nullptr, 0, 0, 0};
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, pos, out, part, tickets, B, G,
-                              qpg, S, q_strides, k_strides, v_strides, scale,
-                              st);
+    return dispatch_hd<float, float>(hd, q, k, v, none, pos, out, part,
+                                     tickets, B, G, qpg, S, q_strides,
+                                     k_strides, v_strides, scale, st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, pos, out, part, tickets,
-                                      B, G, qpg, S, q_strides, k_strides,
-                                      v_strides, scale, st);
+    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(
+        hd, q, k, v, none, pos, out, part, tickets, B, G, qpg, S, q_strides,
+        k_strides, v_strides, scale, st);
+  return -1;
+}
+
+// The int8 cache: k / v int8 (B, S, G, hd) with 16-byte aligned rows, their
+// scales k_scale / v_scale f32 (B, S, G) sharing s_strides (b, s, g); q and
+// out in `dtype` (0 float32, 1 bfloat16), the dequantized values rounded
+// to it. Otherwise as flash_decode_launch.
+int flash_decode_int8_launch(int dtype, int hd, const void* q, const void* k,
+                             const void* v, const void* k_scale,
+                             const void* v_scale, const void* pos, void* out,
+                             void* part, void* tickets, int B, int G,
+                             int qpg, int S, const long long* q_strides,
+                             const long long* k_strides,
+                             const long long* v_strides,
+                             const long long* s_strides, float scale,
+                             void* stream) {
+  if (qpg < 1 || qpg > kMaxQpg || B < 1 || G < 1 || S < 1) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Scales sc{static_cast<const float*>(k_scale),
+                  static_cast<const float*>(v_scale), s_strides[0],
+                  s_strides[1], s_strides[2]};
+  if (dtype == 0)
+    return dispatch_hd<float, int8_t>(hd, q, k, v, sc, pos, out, part,
+                                      tickets, B, G, qpg, S, q_strides,
+                                      k_strides, v_strides, scale, st);
+  if (dtype == 1)
+    return dispatch_hd<__nv_bfloat16, int8_t>(
+        hd, q, k, v, sc, pos, out, part, tickets, B, G, qpg, S, q_strides,
+        k_strides, v_strides, scale, st);
   return -1;
 }
 

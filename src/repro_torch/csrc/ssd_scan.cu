@@ -1,5 +1,7 @@
 // SSD blocked scan for Hopper (sm_90a): the Mamba-2 state-space-duality
-// scan of one prefill, for every (batch row, head), from a zero state.
+// scan of one prefill, for every (batch row, head), from a zero state or
+// from a carried one (a chunked prefill continues the state its earlier
+// chunks left).
 //
 // Replaces the Pallas TPU kernel `_ssd_kernel` / `ssd_scan` in
 // src/repro/kernels/ssd_scan.py. It computes the same function: per head
@@ -62,9 +64,16 @@
 // score tile by 4. x rows are 64 wide and C, B rows 8 NT wide whatever P
 // and N are; the columns past them are zeroed once and never written.
 //
+// The initial state. With `init` (B, H, P, N) given, the registers that
+// hold the state are loaded from it before the first block instead of
+// zeroed, and the first block adds the state's term of y as every later
+// block does; the TPU kernel always starts from zero, the reference's
+// `ssd_chunked(..., init_state=)` is the function. `init` may be the
+// `state` output itself (the state is read before anything is written).
+//
 // Layout, all f32 and contiguous: x (B, T, H, P) dt-preweighted, a
 // (B, T, H) log decays (<= 0, so every exponent is <= 0), Bm / Cm
-// (B, T, N) (one group), y (B, T, H, P), state (B, H, P, N).
+// (B, T, N) (one group), y (B, T, H, P), state and init (B, H, P, N).
 // Grid: (ceil(H / HPB), B), 128 x HPB threads.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -226,8 +235,8 @@ template <int Q, int HPB, int NT>
 __global__ void __launch_bounds__(32 * kWarpsPerHead * HPB, 1)
 ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
                 const float* __restrict__ Bm, const float* __restrict__ Cm,
-                float* __restrict__ y, float* __restrict__ state, int T,
-                int H, int P, int N, int vec) {
+                const float* init, float* state, float* __restrict__ y,
+                int T, int H, int P, int N, int vec) {
   using L = Layout<Q, HPB, NT>;
   constexpr int kThreads = 32 * kWarpsPerHead * HPB;
   constexpr int kQT = Q / 8;              // n8 / k8 tiles of steps
@@ -260,6 +269,16 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int r = 0; r < 4; ++r) st[j][r] = 0.f;
+  if (init != nullptr && busy) {  // the carried state, in the same registers
+    const float* sb = init + ((long long)b * H + h) * P * N;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int pr = p0 + g + 8 * (r >> 1), n = 8 * j + 2 * t + (r & 1);
+        if (pr < P && n < N) st[j][r] = sb[pr * N + n];
+      }
+  }
 
   const long long rowb = (long long)b * T;
   const int n_blocks = (T + Q - 1) / Q;
@@ -335,7 +354,9 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
         for (int r = 0; r < 4; ++r) acc[qt][r] = 0.f;
 
-      if (blk > 0 && !(SSD_SKIP & 1)) {  // the state's term: state . C^T
+      // the state's term: state . C^T (a zero state adds nothing to the
+      // first block)
+      if ((blk > 0 || init != nullptr) && !(SSD_SKIP & 1)) {
         const float* cq = C_s + g * NS + 2 * t;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
@@ -512,14 +533,16 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// x, y (B, T, H, P); a (B, T, H); Bm, Cm (B, T, N); state (B, H, P, N); all
-// f32 and contiguous. `tile` (16 or 32) is the step tile Q and `hpb` (1 or
-// 2) the heads a block serves (kernels/ssd_scan.py `plan` picks both).
+// x, y (B, T, H, P); a (B, T, H); Bm, Cm (B, T, N); state and init
+// (B, H, P, N); all f32 and contiguous. `init` is the initial state, or
+// null for zeros. `tile` (16 or 32) is the step tile Q and `hpb` (1 or 2)
+// the heads a block serves (kernels/ssd_scan.py `plan` picks both).
 // Returns 0, a CUDA error code from the attribute call or the launch, or
 // -1 for an unsupported shape, tile or hpb.
 int ssd_scan_launch(const void* x, const void* a, const void* Bm,
-                    const void* Cm, void* y, void* state, int B, int T, int H,
-                    int P, int N, int tile, int hpb, void* stream) {
+                    const void* Cm, const void* init, void* y, void* state,
+                    int B, int T, int H, int P, int N, int tile, int hpb,
+                    void* stream) {
   if (B < 1 || T < 1 || H < 1 || P < 1 || P > kMaxP || B > 65535) return -1;
   const int vec = N % 4 == 0 && P % 4 == 0 && aligned16(x) &&
                   aligned16(Bm) && aligned16(Cm);
@@ -532,8 +555,8 @@ int ssd_scan_launch(const void* x, const void* a, const void* Bm,
            static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float*>(x), static_cast<const float*>(a),
             static_cast<const float*>(Bm), static_cast<const float*>(Cm),
-            static_cast<float*>(y), static_cast<float*>(state), T, H, P, N,
-            vec);
+            static_cast<const float*>(init), static_cast<float*>(state),
+            static_cast<float*>(y), T, H, P, N, vec);
     return static_cast<long long>(cudaGetLastError());
   }));
 }

@@ -4,7 +4,10 @@ Replaces the Pallas TPU kernel ``_decode_kernel`` / ``flash_decode`` of
 ``src/repro/kernels/decode_attention.py``: single-token GQA attention of
 q ``(B, G, qpg, hd)`` over the serve caches ``(B, S, G, hd)``, row b over
 positions ``0..pos[b]``. The kernel reads the caches natively (by strides,
-in their own dtype); it is bound by the bytes of the filled cache. Each
+in their own dtype); it is bound by the bytes of the filled cache. An int8
+cache (``serving.kv_quant``: int8 K/V, f32 scales ``(B, S, G)``) is
+dequantized in the kernel's loads (``launch_int8``), so its HBM stream is
+the int8 bytes and the scales. Each
 row's cache is split into chunks of ``CHUNK`` positions, one block each,
 whose partials the row's last block merges (see the source). Callers go
 through ``repro_torch.kernels.ops``, which checks the arguments, allocates
@@ -42,6 +45,11 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_decode_error_string.restype = ctypes.c_char_p
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+        fn8 = lib.flash_decode_int8_launch
+        fn8.restype = ctypes.c_int
+        fn8.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
+                        + [ctypes.c_int] * 4 + [_LongPtr] * 4
+                        + [ctypes.c_float, ctypes.c_void_p])
         if lib.flash_decode_chunk() != CHUNK:
             raise RuntimeError(f"flash_decode: kernel chunk "
                                f"{lib.flash_decode_chunk()} != {CHUNK}")
@@ -63,6 +71,16 @@ def tickets(device: torch.device, n: int) -> torch.Tensor:
     return bufs[-1]
 
 
+def _strides(t) -> _Strides3:
+    return _Strides3(t.stride(0), t.stride(1), t.stride(2))
+
+
+def _raise(lib, code: int) -> None:
+    if code != 0:
+        msg = lib.flash_decode_error_string(code).decode()
+        raise RuntimeError(f"flash_decode launch failed ({code}): {msg}")
+
+
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
            pos: torch.Tensor, out: torch.Tensor, part: torch.Tensor,
            scale: float) -> None:
@@ -71,15 +89,27 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     ``partial_floats`` (``ops.flash_decode``)."""
     lib = _lib()
     B, G, qpg, hd = q.shape
-    S = k_cache.shape[1]
-    qs = _Strides3(q.stride(0), q.stride(1), q.stride(2))
-    ks = _Strides3(k_cache.stride(0), k_cache.stride(1), k_cache.stride(2))
-    vs = _Strides3(v_cache.stride(0), v_cache.stride(1), v_cache.stride(2))
-    code = lib.flash_decode_launch(
+    _raise(lib, lib.flash_decode_launch(
         DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), pos.data_ptr(), out.data_ptr(), part.data_ptr(),
-        tickets(q.device, B * G).data_ptr(), B, G, qpg, S,
-        qs, ks, vs, scale, torch.cuda.current_stream(q.device).cuda_stream)
-    if code != 0:
-        msg = lib.flash_decode_error_string(code).decode()
-        raise RuntimeError(f"flash_decode launch failed ({code}): {msg}")
+        tickets(q.device, B * G).data_ptr(), B, G, qpg, k_cache.shape[1],
+        _strides(q), _strides(k_cache), _strides(v_cache), scale,
+        torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def launch_int8(q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, k_scale: torch.Tensor,
+                v_scale: torch.Tensor, pos: torch.Tensor, out: torch.Tensor,
+                part: torch.Tensor, scale: float) -> None:
+    """``launch`` over an int8 cache with its f32 scales (B, S, G), which
+    share strides. Arguments must already be checked."""
+    lib = _lib()
+    B, G, qpg, hd = q.shape
+    _raise(lib, lib.flash_decode_int8_launch(
+        DTYPES[q.dtype], hd, q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+        tickets(q.device, B * G).data_ptr(), B, G, qpg, k_cache.shape[1],
+        _strides(q), _strides(k_cache), _strides(v_cache),
+        _strides(k_scale), scale,
+        torch.cuda.current_stream(q.device).cuda_stream))

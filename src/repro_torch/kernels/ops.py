@@ -52,14 +52,30 @@ def _check_dtype(name, dtypes, *tensors):
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+                 v_cache: torch.Tensor, pos: torch.Tensor,
+                 k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Single-token GQA attention. q: (B, G, qpg, hd); caches (B, S, G, hd)
     (any 16-byte aligned strides with a contiguous last dim, e.g. one
-    layer of the serve pool); pos: (B,) int32, row b attends 0..pos[b].
-    Returns (B, G, qpg, hd)."""
-    if not _on_cuda("flash_decode", q, k_cache, v_cache, pos):
-        return ref.flash_decode_ref(q, k_cache, v_cache, pos)
-    _check_dtype("flash_decode", decode_attention.DTYPES, q, k_cache, v_cache)
+    layer of the serve pool) in q's dtype, or int8 with their f32 scales
+    ``k_scale`` / ``v_scale`` (B, S, G) (the ``serving.kv_quant`` codec:
+    each value is int8 * scale, rounded to q's dtype); pos: (B,) int32,
+    row b attends 0..pos[b]. Returns (B, G, qpg, hd)."""
+    quant = k_cache.dtype == torch.int8
+    scales = (k_scale, v_scale) if quant else ()
+    if quant and (k_scale is None or v_scale is None):
+        raise ValueError("flash_decode: an int8 cache needs k_scale and "
+                         "v_scale")
+    if not _on_cuda("flash_decode", q, k_cache, v_cache, pos, *scales):
+        return ref.flash_decode_ref(q, k_cache, v_cache, pos,
+                                    k_scale=k_scale, v_scale=v_scale)
+    if quant:
+        _check_dtype("flash_decode", decode_attention.DTYPES, q)
+        if v_cache.dtype != torch.int8:
+            raise TypeError("flash_decode: k and v caches must both be int8")
+    else:
+        _check_dtype("flash_decode", decode_attention.DTYPES, q, k_cache,
+                     v_cache)
     if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
@@ -79,6 +95,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                                     for i in range(3)):
             raise ValueError("flash_decode: cache rows must be 16-byte "
                              f"aligned, got strides {t.stride()}")
+    if quant:
+        for t in scales:                # 4-byte copies, K's and V's alike
+            if t.dtype != torch.float32 or tuple(t.shape) != \
+                    tuple(k_cache.shape[:3]) or t.stride() != k_scale.stride():
+                raise ValueError(
+                    f"flash_decode: scales must be f32 "
+                    f"{tuple(k_cache.shape[:3])} with equal strides, got "
+                    f"{t.dtype} {tuple(t.shape)} {t.stride()}")
     if pos.dtype != torch.int32 or pos.shape != (B,) or not pos.is_contiguous():
         raise ValueError(f"flash_decode: pos must be contiguous int32 ({B},), "
                          f"got {pos.dtype} {tuple(pos.shape)}")
@@ -86,28 +110,54 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     part = torch.empty(decode_attention.partial_floats(
         B, G, qpg, hd, k_cache.shape[1]), dtype=torch.float32,
         device=q.device)
-    decode_attention.launch(q, k_cache, v_cache, pos, out, part,
-                            1.0 / math.sqrt(hd))
+    if quant:
+        decode_attention.launch_int8(q, k_cache, v_cache, k_scale, v_scale,
+                                     pos, out, part, 1.0 / math.sqrt(hd))
+    else:
+        decode_attention.launch(q, k_cache, v_cache, pos, out, part,
+                                1.0 / math.sqrt(hd))
     LAUNCHES["flash_decode"] += 1
     return out
 
 
+def _int32_rows(name: str, what: str, t, B: int) -> None:
+    if t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous int32 ({B},), "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Causal or full GQA attention over a whole sequence. q:
-    (B, S, G, qpg, hd); k, v: (B, S, G, hd), any strides with a contiguous
-    last dim; S need not be a multiple of any tile. Returns
-    (B, S, G, qpg, hd)."""
-    if not _on_cuda("flash_attention", q, k, v):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+                    causal: bool = True, q_offset: torch.Tensor | None = None,
+                    kv_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Causal or full GQA attention. Without ``q_offset``: over a whole
+    sequence, q (B, S, G, qpg, hd) against k, v (B, S, G, hd). With
+    ``q_offset`` (B,) int32: q is one chunk of S queries against a layer of
+    the serve pool, k, v (R, Sk, G, hd) with Sk >= S; query i of row b sits
+    at position q_offset[b] + i and (causal) sees keys 0 .. q_offset[b] + i.
+    ``kv_rows`` (B,) int32 names the pool row each q row reads (default:
+    row b). Any strides with a contiguous last dim; S need not be a
+    multiple of any tile. Returns (B, S, G, qpg, hd)."""
+    extra = tuple(t for t in (q_offset, kv_rows) if t is not None)
+    if not _on_cuda("flash_attention", q, k, v, *extra):
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       q_offset=q_offset, kv_rows=kv_rows)
     _check_dtype("flash_attention", fa.DTYPES, q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     B, S, G, qpg, hd = q.shape
-    if tuple(k.shape) != (B, S, G, hd):
+    R, Sk = k.shape[:2]
+    rows_ok = R >= B if kv_rows is not None else R == B
+    if not rows_ok or tuple(k.shape[2:]) != (G, hd) \
+            or (Sk != S if q_offset is None else Sk < S):
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
-                         f"match q {tuple(q.shape)}")
+                         f"match q {tuple(q.shape)} (q_offset "
+                         f"{q_offset is not None}, kv_rows "
+                         f"{kv_rows is not None})")
+    if q_offset is not None:
+        _int32_rows("flash_attention", "q_offset", q_offset, B)
+    if kv_rows is not None:
+        _int32_rows("flash_attention", "kv_rows", kv_rows, B)
     if hd not in fa.HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not supported")
     if q.stride(4) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -122,7 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  f"{align}-byte aligned, got strides "
                                  f"{t.stride()}")
     out = torch.empty((B, S, G, qpg, hd), dtype=q.dtype, device=q.device)
-    fa.launch(q, k, v, out, causal, 1.0 / math.sqrt(hd))
+    fa.launch(q, k, v, out, causal, 1.0 / math.sqrt(hd), q_offset, kv_rows)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -232,21 +282,25 @@ def gcn_actor(a_hat: torch.Tensor, obs: torch.Tensor, gcn_params: dict,
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
-             Cm: torch.Tensor, *, chunk: int) -> tuple:
-    """The Mamba-2 SSD scan from a zero state. x: (B, T, H, P)
-    dt-preweighted; a: (B, T, H) log decays (<= 0); Bm, Cm: (B, T, N) (one
-    group); all f32 and contiguous. ``chunk`` is the reference's block
-    length: min(chunk, T) must divide T, as in the TPU kernel. The CUDA
-    kernel blocks its own way (the result is the same up to f32 rounding).
-    Returns (y (B, T, H, P), final state (B, H, P, N)), f32."""
+             Cm: torch.Tensor, *, chunk: int,
+             init_state: torch.Tensor | None = None) -> tuple:
+    """The Mamba-2 SSD scan from ``init_state`` (B, H, P, N), zeros when
+    None (a chunked prefill carries its earlier chunks' state). x:
+    (B, T, H, P) dt-preweighted; a: (B, T, H) log decays (<= 0); Bm, Cm:
+    (B, T, N) (one group); all f32 and contiguous. ``chunk`` is the
+    reference's block length: min(chunk, T) must divide T, as in the TPU
+    kernel. The CUDA kernel blocks its own way (the result is the same up
+    to f32 rounding). Returns (y (B, T, H, P), final state (B, H, P, N)),
+    f32."""
     T = x.shape[1]
     chunk = min(chunk, T)
     if T % chunk:
         raise ValueError(f"ssd_scan: T {T} is not a multiple of chunk "
                          f"{chunk}")
-    if not _on_cuda("ssd_scan", x, a, Bm, Cm):
-        return ref.ssd_scan_ref(x, a, Bm, Cm, chunk)
-    for t in (x, a, Bm, Cm):
+    inits = () if init_state is None else (init_state,)
+    if not _on_cuda("ssd_scan", x, a, Bm, Cm, *inits):
+        return ref.ssd_scan_ref(x, a, Bm, Cm, chunk, init_state=init_state)
+    for t in (x, a, Bm, Cm, *inits):
         if t.dtype != torch.float32:
             raise TypeError(f"ssd_scan: f32 only, got {t.dtype}")
         if not t.is_contiguous():
@@ -258,14 +312,16 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     if tuple(a.shape) != (B, T, H) or tuple(Bm.shape) != (B, T, N) \
-            or Cm.shape != Bm.shape:
+            or Cm.shape != Bm.shape or any(tuple(s.shape) != (B, H, P, N)
+                                           for s in inits):
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, a "
                          f"{tuple(a.shape)}, Bm {tuple(Bm.shape)}, Cm "
-                         f"{tuple(Cm.shape)} do not match")
+                         f"{tuple(Cm.shape)}, init_state "
+                         f"{[tuple(s.shape) for s in inits]} do not match")
     if P > ssd.MAX_HEAD_DIM or N > ssd.MAX_STATE:
         raise ValueError(f"ssd_scan: head dim {P} / state {N} not supported")
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    ssd.launch(x, a, Bm, Cm, y, state)
+    ssd.launch(x, a, Bm, Cm, y, state, init_state=init_state)
     LAUNCHES["ssd_scan"] += 1
     return y, state

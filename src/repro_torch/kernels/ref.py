@@ -27,10 +27,22 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_decode_ref(q, k_cache, v_cache, pos):
+def dequantize_kv(q, scale, dtype):
+    """An int8 cache (B, S, G, hd) with its f32 scales (B, S, G) as
+    ``dtype``: q * scale in f32, then rounded to ``dtype`` -- the
+    reference's ``dequantize(...).astype(q.dtype)``."""
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def flash_decode_ref(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
     """q: (B, G, qpg, hd); caches: (B, S, G, hd); pos: (B,) int or scalar.
-    Row b attends cache positions 0..pos[b] inclusive. Returns
-    (B, G, qpg, hd) in q's dtype; computes in f32."""
+    Row b attends cache positions 0..pos[b] inclusive. An int8 cache comes
+    with its scales ``k_scale`` / ``v_scale`` (B, S, G) and is dequantized
+    to q's dtype first. Returns (B, G, qpg, hd) in q's dtype; computes in
+    f32."""
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
+        v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
     B, G, qpg, hd = q.shape
     S = k_cache.shape[1]
     pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
@@ -75,16 +87,27 @@ def flash_decode_split_ref(q, k_cache, v_cache, pos, chunk):
     return out.to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True):
-    """q: (B, S, G, qpg, hd); k, v: (B, T, G, hd). Causal masks key t > query
-    s + (T - S). Returns (B, S, G, qpg, hd) in q's dtype; computes in f32."""
+def flash_attention_ref(q, k, v, *, causal=True, q_offset=None,
+                        kv_rows=None):
+    """q: (B, S, G, qpg, hd); k, v: (B, T, G, hd), or (R, T, G, hd) with
+    ``kv_rows`` (B,) naming each q row's k/v row. Without ``q_offset``
+    causal masks key t > query s + (T - S); with ``q_offset`` (B,) query s
+    of row b sits at position q_offset[b] + s and sees keys up to it.
+    Returns (B, S, G, qpg, hd) in q's dtype; computes in f32."""
+    if kv_rows is not None:
+        k, v = k[kv_rows.long()], v[kv_rows.long()]
     S, hd = q.shape[1], q.shape[-1]
     T = k.shape[1]
     s = torch.einsum("bsgqh,btgh->bgqst", q.float(), k.float()) \
         / math.sqrt(hd)
     if causal:
-        mask = torch.ones(S, T, dtype=torch.bool, device=q.device) \
-            .tril(diagonal=T - S)
+        if q_offset is None:
+            mask = torch.ones(S, T, dtype=torch.bool, device=q.device) \
+                .tril(diagonal=T - S)
+        else:
+            qpos = q_offset.long()[:, None] + torch.arange(S, device=q.device)
+            mask = (torch.arange(T, device=q.device)[None, None, :]
+                    <= qpos[:, :, None])[:, None, None]   # (B, 1, 1, S, T)
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgqst,btgh->bsgqh", p, v.float()).to(q.dtype)
@@ -112,13 +135,15 @@ def ssd_chunk_ref(x, a, Bm, Cm, state):
     return y_diag + y_off, new_state
 
 
-def ssd_scan_ref(x, a, Bm, Cm, chunk):
-    """The scan from a zero state: ``ssd_chunk_ref`` over consecutive
-    chunks of ``chunk`` steps (the last may be shorter). Returns
-    (y (B, T, H, P) f32, final state (B, H, P, N) f32)."""
+def ssd_scan_ref(x, a, Bm, Cm, chunk, init_state=None):
+    """The scan from ``init_state`` (B, H, P, N), zeros when None:
+    ``ssd_chunk_ref`` over consecutive chunks of ``chunk`` steps (the last
+    may be shorter). Returns (y (B, T, H, P) f32, final state
+    (B, H, P, N) f32)."""
     B, T, H, P = x.shape
     state = torch.zeros((B, H, P, Bm.shape[-1]), dtype=torch.float32,
-                        device=x.device)
+                        device=x.device) if init_state is None \
+        else init_state.float()
     ys = []
     for c0 in range(0, T, chunk):
         y, state = ssd_chunk_ref(x[:, c0:c0 + chunk], a[:, c0:c0 + chunk],

@@ -3,7 +3,8 @@
 Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_scan`` of
 ``src/repro/kernels/ssd_scan.py``: the Mamba-2 SSD blocked scan of a
 prefill, x ``(B, T, H, P)`` dt-preweighted, log decays a ``(B, T, H)``,
-one group of B/C ``(B, T, N)``, from a zero state, returning y
+one group of B/C ``(B, T, N)``, from a zero state or from a carried
+``init_state`` ``(B, H, P, N)`` (a chunked prefill's), returning y
 ``(B, T, H, P)`` and the final state ``(B, H, P, N)``, all f32. Its
 products run on the tensor cores in split TF32 (f32 accuracy); a block
 serves ``hpb`` heads of one batch row, shares their C.B^T tile and keeps
@@ -50,7 +51,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.ssd_scan_launch
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
@@ -82,17 +83,20 @@ def device_plan(B: int, T: int, H: int, N: int, device) -> tuple:
 
 def launch(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
            Cm: torch.Tensor, y: torch.Tensor, state: torch.Tensor,
-           instantiation: tuple | None = None) -> None:
+           instantiation: tuple | None = None,
+           init_state: torch.Tensor | None = None) -> None:
     """Enqueue one launch on the current stream; raises if CUDA refused
     it. Arguments must already be checked (``ops.ssd_scan``).
     ``instantiation`` (tile, hpb) overrides ``plan``: the parity checks
-    run every instantiation, whichever the plan picks."""
+    run every instantiation, whichever the plan picks. ``init_state``
+    None starts from zeros."""
     lib = _lib()
     B, T, H, P = x.shape
     N = Bm.shape[-1]
     tile, hpb = instantiation or device_plan(B, T, H, N, x.device)
+    init = None if init_state is None else init_state.data_ptr()
     code = lib.ssd_scan_launch(
-        x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        x.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), init,
         y.data_ptr(), state.data_ptr(), B, T, H, P, N, tile, hpb,
         torch.cuda.current_stream(x.device).cuda_stream)
     if code != 0:

@@ -32,7 +32,11 @@ The control loop takes the reference's robustness and federation flags:
 ``--static-split``), ``--hierarchy`` (per-cell autoscalers under the
 global planner's leases, ``--plan-interval-global``, ``--lease-slack``) and
 ``--decode-block K`` (K fused decode micro-steps a dispatch on ticks that
-admit nothing).
+admit nothing). ``--chunk-len N`` (both modes) streams prompts longer than
+N tokens in N-token chunks interleaved with decode, with an f32 cache (the
+reduced config's); a bf16 or int8 cache keeps single-shot prefill, as in
+the reference. The int8 KV cache has no flag, as in the reference: it is
+reached through the engine API (``ReplicaEngine(cache_dtype="int8")``).
 
 On a card every decode dispatch replays a captured CUDA graph (the fleet's
 one or K micro-steps, a drain-mode replica's step); ``--no-async`` is the
@@ -48,8 +52,8 @@ reference's name for its kernel path, which is Pallas there -- and
 ``einsum`` through the reference's dense path.
 TF32 is off for every f32 product.
 
-Not yet ported, and raising when asked for: ``--chunk-len > 0``,
-``--devices`` and ``--mesh``.
+Not yet ported, and raising when asked for: ``--devices`` and
+``--mesh``.
 """
 from __future__ import annotations
 
@@ -82,11 +86,8 @@ def _parse_timeout(spec: str):
 def unported(args) -> str:
     """The first flag of ``args`` that asks for a path not yet ported, or
     an empty string."""
-    for bad, what in ((args.chunk_len > 0, "--chunk-len > 0"),
-                      (args.devices > 0 or bool(args.mesh),
-                       "--devices/--mesh")):
-        if bad:
-            return what
+    if args.devices > 0 or bool(args.mesh):
+        return "--devices/--mesh"
     return ""
 
 

@@ -16,7 +16,14 @@ Two backends compute the same function:
 Caches are updated in place: a per-layer cache argument is a view of one
 layer of the (L, B, S, G, hd) pool, and the new K/V are written into it.
 The kernels read that view by strides in the cache's own dtype, so there
-is no transpose and no cast copy of the cache.
+is no transpose and no cast copy of the cache. An int8 pool
+(``serving.kv_quant``: int8 K/V with f32 scales) is read by
+``ops.flash_decode``, which dequantizes in its loads.
+
+A chunked prefill (``chunk_prefill_attention``) writes one chunk's K/V into
+the pool at its cache offset and attends over the filled prefix:
+``ops.flash_attention`` with ``q_offset`` on ``"pallas"``, the reference's
+masked einsum on ``"einsum"``.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.dims import PaddedDims, q_head_mask
 from repro_torch.models.layers import apply_rope, he_init
 
@@ -113,6 +120,62 @@ def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
     return _out_proj(params, ctx, dims)
 
 
+def chunk_prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache,
+                            positions, lengths, *, rope_theta=0.0,
+                            backend: str = "pallas", rows=None):
+    """Continue a prefill one chunk at a time against the per-layer caches
+    (R, S, G, hd) (one layer of the serve pool), in place.
+
+    x: (B, C, d) chunk activations; ``positions`` (B, C) int32 are each
+    row's absolute cache positions (``offset + arange(C)``), ``lengths``
+    (B,) the true token count of each row's chunk, ``rows`` (B,) int32 the
+    cache row of each batch row (default: row b). The chunk's K/V are
+    written at their positions, then the chunk's queries attend causally
+    over the whole cache (``k_pos <= position``), prefix chunks included,
+    so chunk-by-chunk prefill equals the single-shot forward. The reference
+    parks its pad columns out of bounds and drops them; torch has no
+    dropping scatter, so a pad column is written at the cache's last
+    position S - 1 instead, which no real query of the chunk reads (a
+    prompt keeps at most S - 1 tokens, so real positions end at S - 2) and
+    which the row's decode writes before it reads it. Pad rows' outputs
+    are computed and discarded, as in the reference. ``"pallas"`` attends
+    through ``ops.flash_attention`` in the cache's dtype (q is cast to
+    it); ``"einsum"`` is the reference's math, the cache cast to q's dtype.
+    Returns (B, C, d_model)."""
+    B, C, _ = x.shape
+    q, k, v = _project_qkv(params, x, dims)
+    if rope_theta:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    S = k_cache.shape[1]
+    j = torch.arange(C, dtype=torch.int32, device=x.device)
+    wpos = torch.where(j[None, :] < lengths[:, None], positions, S - 1)
+    if rows is None:
+        rows = torch.arange(B, dtype=torch.int32, device=x.device)
+    r = rows.long()[:, None].expand(B, C)
+    k_cache[r, wpos.long()] = k.to(k_cache.dtype)
+    v_cache[r, wpos.long()] = v.to(v_cache.dtype)
+    if backend == "pallas":
+        ctx = ops.flash_attention(q.to(k_cache.dtype), k_cache, v_cache,
+                                  causal=True,
+                                  q_offset=positions[:, 0].contiguous(),
+                                  kv_rows=rows.contiguous()).to(q.dtype)
+    elif backend == "einsum":
+        kc, vc = k_cache[rows.long()], v_cache[rows.long()]
+        k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        scores = torch.einsum("bsgqh,btgh->bgqst", q.float(),
+                              kc.to(q.dtype).float()) * scale
+        mask = (k_pos[None, None, :] <= positions[:, :, None])[:, None, None]
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bgqst,btgh->bsgqh", probs.to(vc.dtype),
+                           vc).to(q.dtype)
+    else:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    return _out_proj(params, ctx, dims)
+
+
 def project_decode_qkv(params, x, dims: PaddedDims, pos, rope_theta):
     """Project the new token's q/k/v with RoPE at ``pos`` ((B,) int
     tensor: row b at pos[b])."""
@@ -126,30 +189,46 @@ def project_decode_qkv(params, x, dims: PaddedDims, pos, rope_theta):
 def write_kv(k_cache, v_cache, k_new, v_new, pos, rows=None):
     """Write one token's k/v into the (B, S, G, hd) caches in place, row b
     at pos[b] ((B,) int tensor). ``rows`` (an int index tensor) limits the
-    write to those rows; every other row keeps its cache bit for bit."""
+    write to those rows; every other row keeps its cache bit for bit. An
+    empty slot decodes at its stale position, which may be S (its last
+    request retired there); the reference's scatter drops that write, and
+    here it lands on S - 1, which a slot's next request writes before it
+    reads."""
     if rows is None:
         rows = torch.arange(k_cache.shape[0], device=k_cache.device)
         k_new, v_new = k_new[:, 0], v_new[:, 0]
     else:
         k_new, v_new, pos = k_new[rows, 0], v_new[rows, 0], pos[rows]
-    idx = pos.long()
+    idx = pos.long().clamp(max=k_cache.shape[1] - 1)
     k_cache[rows, idx] = k_new.to(k_cache.dtype)
     v_cache[rows, idx] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
 
 
 def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
-                  backend: str = "pallas"):
+                  backend: str = "pallas", k_scale=None, v_scale=None):
     """Read-only attention of a single-token q (B,1,G,qpg,hd) over
-    cache[0..pos[b]] per row (pos: (B,) int32 tensor). ``"pallas"`` goes
-    through ``ops.flash_decode``, which skips the unfilled cache;
-    ``"einsum"`` is the reference's dense path over the whole cache with a
-    mask. Returns (B, 1, d_model)."""
+    cache[0..pos[b]] per row (pos: (B,) int32 tensor). An int8 cache comes
+    with its scales ``k_scale`` / ``v_scale`` (B, S, G). ``"pallas"`` goes
+    through ``ops.flash_decode``, which skips the unfilled cache (and
+    dequantizes an int8 one in its loads; a float cache in another dtype
+    than q is read in its own, q cast to it); ``"einsum"`` is the reference's
+    dense path over the whole cache with a mask (an int8 cache dequantized
+    whole to q's dtype first, as the reference does). Returns
+    (B, 1, d_model)."""
     if backend == "pallas":
-        ctx = ops.flash_decode(q[:, 0], k_cache, v_cache, pos)[:, None]
+        # a float cache in another dtype than q (an f32 cache under bf16
+        # weights, as chunked prefill needs) is read in its own dtype, q
+        # cast to it: the kernel reads the pool as it lies
+        qk = q[:, 0] if k_scale is not None else q[:, 0].to(k_cache.dtype)
+        ctx = ops.flash_decode(qk, k_cache, v_cache, pos, k_scale,
+                               v_scale)[:, None].to(q.dtype)
         return _out_proj(params, ctx, dims)
     if backend != "einsum":
         raise ValueError(f"unknown attention backend {backend!r}")
+    if k_scale is not None:
+        k_cache = ref.dequantize_kv(k_cache, k_scale, q.dtype)
+        v_cache = ref.dequantize_kv(v_cache, v_scale, q.dtype)
     T = k_cache.shape[1]
     k_pos = torch.arange(T, dtype=torch.int32, device=q.device)
     scale = 1.0 / math.sqrt(q.shape[-1])

@@ -7,10 +7,16 @@ one dict per layer (``attn_norm``, ``attn``, ``ffn_norm``, ``mlp``) -- the
 reference stacks the same leaves along a leading layer axis for
 ``lax.scan``; ``repro_torch.bridge`` maps one onto the other.
 
-The KV cache is a dict of two (L, B, S, G, hd) tensors. Prefill and decode
-write it in place, one layer view at a time (the reference updates it
-functionally and relies on jit buffer donation; eagerly that would copy
-every layer each step).
+The KV cache is a dict of two (L, B, S, G, hd) tensors, ``k`` and ``v``,
+or with ``cache_dtype="int8"`` the quantized pool of
+``serving.kv_quant``: ``k_q`` / ``v_q`` int8 (L, B, S, G, hd) and their
+f32 scales ``k_s`` / ``v_s`` (L, B, S, G). Prefill and decode write it in
+place, one layer view at a time (the reference updates it functionally
+and relies on jit buffer donation; eagerly that would copy every layer
+each step). An int8 prefill runs in f32 and quantizes the filled cache
+once at the end; a decode quantizes each new token on write. A chunked
+prefill (``lm_prefill_chunk``) continues a float cache one chunk at a
+time.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
 from repro_torch.models.layers import gelu, he_init, rms_norm, silu
+from repro_torch.serving import kv_quant
 
 
 def init_mlp(gen, d_model, d_ff, activation, dtype) -> dict:
@@ -82,18 +89,39 @@ def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend):
     return _ffn_sublayer(lp, h, cfg)
 
 
-def block_decode(lp, h, cfg, dims, k_cache, v_cache, pos, attn_backend,
+def block_chunk(lp, h, cfg, dims, k_cache, v_cache, positions, lengths,
+                rows, attn_backend):
+    """One attention + MLP block over a prefill chunk at its cache
+    positions (``attention.chunk_prefill_attention``), writing its K/V
+    into rows ``rows`` of the per-layer caches in place."""
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    h = h + attn.chunk_prefill_attention(lp["attn"], x, dims, k_cache,
+                                         v_cache, positions, lengths,
+                                         rope_theta=cfg.rope_theta,
+                                         backend=attn_backend, rows=rows)
+    return _ffn_sublayer(lp, h, cfg)
+
+
+def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
                  write_rows=None):
     """One attention + MLP block for one token per row, writing its K/V at
-    ``pos`` into the per-layer caches in place (rows ``write_rows`` only,
-    when given)."""
+    ``pos`` into the per-layer cache views ``lc`` (``k``/``v``, or the int8
+    leaves ``k_q``/``v_q``/``k_s``/``v_s``) in place (rows ``write_rows``
+    only, when given)."""
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k_new, v_new = attn.project_decode_qkv(lp["attn"], x, dims, pos,
                                               cfg.rope_theta)
-    kc, vc = attn.write_kv(k_cache, v_cache, k_new, v_new, pos, write_rows)
-    h = h + attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
+    if "k_q" in lc:
+        kv_quant.write_kv_quant(lc, k_new, v_new, pos, write_rows)
+        y = attn.decode_attend(lp["attn"], q, lc["k_q"], lc["v_q"], pos,
+                               dims, backend=attn_backend,
+                               k_scale=lc["k_s"], v_scale=lc["v_s"])
+    else:
+        kc, vc = attn.write_kv(lc["k"], lc["v"], k_new, v_new, pos,
+                               write_rows)
+        y = attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
                                backend=attn_backend)
-    return _ffn_sublayer(lp, h, cfg)
+    return _ffn_sublayer(lp, h + y, cfg)
 
 
 def _logits(params, h):
@@ -117,13 +145,23 @@ def last_logits(params, h, cfg, lengths):
 
 
 # ---------------------------------------------------------------- serve path
+def is_int8(dtype) -> bool:
+    """The string "int8" selects the quantized KV codec (see the module
+    docstring)."""
+    return isinstance(dtype, str) and dtype == "int8"
+
+
 def lm_init_cache(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cuda") -> dict:
-    if isinstance(dtype, str):
-        raise NotImplementedError(f"cache dtype {dtype!r} (the int8 KV "
-                                  "codec) is not yet ported")
     shape = (cfg.num_layers, batch, max_len, dims.n_kv,
              cfg.resolved_head_dim)
+    if is_int8(dtype):
+        return {"k_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.ones(shape[:-1], device=device),
+                "v_s": torch.ones(shape[:-1], device=device)}
+    if isinstance(dtype, str):
+        raise ValueError(f"unknown cache dtype {dtype!r}")
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -137,8 +175,9 @@ def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
     (logits (B, V), cache)."""
     h = params["embed"][tokens]                              # (B,1,d)
     for li, lp in enumerate(params["layers"]):
-        h = block_decode(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
-                         pos, attn_backend, write_rows)
+        h = block_decode(lp, h, cfg, dims,
+                         {n: t[li] for n, t in cache.items()}, pos,
+                         attn_backend, write_rows)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)[:, 0], cache
 
@@ -152,14 +191,61 @@ def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
     token matrix is right-padded to a bucket length: logits are gathered at
     ``lengths-1`` and ``pos`` is ``lengths``. Causal masking keeps real
     positions exact under trailing pads; pad K/V beyond ``pos`` is masked by
-    the decode path until overwritten."""
+    the decode path until overwritten. ``cache_dtype="int8"`` runs the
+    forward with an f32 cache and quantizes it once at the end, as the
+    reference does (prefill is compute-bound; only decode needs the int8
+    stream)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     h = params["embed"][tokens]
-    cache = lm_init_cache(cfg, dims, B, cache_len, cache_dtype,
+    quant = is_int8(cache_dtype)
+    cache = lm_init_cache(cfg, dims, B, cache_len,
+                          torch.float32 if quant else cache_dtype,
                           device=h.device)
     for li, lp in enumerate(params["layers"]):
         h = block_prefill(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
                           attn_backend)
     logits, pos = last_logits(params, h, cfg, batch.get("lengths"))
+    if quant:
+        kq, ks = kv_quant.quantize(cache.pop("k"))
+        vq, vs = kv_quant.quantize(cache.pop("v"))
+        cache = {"k_q": kq, "v_q": vq, "k_s": ks, "v_s": vs}
+    return logits, cache, pos
+
+
+def chunk_logits(params, h, cfg, offsets, lengths):
+    """Final norm and head at each row's last real chunk position; returns
+    (logits, pos (B,) int32 = offset + length, each row's next cache
+    index)."""
+    logits, _ = last_logits(params, h, cfg, lengths)
+    return logits, (offsets + lengths).to(torch.int32)
+
+
+def chunk_positions(offsets, C: int):
+    """(B, C) int32 absolute cache positions of a chunk: offset + j."""
+    return offsets[:, None].to(torch.int32) + torch.arange(
+        C, dtype=torch.int32, device=offsets.device)[None, :]
+
+
+def lm_prefill_chunk(params, cache, tokens, offsets, lengths, cfg, dims, *,
+                     rows=None, attn_backend: str = "pallas"):
+    """Continue a prefill: run ``tokens`` (B, C) at per-row cache
+    ``offsets`` (B,) against the float KV cache (leaves (L, R, S, G, hd)),
+    row b in cache row ``rows[b]`` (default b), writing the chunk's K/V at
+    [offset, offset + length) in place and attending causally over the
+    whole prefix. ``lengths`` (B,) is each row's true token count within
+    the chunk (rows are right-padded to the fixed chunk width). Returns
+    (last-real-token logits (B, V), cache, pos (B,) = offset + length).
+    Chunk-by-chunk equals single-shot prefill: causal attention decomposes
+    over chunks, and no real query reads past its own position. Only the
+    float codec is supported (the int8 path quantizes whole prompts at
+    prefill end; the engine keeps int8 replicas on single-shot)."""
+    if "k_q" in cache:
+        raise ValueError("chunked prefill requires a float KV cache")
+    h = params["embed"][tokens]
+    posmat = chunk_positions(offsets, tokens.shape[1])
+    for li, lp in enumerate(params["layers"]):
+        h = block_chunk(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
+                        posmat, lengths, rows, attn_backend)
+    logits, pos = chunk_logits(params, h, cfg, offsets, lengths)
     return logits, cache, pos

@@ -5,9 +5,13 @@
     params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
     logits, state, pos = model.prefill(params, batch, cache_len=1024)
     logits, state = model.decode(params, state, tokens, pos)
+    logits, state, pos = model.prefill_chunk(params, state, tokens,
+                                             offsets, lengths)
 
 The dense, ssm and hybrid families are ported; the others raise
-``ValueError``.
+``ValueError``. ``cache_dtype="int8"`` (the quantized KV codec of
+``serving.kv_quant``) is taken by the dense family only, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -21,9 +25,10 @@ from repro_torch.models import lm, ssm_lm
 from repro_torch.models.dims import PaddedDims, padded_dims
 
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-# serve-state leaves with a sequence axis (axis -3: the attention caches);
-# the others (SSM and conv state) are per row, whatever the prompt length
-SEQ_LEAVES = ("k", "v", "attn_k", "attn_v")
+# serve-state leaves with a sequence axis (axis 2, after the layer and row
+# axes: the attention caches, float or int8 with their scales); the others
+# (SSM and conv state) are per row, whatever the prompt length
+SEQ_LEAVES = ("k", "v", "attn_k", "attn_v", "k_q", "v_q", "k_s", "v_s")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +54,13 @@ class Model:
 
     def init_serve_state(self, batch: int, cache_len: int,
                          cache_dtype=torch.bfloat16, device="cuda"):
+        """``cache_dtype`` may be the string "int8" for the dense family:
+        the KV pool is then int8 with per-(token, head) f32 absmax scales
+        (``serving.kv_quant``)."""
+        if lm.is_int8(cache_dtype) and not self._dense:
+            raise ValueError(
+                f"int8 cache needs an attention KV pool; family="
+                f"{self.cfg.family!r} keeps SSM/conv state in float")
         init = lm.lm_init_cache if self._dense else ssm_lm.ssm_init_state
         return init(self.cfg, self.dims, batch, cache_len, cache_dtype,
                     resolve_device(device))
@@ -62,6 +74,19 @@ class Model:
         return prefill(params, batch, self.cfg, self.dims,
                        cache_len=cache_len, cache_dtype=cache_dtype,
                        attn_backend=attn_backend)
+
+    def prefill_chunk(self, params, state, tokens, offsets, lengths,
+                      rows=None, attn_backend: str = "pallas"):
+        """Advance a chunked prefill: run ``tokens`` (B, C) at per-row cache
+        ``offsets`` (B,) against the carried serve state (the KV cache for
+        dense; SSM, conv and attention state for ssm/hybrid), batch row b
+        in state row ``rows[b]`` (default b), updated in place. Returns
+        (last-real-token logits, state, pos (B,) = offset + length).
+        Chunk by chunk equals the single-shot ``prefill``."""
+        chunk = lm.lm_prefill_chunk if self._dense \
+            else ssm_lm.ssm_prefill_chunk
+        return chunk(params, state, tokens, offsets, lengths, self.cfg,
+                     self.dims, rows=rows, attn_backend=attn_backend)
 
     def decode(self, params, state, tokens, pos, attn_backend: str = "pallas",
                write_rows=None):

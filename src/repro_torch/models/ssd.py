@@ -12,6 +12,11 @@ Two backends compute the prefill scan:
   * ``"einsum"`` -- ``ssd_chunked``, the reference's blocked scan written
     as dense tensor code, kept as the oracle.
 
+A chunked prefill continues the scan from the carried state
+(``init_state``, the kernel's too) and the convolution from the carried
+raw window (``conv_state``), so chunk by chunk equals the single-shot
+forward.
+
 Decode (``mamba2_decode``) is one recurrence step in plain PyTorch on both.
 It updates the carried state in place (the reference returns a new state
 and relies on jit buffer donation; eagerly that would copy every layer's
@@ -78,11 +83,12 @@ def _pad_steps(t, pad: int):
     return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
 
 
-def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
-    """The reference's blocked SSD scan from a zero state. x: (B, T, H, P)
-    inputs (not yet dt-weighted); dt: (B, T, H) step sizes; A: (H,)
-    negative rates; Bm, Cm: (B, T, G, N) with H % G == 0. Returns
-    (y (B, T, H, P) f32, final state (B, H, P, N) f32)."""
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """The reference's blocked SSD scan from ``init_state`` (B, H, P, N),
+    zeros when None. x: (B, T, H, P) inputs (not yet dt-weighted); dt:
+    (B, T, H) step sizes; A: (H,) negative rates; Bm, Cm: (B, T, G, N)
+    with H % G == 0. Returns (y (B, T, H, P) f32, final state
+    (B, H, P, N) f32)."""
     Bsz, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     T_orig = T
@@ -96,7 +102,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     xdt = (x * dt[..., None]).float()
     Bf, Cf = Bm.float(), Cm.float()
     state = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
-                        device=x.device)
+                        device=x.device) if init_state is None \
+        else init_state.float()
     ys = []
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -136,11 +143,13 @@ def ssd_decode_step(state, x, dt, A, Bm, Cm, rows=None):
 
 
 # -------------------------------------------------------------- full block
-def causal_conv(x, w, b):
-    """Depthwise causal conv of a fresh sequence (zero left context). x:
-    (B, T, C); w: (W, C)."""
+def causal_conv(x, w, b, left=None):
+    """Depthwise causal conv. x: (B, T, C); w: (W, C). ``left``
+    (B, W - 1, C) is the raw window carried from a previous chunk; None is
+    a fresh sequence (zero left context)."""
     W, T = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = F.pad(x, (0, 0, W - 1, 0)) if left is None \
+        else torch.cat([left.to(x.dtype), x], dim=1)
     out = xp[:, 0:T] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + T] * w[i]
@@ -161,10 +170,11 @@ def _gate_out(params, y, xh, z, cfg, dtype):
         @ params["out_proj"]
 
 
-def _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk: int):
-    """The scan through ``ops.ssd_scan``: dt-weighted x and the log decays
-    in f32, B/C of the single group, T zero-padded (dt = 0, inert) to a
-    multiple of min(chunk, T) as the TPU kernel asks."""
+def _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
+    """The scan through ``ops.ssd_scan`` from ``init_state`` (zeros when
+    None): dt-weighted x and the log decays in f32, B/C of the single
+    group, T zero-padded (dt = 0, inert) to a multiple of min(chunk, T) as
+    the TPU kernel asks."""
     if Bm.shape[2] != 1:
         raise NotImplementedError(f"ssd_scan with {Bm.shape[2]} B/C groups "
                                   "is not yet ported (one group only)")
@@ -176,25 +186,36 @@ def _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk: int):
     Bs, Cs = Bm[:, :, 0].float(), Cm[:, :, 0].float()
     if pad:
         xdt, a, Bs, Cs = (_pad_steps(t, pad) for t in (xdt, a, Bs, Cs))
+    if init_state is not None:
+        init_state = init_state.float().contiguous()
     y, state = ops.ssd_scan(xdt.contiguous(), a.contiguous(),
-                            Bs.contiguous(), Cs.contiguous(), chunk=q)
+                            Bs.contiguous(), Cs.contiguous(), chunk=q,
+                            init_state=init_state)
     return y[:, :T], state
 
 
-def mamba2_forward(params, x, cfg, *, return_state=False, lengths=None,
+def mamba2_forward(params, x, cfg, *, init_state=None, conv_state=None,
+                   return_state=False, lengths=None,
                    attn_backend: str = "pallas"):
-    """Full-sequence Mamba-2 block from a zero state. x: (B, T, d_model).
+    """Full-sequence Mamba-2 block. x: (B, T, d_model).
 
     ``lengths`` (B,) marks the true length of each right-padded row:
     padded steps get dt = 0 (decay 1, zero input: exactly inert), and the
     decode conv state is gathered from the last ``conv_width - 1`` real
     positions, so the returned state matches an unpadded forward. Both are
-    device operations; no host value is read back."""
+    device operations; no host value is read back.
+
+    ``init_state`` / ``conv_state`` continue a sequence from a previous
+    chunk (chunked prefill): ``init_state`` (B, H, P, N) seeds the scan and
+    ``conv_state`` (B, W - 1, C) is the carried raw conv window (the layout
+    the decode path keeps), so a prompt run chunk by chunk reproduces the
+    single-shot forward. None is a fresh sequence."""
     N, G = cfg.ssm_state, cfg.ssm_groups
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     Bsz, T = x.shape[:2]
     z, xBC_raw, dt_raw = _split_proj(x @ params["in_proj"], cfg)
-    xBC = silu(causal_conv(xBC_raw, params["conv_w"], params["conv_b"]))
+    xBC = silu(causal_conv(xBC_raw, params["conv_w"], params["conv_b"],
+                           left=conv_state))
     d_inner = cfg.d_inner
     xs = xBC[..., :d_inner]
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(Bsz, T, G, N)
@@ -207,16 +228,30 @@ def mamba2_forward(params, x, cfg, *, return_state=False, lengths=None,
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(Bsz, T, H, P)
     if attn_backend == "pallas":
-        y, state = _ssd_kernel_path(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+        y, state = _ssd_kernel_path(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
+                                    init_state)
     elif attn_backend == "einsum":
-        y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
+        y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
+                               init_state)
     else:
         raise ValueError(f"unknown attention backend {attn_backend!r}")
     out = _gate_out(params, y, xh, z, cfg, x.dtype)
     if not return_state:
         return out
     W = cfg.ssm_conv_width
-    if lengths is None:
+    if conv_state is not None:
+        # the cumulative raw sequence is [carry | chunk], so the next window
+        # is its last W - 1 real rows, always in bounds (the carry supplies
+        # the left context even for a chunk shorter than the window)
+        window = torch.cat([conv_state.to(xBC_raw.dtype), xBC_raw], dim=1)
+        if lengths is None:
+            conv_tail = window[:, -(W - 1):]
+        else:
+            idx = lengths[:, None].long() + torch.arange(
+                W - 1, device=x.device)[None, :]                 # (B, W-1)
+            conv_tail = torch.gather(
+                window, 1, idx[:, :, None].expand(-1, -1, window.shape[-1]))
+    elif lengths is None:
         conv_tail = xBC_raw[:, -(W - 1):]       # raw window for decode conv
         if conv_tail.shape[1] < W - 1:          # prompt shorter than window
             conv_tail = F.pad(conv_tail,

@@ -14,7 +14,10 @@ The serve state is a dict: ``ssm`` (L, B, H, P, N) f32, ``conv``
 ``attn_v`` (n_inv, B, S, G, hd). Prefill and decode write it in place, one
 layer view at a time (the reference updates it functionally and relies on
 jit buffer donation: at full width mamba2's SSM state is ~100 MB per row).
-Decode is O(1) in context for the mamba layers.
+Decode is O(1) in context for the mamba layers. A chunked prefill
+(``ssm_prefill_chunk``) continues the carried SSM and conv state and the
+hybrid's KV caches one chunk at a time. The int8 KV codec is refused: this
+family keeps SSM and conv state in float.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
 from repro_torch.models.layers import he_init, rms_norm
-from repro_torch.models.lm import (block_decode, block_prefill, init_mlp,
+from repro_torch.models.lm import (block_chunk, block_decode, block_prefill,
+                                   chunk_logits, chunk_positions, init_mlp,
                                    last_logits, _logits)
 from repro_torch.models.ssd import (init_mamba2, mamba2_decode,
                                     mamba2_forward, mamba2_init_state)
@@ -139,7 +143,8 @@ def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
         inv = _invocation(cfg, li)
         if inv is not None:
             h = block_decode(params["shared_attn"], h, cfg, dims,
-                             state["attn_k"][inv], state["attn_v"][inv], pos,
+                             {"k": state["attn_k"][inv],
+                              "v": state["attn_v"][inv]}, pos,
                              attn_backend, write_rows)
         y, _ = mamba2_decode(lp["mamba"],
                              rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
@@ -148,3 +153,45 @@ def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
         h = h + y
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)[:, 0], state
+
+
+def ssm_prefill_chunk(params, state, tokens, offsets, lengths,
+                      cfg: ArchConfig, dims: PaddedDims, *, rows=None,
+                      attn_backend: str = "pallas"):
+    """Continue a prefill one chunk at a time: ``state`` is the serve state
+    left by earlier chunks (zeros for a first chunk), row b of the batch in
+    state row ``rows[b]`` (default b); ``tokens`` (B, C) the next chunk
+    right-padded to the fixed width with ``lengths`` (B,) true counts;
+    ``offsets`` (B,) the absolute position of each row's chunk start.
+
+    Each layer's scan seeds from the carried SSM state, its conv window
+    rides the carried raw tail (the layout ``mamba2_decode`` keeps), and
+    the hybrid's shared block writes and reads its per-invocation KV
+    caches at the chunk's absolute positions
+    (``attention.chunk_prefill_attention``), so chunk by chunk equals the
+    single-shot prefill (pad steps are dt = 0, inert). The rows' state is
+    updated in place. Returns (last-real-token logits, state, pos (B,) =
+    offset + length)."""
+    h = params["embed"][tokens]
+    B = tokens.shape[0]
+    if rows is None:
+        rows = torch.arange(B, dtype=torch.int32, device=h.device)
+    r = rows.long()
+    posmat = chunk_positions(offsets, tokens.shape[1])
+    for li, lp in enumerate(params["layers"]):
+        inv = _invocation(cfg, li)
+        if inv is not None:
+            h = block_chunk(params["shared_attn"], h, cfg, dims,
+                            state["attn_k"][inv], state["attn_v"][inv],
+                            posmat, lengths, rows, attn_backend)
+        ssm, conv = state["ssm"][li], state["conv"][li]
+        y, st = mamba2_forward(lp["mamba"],
+                               rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
+                               init_state=ssm[r], conv_state=conv[r],
+                               return_state=True, lengths=lengths,
+                               attn_backend=attn_backend)
+        h = h + y
+        ssm[r] = st["ssm"]
+        conv[r] = st["conv"].to(conv.dtype)
+    logits, pos = chunk_logits(params, h, cfg, offsets, lengths)
+    return logits, state, pos

@@ -50,6 +50,35 @@ formed).
 ``ReplicaEngine.step()`` remains the standalone per-replica path and is the
 parity oracle for the fleet path.
 
+**Chunked prefill** (``chunk_len > 0``, the dense, ssm and hybrid families
+with an f32 cache; any other cache or family silently keeps single-shot
+prefill, as in the reference). A prompt longer than ``chunk_len`` reserves
+a slot and a chunk cursor at admission and streams in fixed-size chunks,
+one per engine step, interleaved with decode rounds: dense and hybrid
+attention at the chunk's cache offset over the filled prefix
+(``ops.flash_attention`` with ``q_offset``, reading the pool rows in
+place), ssm/hybrid scans from the carried SSM state (``ops.ssd_scan`` with
+``init_state``) and the carried conv window. All due chunk rows of a
+replica -- of a fleet group, across its members -- advance in ONE chunk
+dispatch, each row's state updated in place in its pool or slab row. A
+mid-chunk slot is held out of decode: it is inactive in the decode
+operands, and the decode writes only the rows it steps (the masked
+variant's write index, restaged each round into the same fixed buffer,
+so a new set of held rows replays the same graph). Two tier guards: a
+lower-tier chunk start yields the last free slot while higher-priority
+work waits, and under pressure at most one below-decoding-tier cursor
+advances a step (``plan_admission`` / ``_chunk_due``). In async mode a
+cursor advances at dispatch and the final chunk's first token commits at
+the next reconcile. Chunk by chunk equals single-shot prefill.
+
+**The int8 KV cache** (``cache_dtype="int8"``, the dense family; ssm and
+hybrid raise as in the reference): the pool is int8 with per-(token, head)
+f32 scales (``serving.kv_quant``); a prefill quantizes its prompt once at
+the end, a decode quantizes each new token on write and reads the pool
+through ``ops.flash_decode``, which dequantizes in its loads. The four
+leaves ride the fleet slab, its growth, backfill and ``write_slot`` like
+the float pool's two.
+
 **Decode graphs.** On a card every decode dispatch of the async fleet tick
 and of a standalone replica replays a captured CUDA graph (``serving.
 graphs``): the port's counterpart of the reference's jitted dispatch. The
@@ -91,9 +120,8 @@ its (K, cap, B) results reconcile at the block's end with finish clocks
 ``dispatch_clock + k``, so an admission landing inside the window starts
 decoding at its end (a lag of at most K - 1 ticks).
 
-Not yet ported, and raising when asked for: chunked prefill
-(``chunk_len > 0``), the int8 KV codec, fleet-mesh sharding (``mesh``) and
-families other than dense, ssm and hybrid.
+Not yet ported, and raising when asked for: fleet-mesh sharding
+(``mesh``) and families other than dense, ssm and hybrid.
 """
 from __future__ import annotations
 
@@ -114,6 +142,9 @@ from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
 # families whose prefill accepts per-row ``lengths`` (bucketed prompts are
 # exact)
 _BUCKET_FAMILIES = ("dense", "ssm", "hybrid")
+# families with a chunked-prefill continuation (cache-offset attention for
+# dense, carried ssm/conv state for ssm/hybrid)
+_CHUNK_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
@@ -142,14 +173,53 @@ def get_prefill_shapes(model: Model, max_seq: int, cache_dtype,
 def _write_state(state: dict, rows, small: dict, src) -> None:
     """Write prefill state rows ``src`` of ``small`` into rows ``rows``
     (axis 1: an int or an index tensor) of the serve state ``state``, in
-    place. The attention caches (``SEQ_LEAVES``) take the prompt's
-    positions only; the SSM and conv states are written whole."""
+    place. The attention caches (``SEQ_LEAVES``: their axis 2 is the
+    sequence) take the prompt's positions only; the SSM and conv states
+    are written whole."""
     for name, big in state.items():
         v = small[name][:, src]
         if name in SEQ_LEAVES:
-            big[:, rows, :v.shape[-3]] = v
+            big[:, rows, :small[name].shape[2]] = v
         else:
             big[:, rows] = v
+
+
+def _pack_chunk_rows(items: list, chunk_len: int) -> tuple:
+    """Host arrays of one chunk dispatch from its work items ``(row, toks,
+    off, ln, fresh)`` (``row`` the state row): tokens (n, chunk_len),
+    offsets, lengths and rows (n,), and the state rows of the items that
+    start a prompt (``fresh``). The reference pads the batch to a power of
+    two with dummy rows whose writes drop; here only the real rows run."""
+    n = len(items)
+    toks = np.zeros((n, chunk_len), np.int32)
+    offs = np.zeros(n, np.int32)
+    lens = np.ones(n, np.int32)
+    rows = np.zeros(n, np.int32)
+    for i, (row, t, off, ln, _) in enumerate(items):
+        toks[i], offs[i], lens[i], rows[i] = t, off, ln, row
+    fresh = np.asarray([row for row, *_, fr in items if fr], np.int32)
+    return toks, offs, lens, rows, fresh
+
+
+def _chunk_dispatch(model, params, state: dict, device, attn_backend: str,
+                    items: list, chunk_len: int) -> tuple:
+    """ONE chunk step over the state rows of ``items`` (see
+    ``_pack_chunk_rows``), in place: the carried (non-sequence) state of a
+    row that starts its prompt is zeroed first (a first chunk must not see
+    the slot's previous occupant's SSM/conv state; its attention cache
+    beyond the frontier is masked, as in slot reuse), one chunk advances,
+    and the greedy argmax is fused. Returns the device (first token, pos)
+    (n,) int32 each."""
+    toks, offs, lens, rows, fresh = _pack_chunk_rows(items, chunk_len)
+    toks, offs, lens, rows, fresh = _stage(device, toks, offs, lens, rows,
+                                           fresh)
+    if fresh.numel():
+        for name, t in state.items():
+            if name not in SEQ_LEAVES:
+                t[:, fresh.long()] = 0
+    logits, _, pos = model.prefill_chunk(params, state, toks, offs, lens,
+                                         rows=rows, attn_backend=attn_backend)
+    return torch.argmax(logits, dim=-1).to(torch.int32), pos
 
 
 def _timed_get(owner, tensors) -> list:
@@ -196,7 +266,7 @@ class _Pending:
     dispatch-time clocks that stamp TTFT/finish)."""
 
     def __init__(self, kind: str, arrays, meta: list):
-        self.kind = kind                # "decode" | "block" | "prefill"
+        self.kind = kind        # "decode" | "block" | "prefill" | "chunk"
         self.meta = meta
         self.ready = None
         if arrays[0].device.type == "cuda":
@@ -235,11 +305,21 @@ def _init_ops(cap: int, batch: int, device: torch.device) -> dict:
 
 
 @dataclasses.dataclass
+class _ChunkCursor:
+    """Per-slot chunked-prefill progress: the (truncated) prompt streaming
+    into the slot and how many tokens earlier chunks consumed."""
+    req: "Request"
+    prompt: list
+    consumed: int = 0
+
+
+@dataclasses.dataclass
 class _AdmitPlans:
     """Host-side admission decisions for one engine step (no dispatches):
     ``bucketed`` groups share one pow2-bucket prefill each, ``singles`` are
     exact-length admits (requests carrying extras, replicas that do not
-    bucket)."""
+    bucket). Chunk starts are recorded directly on the engine's cursor
+    table."""
     bucketed: list          # [(slots, reqs)]
     singles: list           # [(slot, req)]
     expired: list = dataclasses.field(default_factory=list)
@@ -421,7 +501,8 @@ class ReplicaEngine:
     ``attn_backend`` is ``"pallas"`` (the CUDA kernels; their plain versions
     on the CPU) or ``"einsum"``. On a card the standalone decode step
     replays a captured graph; ``decode_graph=False`` keeps it eager (the
-    oracle)."""
+    oracle). ``chunk_len`` and ``cache_dtype="int8"``: see the module
+    docstring."""
 
     def __init__(self, model: Model, params, *, max_batch: int = 4,
                  max_seq: int = 256, cache_dtype=torch.float32, rid: int = 0,
@@ -432,9 +513,6 @@ class ReplicaEngine:
                  decode_graph: bool = True):
         if attn_backend not in ("pallas", "einsum"):
             raise ValueError(f"unknown attn_backend {attn_backend!r}")
-        if chunk_len:
-            raise NotImplementedError("chunked prefill (chunk_len > 0) is "
-                                      "not yet ported")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -463,18 +541,30 @@ class ReplicaEngine:
         self.prefill_dispatches = 0   # admission prefill calls issued
         self._fleet: Optional["FleetGroup"] = None  # device state owner
         self._fleet_row = -1                        # when fleet-batched
+        self._chunks: dict = {}     # slot -> _ChunkCursor (mid-chunk slots)
         if bucket_prompts is None:
             bucket_prompts = model.cfg.family in _BUCKET_FAMILIES
         self.bucket_prompts = bucket_prompts
+        # chunked admission needs a continuation and an f32 cache: the int8
+        # codec quantizes whole prompts at prefill end, and a bf16 cache
+        # would make chunked attention read back rounded K/V (and re-round
+        # the carried conv state each chunk) where single-shot prefill
+        # attends the unrounded values -- the reference drops chunk_len then
+        if chunk_len and (model.cfg.family not in _CHUNK_FAMILIES
+                          or cache_dtype != torch.float32):
+            chunk_len = 0
+        self.chunk_len = int(chunk_len)
         self._shapes = get_prefill_shapes(model, max_seq, cache_dtype,
                                           attn_backend)
-        # the standalone decode step: its operands' fixed device buffers and
-        # its graph, keyed by the addresses of the pool it was captured on
+        # the standalone decode step: its operands' fixed device buffers
+        # (the held variant's write index too: the slots that decode, padded
+        # by repeating them) and its graphs, keyed by the addresses of the
+        # pool they were captured on
         self._step_ops = {
-            "toks": torch.zeros((max_batch, 1), dtype=torch.int32,
-                                device=self.device),
-            "pos": torch.zeros(max_batch, dtype=torch.int32,
-                               device=self.device)}
+            name: torch.zeros(shape, dtype=torch.int32, device=self.device)
+            for name, shape in (("toks", (max_batch, 1)),
+                                ("pos", (max_batch,)),
+                                ("write", (max_batch,)))}
         self.graphs = DecodeGraphs(self.device, eager=not decode_graph)
         self._captured_on = ()
 
@@ -497,9 +587,9 @@ class ReplicaEngine:
 
     @property
     def n_decoding(self) -> int:
-        """Slots in the decode phase (every occupied slot: chunked prefill,
-        whose mid-chunk slots do not decode, is not yet ported)."""
-        return self.n_active
+        """Slots in the decode phase (occupied and not mid-chunk-prefill)."""
+        return sum(s is not None and i not in self._chunks
+                   for i, s in enumerate(self.slots))
 
     @property
     def load(self) -> int:
@@ -523,6 +613,7 @@ class ReplicaEngine:
         lost = [r for r in self.slots if r is not None] + list(self.queue)
         self.slots = [None] * self.max_batch
         self.queue.clear()
+        self._chunks.clear()
         for r in lost:
             r.reset_progress()
         return lost
@@ -603,38 +694,59 @@ class ReplicaEngine:
             self.slots[slot] = req
 
     # ------------------------------------------------------------ admission
+    def _chunkable(self, req: Request) -> bool:
+        return (self.chunk_len > 0
+                and getattr(req, "extras", None) is None
+                and min(len(req.prompt), self.max_seq - 1) > self.chunk_len)
+
     def plan_admission(self) -> _AdmitPlans:
         """Pop admittable queue heads into reserved slots without
         dispatching -- the shared host half of the standalone and the
         fleet-batched admission paths. Queue heads come out in the tiered
-        weighted-deficit order (see ``TieredQueue``); consecutive bucketable
-        heads group into one bucketed prefill, others become exact-length
-        single admits, and heads past their deadline retire unserved. A
-        draining replica admits nothing."""
+        weighted-deficit order (see ``TieredQueue``); chunk-eligible
+        prompts reserve a slot and a chunk cursor (their first chunk runs
+        in this step's chunk round), but a lower-tier chunk start yields
+        the last free slot while higher-priority work waits (it would hold
+        the slot for ceil(len / chunk) ticks); consecutive bucketable heads
+        group into one bucketed prefill, others become exact-length single
+        admits, and heads past their deadline retire unserved. A draining
+        replica admits nothing."""
         plans = _AdmitPlans([], [])
         if self.draining:
             return plans
         free = [i for i in range(self.max_batch) if self.slots[i] is None]
+        deferred: set = set()         # tiers whose chunk start yielded
         while free:
-            picked = self.queue.peek()
+            picked = self.queue.peek(deferred)
             if picked is None:
                 break
-            _, head = picked
+            tier_idx, head = picked
             if head.out_of_time(self.clock):
-                req = self.queue.pop()
+                req = self.queue.pop(deferred)
                 req.finish_time = self.clock
                 plans.expired.append(req)
                 continue
+            if self._chunkable(head):
+                if len(free) == 1 and self.queue.higher_waiting(tier_idx):
+                    deferred.add(tier_idx)    # leave the slot for premium
+                    continue
+                req = self.queue.pop(deferred)
+                slot = free.pop(0)
+                self.slots[slot] = req
+                self._chunks[slot] = _ChunkCursor(
+                    req, req.prompt[-(self.max_seq - 1):])
+                continue
             if not self.bucket_prompts or getattr(head, "extras", None):
-                plans.singles.append((free.pop(0), self.queue.pop()))
+                plans.singles.append((free.pop(0), self.queue.pop(deferred)))
                 continue
             group = []
             while len(group) < len(free):
-                nxt = self.queue.peek()
+                nxt = self.queue.peek(deferred)
                 if nxt is None or getattr(nxt[1], "extras", None) \
+                        or self._chunkable(nxt[1]) \
                         or nxt[1].out_of_time(self.clock):
                     break
-                group.append(self.queue.pop())
+                group.append(self.queue.pop(deferred))
             plans.bucketed.append(([free.pop(0) for _ in group], group))
         return plans
 
@@ -648,37 +760,130 @@ class ReplicaEngine:
         for slots, reqs in plans.bucketed:
             self._admit_batch(slots, reqs, finished, bucketed=True)
 
+    # --------------------------------------------------------------- chunks
+    def _chunk_due(self) -> list:
+        """Mid-chunk slots due to advance this step, tier-throttled: a
+        cursor whose tier is strictly below some decoding slot's tier is
+        "pressured" (its chunk compute would stretch the tick every one of
+        those slots' next token waits on), and under pressure at most ONE
+        such cursor advances a step (the highest-priority, lowest-slot
+        one). Cursors at or above every decoding tier (and everything in
+        single-tier mode) advance unthrottled."""
+        slots = sorted(self._chunks)
+        if len(self.tiers) <= 1 or not slots:
+            return slots
+        decoding = [self.tiers.rank(req.tier)
+                    for s, req in enumerate(self.slots)
+                    if req is not None and s not in self._chunks]
+        if not decoding:
+            return slots
+        best = min(decoding)                  # rank 0 = highest priority
+        rank = lambda s: self.tiers.rank(self._chunks[s].req.tier)
+        calm = [s for s in slots if rank(s) <= best]
+        pressured = sorted((s for s in slots if rank(s) > best),
+                           key=lambda s: (rank(s), s))
+        return sorted(calm + pressured[:1])
+
+    def _chunk_rows(self) -> list:
+        """This step's chunk work items:
+        (slot, toks (chunk_len,), offset, true_len, fresh, final)."""
+        rows = []
+        for slot in self._chunk_due():
+            cur = self._chunks[slot]
+            off = cur.consumed
+            ln = min(self.chunk_len, len(cur.prompt) - off)
+            toks = np.zeros(self.chunk_len, np.int32)
+            toks[:ln] = cur.prompt[off:off + ln]
+            rows.append((slot, toks, off, ln, off == 0,
+                         off + ln >= len(cur.prompt)))
+        return rows
+
+    def commit_chunk(self, slot: int, first_tok, pos, final: bool,
+                     finished: list):
+        """Apply one chunk result: advance the cursor, or -- on the final
+        chunk -- record the first generated token and hand the slot to the
+        decode phase (or retire it at once)."""
+        cur = self._chunks[slot]
+        if not final:
+            cur.consumed += self.chunk_len
+            return
+        del self._chunks[slot]
+        req = cur.req
+        tok = int(first_tok)
+        req.output.append(tok)
+        req.first_token_time = self.clock
+        if len(req.output) >= req.max_new_tokens or tok == req.eos_id \
+                or req.out_of_time(self.clock):
+            req.finish_time = self.clock
+            finished.append(req)
+            self.slots[slot] = None
+            return
+        self.pos[slot] = int(pos)
+        self.last_tok[slot] = tok
+
+    def _chunk_step(self, finished: list):
+        """Advance every due mid-chunk slot by one chunk in ONE dispatch
+        (a fleet member's through its group's slab)."""
+        rows = self._chunk_rows()
+        if not rows:
+            return
+        if self._fleet is not None:
+            self._fleet._dispatch_fleet_chunk(
+                [(self,) + row for row in rows], finished)
+            return
+        first, pos = _chunk_dispatch(
+            self.model, self.params, self.cache, self.device,
+            self.attn_backend, [(slot, t, off, ln, fr)
+                                for slot, t, off, ln, fr, _ in rows],
+            self.chunk_len)
+        self.prefill_dispatches += 1
+        self._shapes.add(("chunk", pow2_bucket(len(rows)), self.chunk_len,
+                          self.max_batch))
+        first, pos = _timed_get(self, (first, pos))
+        for i, (slot, t, off, ln, fr, fin) in enumerate(rows):
+            self.commit_chunk(slot, first[i], pos[i], fin, finished)
+
     # ------------------------------------------------------------- stepping
     def begin_step(self, dt: float = 1.0, admit: bool = True) -> list:
-        """Tick phase 1: advance the clock and admit from the queue. Returns
-        requests that completed at prefill time. With ``admit=False`` only
-        the clock moves -- the caller batches admission across the fleet via
+        """Tick phase 1: advance the clock, admit from the queue and advance
+        the mid-chunk slots one chunk. Returns requests that completed at
+        prefill time. With ``admit=False`` only the clock moves -- the
+        caller batches admission across the fleet via
         ``FleetGroup.admit_round``."""
         self.clock += dt
         finished: list = []
         if admit:
             self._admit(finished)
+            self._chunk_step(finished)
         return finished
 
     def finish_step(self) -> list:
-        """Tick phase 2: one decode step for all active slots (empty slots
-        decode garbage at their stale position, which nothing reads)."""
+        """Tick phase 2: one decode step for all active slots but the
+        mid-chunk ones (empty slots decode garbage at their stale position,
+        which nothing reads; a mid-chunk slot's state is not written)."""
         if self._fleet is not None:    # device state lives in the fleet slab
             return self._fleet.decode_round({id(self)})
-        if self.n_active == 0:
+        if self.n_decoding == 0:
             return []
-        _stage_into((self._step_ops["toks"], self._step_ops["pos"]),
-                    self.last_tok[:, None], self.pos)
+        held = bool(self._chunks)
+        host = [self.last_tok[:, None], self.pos]
+        if held:
+            write = [s for s in range(self.max_batch) if s not in self._chunks]
+            host.append(np.resize(np.asarray(write, np.int32),
+                                  self.max_batch))
+        _stage_into((self._step_ops["toks"], self._step_ops["pos"],
+                     self._step_ops["write"])[:len(host)], *host)
         pool = tuple(c.data_ptr() for c in self.cache.values())
         if pool != self._captured_on:  # a pool handed back by a fleet
             self.graphs.drop()
             self._captured_on = pool
-        nxt = self.graphs.run("decode", self._decode_next)
+        nxt = self.graphs.run("decode_hold" if held else "decode",
+                              lambda: self._decode_next(held))
         self.steps += 1
         finished: list = []
         next_toks = _timed_get(self, nxt)[0]
         for slot, req in enumerate(self.slots):
-            if req is None:
+            if req is None or slot in self._chunks:
                 continue
             tok = int(next_toks[slot])
             req.output.append(tok)
@@ -692,12 +897,15 @@ class ReplicaEngine:
                 self.slots[slot] = None
         return finished
 
-    def _decode_next(self) -> tuple:
+    def _decode_next(self, held: bool = False) -> tuple:
         """One decode of the pool from the static operands (in place):
-        each slot's greedy next token."""
+        each slot's greedy next token. ``held``: only the slots of the
+        write index buffer write their state (mid-chunk slots keep
+        theirs)."""
         logits, _ = self.model.decode(
             self.params, self.cache, self._step_ops["toks"],
-            self._step_ops["pos"], attn_backend=self.attn_backend)
+            self._step_ops["pos"], attn_backend=self.attn_backend,
+            write_rows=self._step_ops["write"] if held else None)
         return (torch.argmax(logits, dim=-1),)
 
     def commit_decode(self, next_toks: np.ndarray, done: np.ndarray) -> list:
@@ -707,7 +915,7 @@ class ReplicaEngine:
         finished: list = []
         stepped = False
         for slot, req in enumerate(self.slots):
-            if req is None:
+            if req is None or slot in self._chunks:
                 continue
             stepped = True
             tok = int(next_toks[slot])
@@ -765,8 +973,9 @@ class FleetGroup:
 
     ``admit_round`` is the admission twin of ``decode_round``: members'
     bucketed admit rows of the same pow2 length bucket flatten into ONE
-    prefill per distinct bucket, writing K/V straight into the slab.
-    ``prefill_dispatches`` mirrors ``dispatches``.
+    prefill per distinct bucket, writing K/V straight into the slab, and
+    all members' due chunk rows advance in ONE chunk dispatch over the
+    slab rows in place. ``prefill_dispatches`` mirrors ``dispatches``.
 
     With ``async_mode`` the dispatch methods never block: device results
     queue on ``pending`` and the deferred host bookkeeping applies at the
@@ -877,7 +1086,7 @@ class FleetGroup:
         eos = np.full(B, -1, np.int32)
         act = np.zeros(B, np.int32)
         for s, req in enumerate(eng.slots):
-            if req is not None:
+            if req is not None and s not in eng._chunks:
                 act[s] = 1
                 rem[s] = req.rem_tokens(eng.clock)
                 eos[s] = req.eos_id
@@ -934,12 +1143,14 @@ class FleetGroup:
         """One fused admission step for every member (or the ``id(engine)``
         subset in ``stepping_ids``): plan each member's admissions on the
         host, then flatten same-length-bucket admit rows into one prefill
-        per distinct bucket. Exact-length single admits keep the
-        per-request path. Returns requests finished at prefill time."""
+        per distinct bucket and all due chunk rows into one chunk
+        dispatch. Exact-length single admits keep the per-request path.
+        Returns requests finished at prefill time."""
         movers = [e for e in self.members
                   if stepping_ids is None or id(e) in stepping_ids]
         finished: list = []
         buckets: dict = {}       # sb -> [(engine, slot, req, prompt)] rows
+        chunk_rows: list = []    # (engine, slot, toks, off, ln, fresh, final)
         for e in movers:
             plans = e.plan_admission()
             finished.extend(plans.expired)
@@ -954,8 +1165,11 @@ class FleetGroup:
                                      e.min_bucket), self.max_seq)
                 buckets.setdefault(sb, []).extend(
                     (e, s, r, p) for s, r, p in zip(slots, reqs, prompts))
+            chunk_rows.extend((e,) + row for row in e._chunk_rows())
         for sb, entries in sorted(buckets.items()):
             self._dispatch_fleet_prefill(sb, entries, finished)
+        if chunk_rows:
+            self._dispatch_fleet_chunk(chunk_rows, finished)
         return finished
 
     def _dispatch_fleet_prefill(self, sb: int, entries: list,
@@ -1006,6 +1220,54 @@ class FleetGroup:
             e.commit_admit([slot], [req], first[i:i + 1], plen[i:i + 1],
                            finished)
 
+    def _dispatch_fleet_chunk(self, chunk_rows: list, finished: list):
+        """ONE chunk dispatch for every due chunk row across the fleet (one
+        per distinct ``chunk_len`` of the members), each row's state
+        advanced in place in its slab row (member row * B + slot). Async:
+        a cursor advances at dispatch (its advance is host-known); a row's
+        final chunk activates the slot in the device operands and its first
+        token commits at the next reconcile."""
+        B = self.max_batch
+        by_width: dict = {}
+        for item in chunk_rows:
+            by_width.setdefault(item[0].chunk_len, []).append(item)
+        for C, items in sorted(by_width.items()):
+            first, pos = _chunk_dispatch(
+                self.model, self.params, self.slab, self.device,
+                self.attn_backend,
+                [(e._fleet_row * B + slot, t, off, ln, fr)
+                 for e, slot, t, off, ln, fr, _ in items], C)
+            self.prefill_dispatches += 1
+            self._shapes.add(("afleet_chunk" if self.async_mode
+                              else "fleet_chunk", pow2_bucket(len(items)), C,
+                              self.cap, B))
+            if not self.async_mode:
+                first, pos = _timed_get(self, (first, pos))
+                for i, (e, slot, t, off, ln, fr, fin) in enumerate(items):
+                    e.commit_chunk(slot, first[i], pos[i], fin, finished)
+                continue
+            meta, sel, flat, rems, eoss = [], [], [], [], []
+            for i, (e, slot, t, off, ln, fr, fin) in enumerate(items):
+                cur = e._chunks[slot]
+                if not fin:              # the cursor advance is host-known
+                    cur.consumed += e.chunk_len
+                    continue
+                del e._chunks[slot]      # the slot stays reserved
+                meta.append((i, e, slot, cur.req, off + ln, e.clock))
+                sel.append(i)
+                flat.append(e._fleet_row * B + slot)
+                rems.append(cur.req.rem_tokens(e.clock) - 1)
+                eoss.append(cur.req.eos_id)
+            if not meta:
+                continue
+            sel, idx, rems, eoss = _stage(self.device, sel, flat, rems, eoss)
+            head = first[sel.long()]
+            for name, v in (("toks", head), ("pos", pos[sel.long()]),
+                            ("rem", rems), ("eos", eoss),
+                            ("active", (rems >= 1) & (head != eoss))):
+                self.ops[name].view(-1)[idx] = v.to(self.ops[name].dtype)
+            self.pending.append(_Pending("chunk", (first,), meta))
+
     # -------------------------------------------------------------- decode
     def _fleet_core(self, toks, pos, rem, eos, active, rows=None,
                     write=None):
@@ -1029,13 +1291,16 @@ class FleetGroup:
         return nxt, done
 
     def _row_masks(self, movers: list) -> tuple:
-        """Host (cap,) stepping-row mask and the movers' slab rows."""
+        """Host (cap,) stepping-row mask and the slab rows the round
+        writes: the movers' rows but their mid-chunk slots (held: their
+        carried state must not advance on a garbage token)."""
         rows = np.zeros(self.cap, np.int32)
         write = []
         for e in movers:
             rows[e._fleet_row] = 1
-            write.extend(range(e._fleet_row * self.max_batch,
-                               (e._fleet_row + 1) * self.max_batch))
+            base = e._fleet_row * self.max_batch
+            write.extend(base + s for s in range(self.max_batch)
+                         if s not in e._chunks)
         return rows, np.asarray(write, np.int32)
 
     def decode_round(self, stepping_ids=None, allow_block: bool = False
@@ -1063,17 +1328,18 @@ class FleetGroup:
             toks[f] = e.last_tok
             pos[f] = e.pos
             for s, req in enumerate(e.slots):
-                if req is not None:
+                if req is not None and s not in e._chunks:
                     active[f, s] = 1
                     rem[f, s] = req.rem_tokens(e.clock)
                     eos[f, s] = req.eos_id
         host = [toks, pos, rem, eos, active]
-        full = len(movers) == len(self.members)
-        if not full:
+        masked = len(movers) < len(self.members) \
+            or any(e._chunks for e in movers)
+        if masked:
             host += self._row_masks(movers)
         dev = _stage(self.device, *host)
         rows = write = None
-        if not full:
+        if masked:
             rows, write = dev[5].bool(), dev[6]
         nxt, done = self._fleet_core(*dev[:4], dev[4].bool(), rows, write)
         self.dispatches += 1
@@ -1087,37 +1353,40 @@ class FleetGroup:
 
     def _decode_round_async(self, movers: list, allow_block: bool) -> list:
         """Sync-free decode round: the operands already live on the device
-        and advance in place; only the stepping-row masks (heterogeneous
-        speeds) go up, staged into the fixed mask buffers. One replay (one
-        graph of K micro-steps for a block); results queue on
-        ``pending``."""
+        and advance in place; only the masks go up, staged into the fixed
+        mask buffers -- the stepping rows (heterogeneous speeds) and the
+        rows the round writes (without the mid-chunk slots, which stay
+        inactive in the operands). One replay (one graph of K micro-steps
+        for a block); results queue on ``pending``."""
         if self._block_credit > 0:      # a fused block covers this tick
             self._block_credit -= 1
             return []
         if not movers or not any(e.n_decoding for e in movers):
             return []
-        if any(p.kind != "prefill" for p in self.pending):
+        if any(p.kind in ("decode", "block") for p in self.pending):
             raise RuntimeError("a decode of this group is still pending: "
                                "its outputs would be overwritten")
         full = len(movers) == len(self.members)
+        held = any(e._chunks for e in self.members)
         meta = [(e, e._fleet_row, e.clock) for e in movers]
         # fused-block engagement, the reference's rules: only on ticks with
         # no admissions at all -- ``pending`` holds this tick's fleet
-        # prefills (the tick-start reconcile cleared the previous window)
-        # and ``_admitted`` the single admits -- over the full group. Queued
-        # work behind a FULL slab does not veto it: an admission landing
-        # inside the window starts decoding at its end (lag <= K - 1 ticks)
+        # prefills and chunks (the tick-start reconcile cleared the previous
+        # window) and ``_admitted`` the single admits -- over the full group
+        # with no chunk cursor open. Queued work behind a FULL slab does not
+        # veto it: an admission landing inside the window starts decoding
+        # at its end (lag <= K - 1 ticks)
         admitted, self._admitted = self._admitted, False
         K = self.decode_block
-        steps = K if (allow_block and K > 1 and full and not self.pending
-                      and not admitted) else 1
-        if not full:
+        steps = K if (allow_block and K > 1 and full and not held
+                      and not self.pending and not admitted) else 1
+        masked = not full or any(e._chunks for e in movers)
+        if masked:
             rows, write = self._row_masks(movers)
             _stage_into((self._masks["rows"], self._masks["write"]), rows,
                         np.resize(write, self.cap * self.max_batch))
         nxt, done, stepped = self.graphs.run(
-            (not full, steps),
-            lambda: self._micro_steps(steps, masked=not full))
+            (masked, steps), lambda: self._micro_steps(steps, masked=masked))
         self.dispatches += 1
         self.decode_steps += steps
         if steps > 1:
@@ -1183,7 +1452,7 @@ class FleetGroup:
                 self._apply_decode(vals, p.meta, finished)
             elif p.kind == "block":
                 self._apply_block(vals, p.meta, finished)
-            else:
+            else:                    # "prefill" and final-"chunk" commits
                 self._apply_admit(vals[0], p.meta, finished)
         return finished
 
@@ -1201,10 +1470,12 @@ class FleetGroup:
                                                stepped[k, row], clock + k))
 
     def _apply_admit(self, first, meta: list, finished: list):
-        """Deferred ``commit_admit``: the slot was reserved at dispatch; now
-        the first generated token, the TTFT stamp and the
-        finish-at-prefill rule apply. ``pos`` in the meta is the prompt
-        length."""
+        """Deferred ``commit_admit`` / final-chunk ``commit_chunk``: the
+        slot was reserved at dispatch (and a non-final chunk's cursor
+        advanced there); now the first generated token, the TTFT stamp and
+        the finish-at-prefill rule apply. ``pos`` in the meta is the
+        host-known cache frontier (the prompt length, or the last chunk's
+        offset + length)."""
         for i, e, slot, req, pos, clock in meta:
             tok = int(first[i])
             req.output.append(tok)

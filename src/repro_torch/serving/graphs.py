@@ -24,7 +24,11 @@ weights), and returns a tuple of its small outputs.
 
 ``drop()`` forgets every graph: the owner calls it when its state or
 operand tensors are reallocated (a slab growth), never when they change in
-place (a backfill on remove, an admission, a staged mask).
+place (a backfill on remove, an admission, a chunk, a staged mask). The
+slots held out of decode while they stream a chunked prefill are such a
+mask: the masked variant's write index leaves them out, restaged into the
+same buffer each round, so a new set of held rows replays the same graph.
+An int8 pool's four leaves are state like a float pool's two.
 
 **Launch counts.** ``ops.LAUNCHES`` counts in the wrappers, on the host, so
 a replay would add nothing and a capture would add launches that did not

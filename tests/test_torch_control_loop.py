@@ -11,8 +11,9 @@ weights bridged in, and GPSO drawing through ``JaxKey``. The digest over
 live on both sides and must be equal, as must the per-tick replica counts,
 dispatch and sync counts; the routing fractions agree within 1e-6.
 ``reference_loop``, ``port_loop`` and ``assert_loops_match`` take every
-flag of the loop (cells, hierarchy, clients, decode blocks, tiers, chaos)
-and serve the other parity tests of the serve flags.
+flag of the loop (cells, hierarchy, clients, decode blocks, chunked
+prefill, tiers, chaos) and serve the other parity tests of the serve
+flags.
 """
 import hashlib
 import os
@@ -86,7 +87,8 @@ def reference_loop(jm, jp, args) -> dict:
         speed = float(rng.choice([0.7, 1.0, 1.4]))
         mb = int(rng.choice([max(2, args.max_batch // 2), args.max_batch]))
         return JaxReplica(jm, jp, max_batch=mb, max_seq=args.max_seq,
-                          rid=rid, speed=speed, tiers=tiers)
+                          rid=rid, speed=speed, tiers=tiers,
+                          chunk_len=args.chunk_len)
 
     def request_factory(rid, tick):
         plen = int(rng.integers(2, 12))
@@ -246,11 +248,22 @@ def test_cli_control_loop_runs_on_cpu():
     assert "actor=fused" in out.stdout       # one launch an action
 
 
-@pytest.mark.parametrize("flags", [
-    ["--chunk-len", "8"], ["--devices", "2"], ["--mesh", "2:fleet"]])
+@pytest.mark.parametrize("flags", [["--devices", "2"],
+                                   ["--mesh", "2:fleet"]])
 def test_unported_control_flags_raise(flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--device", "cpu", "--policy", "ours"] + flags)
+
+
+def test_chunk_len_control_flag_runs(capsys):
+    """--chunk-len is ported: the control loop streams long prompts in
+    chunks and ends with a balanced ledger (its parity with the reference
+    is tests/test_torch_chunked_prefill.py)."""
+    serve.main(["--device", "cpu", "--policy", "ours", "--autoscale",
+                "gpso", "--chunk-len", "4", "--max-seq", "64", "--ticks",
+                "8"])
+    out = capsys.readouterr().out
+    assert "balanced=True" in out and "double_served=0" in out
 
 
 def _control_args(*extra):

@@ -8,6 +8,7 @@ the serve layout -- q (B, G, qpg, hd) / (B, S, G, qpg, hd), caches
 the tests transpose on the JAX side. Tolerances are the reference's
 (``tests/test_kernels.py``): f32 2e-5, bf16 3e-2.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,3 +182,119 @@ def test_ops_refuse_other_devices():
         ops.flash_decode(q, k, k, pos)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(torch.empty(1, 8, 1, 1, 32), k, k)
+
+
+# --------------------------------- a cache offset (chunked prefill), int8
+def _attn_setup(rope, seed):
+    """Reduced granite's attention dims with random numpy weights, shared
+    by the two packages (the same (d, n, hd) layouts)."""
+    from repro.configs import get_config as jax_get_config
+    from repro.models.dims import padded_dims as jax_padded_dims
+    from repro_torch.configs import get_config
+    from repro_torch.models.dims import padded_dims
+
+    jcfg = jax_get_config("granite-3-8b").reduced()
+    cfg = get_config("granite-3-8b").reduced()
+    jd, td = jax_padded_dims(jcfg), padded_dims(cfg)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    rng = np.random.default_rng(seed)
+    w = lambda *s: (rng.standard_normal(s) / np.sqrt(s[0])).astype(
+        np.float32)
+    params = {"wq": w(d, td.n_q, hd), "wk": w(d, td.n_kv, hd),
+              "wv": w(d, td.n_kv, hd), "wo": w(td.n_q, hd, d)}
+    return jd, td, params, rng, d, hd
+
+
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
+@pytest.mark.parametrize("rope", [0.0, 10_000.0])
+def test_chunk_prefill_attention_matches_reference(backend, rope):
+    """One chunk at ragged cache offsets (0 and S - C among them) over rows
+    of a larger pool, against the reference's ``chunk_prefill_attention``
+    on those rows: the real columns' outputs and the written K/V within
+    f32's 2e-5 (RoPE's cos/sin differ in the last ulp between the two
+    libraries), the chunk written at the reference's positions only (pad
+    columns land on the pool's last position, which the reference leaves
+    alone) and the other pool rows untouched."""
+    from repro.models import attention as jax_attn
+    from repro_torch.models import attention as attn
+
+    jd, td, params, rng, d, hd = _attn_setup(rope, seed=int(rope) + 3)
+    R, B, C, S = 6, 3, 8, 40
+    rows = np.asarray([4, 0, 2], np.int32)
+    offs = np.asarray([0, 13, S - C - 1], np.int32)
+    lens = np.asarray([C, 5, C], np.int32)
+    pos = offs[:, None] + np.arange(C, dtype=np.int32)[None]
+    x = rng.standard_normal((B, C, d)).astype(np.float32)
+    pool = rng.standard_normal((2, R, S, td.n_kv, hd)).astype(np.float32)
+    jout, jcache = jax_attn.chunk_prefill_attention(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x), jd,
+        {"k": jnp.asarray(pool[0][rows]), "v": jnp.asarray(pool[1][rows])},
+        jnp.asarray(pos), jnp.asarray(lens), rope_theta=rope)
+    kc, vc = (torch.from_numpy(p.copy()) for p in pool)
+    out = attn.chunk_prefill_attention(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x), td, kc, vc, torch.from_numpy(pos),
+        torch.from_numpy(lens), rope_theta=rope, backend=backend,
+        rows=torch.from_numpy(rows))
+    real = np.arange(C)[None, :] < lens[:, None]
+    np.testing.assert_allclose(out.numpy()[real], np.asarray(jout)[real],
+                               **TOLS["float32"])
+    for got, want in ((kc, jcache["k"]), (vc, jcache["v"])):
+        np.testing.assert_allclose(got.numpy()[rows][:, :S - 1],
+                                   np.asarray(want)[:, :S - 1],
+                                   **TOLS["float32"])
+    others = np.setdiff1d(np.arange(R), rows)
+    np.testing.assert_array_equal(kc.numpy()[others], pool[0][others])
+
+
+def test_flash_attention_plain_offset_matches_whole_prompt():
+    """``ops.flash_attention`` with ``q_offset`` over a prefix the earlier
+    chunks wrote equals the single-shot causal attention's rows for that
+    chunk (the decomposition chunked prefill rests on)."""
+    rng = np.random.default_rng(4)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s, np.float32))
+    q, k, v = t(2, 24, 2, 3, 32), t(2, 24, 2, 32), t(2, 24, 2, 32)
+    whole = ops.flash_attention(q, k, v, causal=True)
+    for c0 in (0, 8, 16):
+        got = ops.flash_attention(q[:, c0:c0 + 8], k, v, causal=True,
+                                  q_offset=torch.full((2,), c0,
+                                                      dtype=torch.int32))
+        torch.testing.assert_close(got, whole[:, c0:c0 + 8], rtol=2e-5,
+                                   atol=2e-5)
+
+
+@pytest.mark.parametrize("jax_backend", ["einsum", "pallas"])
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_decode_matches_reference(dtype, backend, jax_backend):
+    """One decode over an int8 pool at ragged depths: the port's read (its
+    kernel's plain version, or the dense einsum, each dequantizing to q's
+    dtype) against the reference's ``dequantize`` -> ``decode_attend``
+    path (``repro.models.lm``'s int8 branch) on the same int8 values and
+    scales, at f32's 2e-5 and bf16's 3e-2."""
+    from repro.models import attention as jax_attn
+    from repro.serving.kv_quant import dequantize
+    from repro_torch.models import attention as attn
+    from repro_torch.serving import kv_quant
+
+    jd, td, params, rng, d, hd = _attn_setup(0.0, seed=11)
+    B, S = 3, 48
+    pos = np.asarray([0, 47, 20], np.int32)
+    kq, ks = kv_quant.quantize(torch.from_numpy(
+        rng.standard_normal((B, S, td.n_kv, hd)).astype(np.float32)))
+    vq, vs = kv_quant.quantize(torch.from_numpy(
+        rng.standard_normal((B, S, td.n_kv, hd)).astype(np.float32)))
+    qn = rng.standard_normal((B, 1, td.n_kv, td.q_per_group,
+                              hd)).astype(np.float32)
+    qj = jnp.asarray(qn, JDT[dtype])
+    kc = dequantize(jnp.asarray(kq.numpy()), jnp.asarray(ks.numpy()))
+    vc = dequantize(jnp.asarray(vq.numpy()), jnp.asarray(vs.numpy()))
+    jp = {k: jnp.asarray(v, JDT[dtype]) for k, v in params.items()}
+    want = jax_attn.decode_attend(jp, qj, kc.astype(qj.dtype),
+                                  vc.astype(qj.dtype), jnp.asarray(pos), jd,
+                                  backend=jax_backend)
+    tp = {k: torch.from_numpy(v).to(TDT[dtype]) for k, v in params.items()}
+    got = attn.decode_attend(tp, torch.from_numpy(qn).to(TDT[dtype]), kq, vq,
+                             torch.from_numpy(pos), td, backend=backend,
+                             k_scale=ks, v_scale=vs)
+    _close(got, want, dtype)

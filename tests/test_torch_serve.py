@@ -31,7 +31,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models.model import make_model
-from repro_torch.serving.engine import (ReplicaEngine, Request,
+from repro_torch.serving.engine import (FleetGroup, ReplicaEngine, Request,
                                         total_prefill_traces)
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -148,14 +148,18 @@ def test_cli_takes_the_references_backend_names(capsys):
     assert "invalid choice: 'kernel'" in capsys.readouterr().err
 
 
-def test_cli_control_mode_not_yet_ported():
-    """The control loop and its multi-cell federation are ported
-    (tests/test_torch_control_loop.py, tests/test_torch_cells.py); chunked
-    prefill is not, and asking for it in control mode raises. --hierarchy
-    without --cells > 1 exits with the reference's message."""
+def test_cli_control_mode_not_yet_ported(capsys):
+    """The control loop, its multi-cell federation and chunked prefill are
+    ported (tests/test_torch_control_loop.py, tests/test_torch_cells.py,
+    tests/test_torch_chunked_prefill.py): --chunk-len in the federation
+    runs to a balanced ledger; only --devices/--mesh stay refused.
+    --hierarchy without --cells > 1 exits with the reference's message."""
+    serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2",
+                "--chunk-len", "8", "--max-seq", "64", "--ticks", "6"])
+    assert "balanced=True" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2",
-                    "--chunk-len", "8"])
+                    "--devices", "2"])
     with pytest.raises(SystemExit, match="needs --cells > 1"):
         serve.main(["--device", "cpu", "--hierarchy"])
 
@@ -172,10 +176,20 @@ def test_cuda_requested_without_cuda_raises(models, monkeypatch):
 
 
 def test_unported_engine_options_raise(models):
+    """chunk_len and the int8 cache are ported for the dense family and no
+    longer raise (tests/test_torch_chunked_prefill.py and
+    tests/test_torch_kv_quant.py hold them to the reference); fleet-mesh
+    sharding still raises, and a cache dtype the codec does not know is
+    refused."""
     _, _, tm, tp = models
+    assert ReplicaEngine(tm, tp, max_batch=2, max_seq=32, chunk_len=8,
+                         device="cpu").chunk_len == 8
+    eng = ReplicaEngine(tm, tp, max_batch=2, max_seq=32, cache_dtype="int8",
+                        device="cpu")
+    assert eng.cache["k_q"].dtype == torch.int8 and eng.chunk_len == 0
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ReplicaEngine(tm, tp, max_batch=2, max_seq=32, chunk_len=8,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ReplicaEngine(tm, tp, max_batch=2, max_seq=32, cache_dtype="int8",
+        FleetGroup(tm, tp, max_batch=2, max_seq=32, mesh=object(),
+                   device="cpu")
+    with pytest.raises(ValueError, match="cache dtype"):
+        ReplicaEngine(tm, tp, max_batch=2, max_seq=32, cache_dtype="int4",
                       device="cpu")

@@ -65,6 +65,33 @@ def test_ssd_scan_plain_matches_pallas(B, T, H, P, N, chunk):
     np.testing.assert_allclose(st.numpy(), np.asarray(st_want), **TOL)
 
 
+@pytest.mark.parametrize("B,T,H,P,N,chunk", [
+    (2, 8, 4, 16, 8, 8), (1, 24, 3, 64, 64, 8), (2, 64, 2, 32, 16, 32),
+])
+def test_ssd_scan_plain_from_a_carried_state(B, T, H, P, N, chunk):
+    """The plain scan from a non-zero ``init_state`` (a chunked prefill's
+    carried state) against the reference's ``ssd_chunked(...,
+    init_state=)`` at the same block length, 1e-4; ``ops.ssd_scan`` on CPU
+    tensors returns the plain version's result."""
+    rng = np.random.default_rng(T + N)
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (B, T, H)))
+    A = -rng.uniform(1.0, 16.0, (H,))
+    x = rng.standard_normal((B, T, H, P))
+    bm, cm = rng.standard_normal((2, B, T, N))
+    s0 = rng.standard_normal((B, H, P, N)) * 0.5
+    f32 = lambda v: np.asarray(v, np.float32)
+    y_want, st_want = jax_ssd.ssd_chunked(
+        *map(jnp.asarray, map(f32, (x, dt, A, bm[:, :, None],
+                                    cm[:, :, None]))), chunk,
+        init_state=jnp.asarray(f32(s0)))
+    args = [torch.from_numpy(f32(v)) for v in (x * dt[..., None],
+                                                dt * A, bm, cm)]
+    y, st = ops.ssd_scan(*args, chunk=chunk,
+                         init_state=torch.from_numpy(f32(s0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_want), **TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_want), **TOL)
+
+
 def test_ssd_scan_plain_is_chunk_independent():
     """The SSD decomposition is exact for any block length, which is what
     lets the CUDA kernel block its own way: chunks of 1 (the per-step
@@ -239,6 +266,42 @@ def test_mamba2_forward_across_chunk_sizes(pair, backend):
                                **CROSS_CHUNK_TOL)
     np.testing.assert_allclose(st["ssm"].numpy(), np.asarray(jst["ssm"]),
                                **CROSS_CHUNK_TOL)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "einsum"])
+@pytest.mark.parametrize("T,lengths", [(8, [8, 3]), (40, None)])
+def test_mamba2_forward_continues_a_chunk(pair, backend, T, lengths):
+    """A chunk of a chunked prefill: the block from a random carried SSM
+    state and raw conv window, with and without right-padded ``lengths``
+    (the conv tail is gathered from [carry | chunk]), against the
+    reference's ``mamba2_forward(init_state=, conv_state=)``."""
+    jm, jp, tm, tp = pair
+    cfg = tm.cfg
+    rng = np.random.default_rng(T + 1)
+    x = _block_input(cfg, 2, T, seed=T + 2)
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    s0 = (rng.standard_normal((2, cfg.ssm_heads, cfg.ssm_head_dim,
+                               cfg.ssm_state)) * 0.3).astype(np.float32)
+    c0 = rng.standard_normal((2, cfg.ssm_conv_width - 1,
+                              conv_ch)).astype(np.float32)
+    lens = None if lengths is None else np.asarray(lengths, np.int32)
+    jout, jst = jax_ssd.mamba2_forward(
+        jax.tree.map(lambda a: a[0], jp["layers"]["mamba"]),
+        jnp.asarray(x), jm.cfg, init_state=jnp.asarray(s0),
+        conv_state=jnp.asarray(c0), return_state=True,
+        lengths=None if lens is None else jnp.asarray(lens))
+    out, st = ssd.mamba2_forward(
+        tp["layers"][0]["mamba"], torch.from_numpy(x), cfg,
+        init_state=torch.from_numpy(s0), conv_state=torch.from_numpy(c0),
+        return_state=True,
+        lengths=None if lens is None else torch.from_numpy(lens),
+        attn_backend=backend)
+    if lens is not None:     # pad rows' outputs are discarded by the caller
+        keep = np.arange(T)[None, :] < lens[:, None]
+        out, jout = out.numpy()[keep], np.asarray(jout)[keep]
+    np.testing.assert_allclose(np.asarray(out), np.asarray(jout), **TOL)
+    for k in ("ssm", "conv"):
+        np.testing.assert_allclose(st[k].numpy(), np.asarray(jst[k]), **TOL)
 
 
 def test_mamba2_decode_matches_reference(pair):

@@ -133,7 +133,8 @@ def main() -> int:
                         for _ in range(n):
                             lib.ssd_scan_launch(
                                 x.data_ptr(), a.data_ptr(), bm.data_ptr(),
-                                cm.data_ptr(), y.data_ptr(), st.data_ptr(),
+                                cm.data_ptr(), None, y.data_ptr(),
+                                st.data_ptr(),
                                 B, T, H, P, N, tile, hpb,
                                 torch.cuda.current_stream().cuda_stream)
                     ms = _graph_ms(torch, run, n)
