@@ -125,11 +125,35 @@ the script exits non-zero:
      (ssd_scan from a random ``init_state``, flash_attention at ragged
      ``q_offset`` over pool rows, flash_decode over an int8 pool), and
      phase 7 times them (``variants`` in the kernels line).
+ 10. the MoE family at full width, depth cut to fit the card in bf16
+     (``MOE_DEPTH``): grok-1-314b at 4 of its 64 layers (8 experts, top-2,
+     48 q / 8 kv heads: qpg 6) and llama4-maverick-400b-a17b at one layer
+     group of its 24 (an MoE layer of 128 experts, top-1, with the shared
+     expert, then a dense layer; 40 q / 8 kv heads: qpg 5); phase 3 holds
+     both attention kernels to their plain versions at these two head
+     layouts. Each runs drain mode, counted (exact-length single admits:
+     flash_attention once a layer an admit, flash_decode once a layer a
+     step), and prints a ``[moe]`` line: the decode step's device ms split
+     into the MoE layers and the rest, the expert weights' bytes a step
+     against their bound at 3.35 TB/s, one single admit's host and device
+     ms, the peak device memory, the card's name and power limit; then
+     both attention kernels timed at its heads. grok-1-314b also runs the
+     kernel path against the einsum path, recording every layer's top-k
+     set a token: in f32 at 1 layer (about 26 GB) every row's logits
+     within F32_PATH_TOL and identical drain streams (kernel, einsum,
+     eager steps); in bf16 at 4 layers the top-k sets that differ are
+     counted and the logit gap is held to BF16_PATH_TOL over the rows
+     whose every token routes alike (a flipped token runs other experts,
+     so elsewhere the gap is reported only). Then the control loop of
+     phase 6 at 4 layers with its checks: graph-replayed fleet decodes,
+     the async tick's sync contract with each exact-length admit's eager
+     sync counted as the replica's own, and no other sync in the engine.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
-gcn_layer, mamba2's for ssd_scan); the last line is ``{"ok": true, "device":
-{...}}``.
+gcn_layer, mamba2's for ssd_scan; the attention kernels' ``moe`` entries
+give their times at the MoE heads and their launches on the MoE paths);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -193,8 +217,12 @@ SSD_CASES = ((8, 512), (2, 96), (8, 200), (1, 8), (4, 16), (8, 16), (2, 24),
              (8, 24))
 # attention head layouts (G kv heads, qpg q heads a group, head dim) at
 # full width: granite-3-8b's and mistral-nemo-12b's layers, zamba2-2.7b's
-# shared block, command-r-35b's layers (64 q / 8 kv, qpg 8; not served)
-HEAD_LAYOUTS = ((8, 4, 128), (32, 1, 80), (8, 8, 128))
+# shared block, command-r-35b's layers (64 q / 8 kv, qpg 8; not served),
+# grok-1-314b's (48 / 8, qpg 6) and llama4-maverick's (40 / 8, qpg 5):
+# neither divides the bf16 attention body's 64 rows, so their q tiles end
+# in padding rows
+HEAD_LAYOUTS = ((8, 4, 128), (32, 1, 80), (8, 8, 128), (8, 6, 128),
+                (8, 5, 128))
 GCN_TOL = dict(atol=1e-5, rtol=1e-5)  # tests/test_kernels.py's tolerance
 # (N, F, H): the serve path's two layers (2 nodes, horizon 8, gcn_hidden
 # 64), the paper's 16-node cluster (horizon 32), the reference's sweep, and
@@ -210,6 +238,21 @@ CONTROL_FLAGS = ["--policy", "ours", "--autoscale", "gpso", "--nodes", "2",
 # the control loop's requests: prompts of 2-11 tokens and 4-11 new tokens
 # (``run_control_loop``'s request factory), so no cache row passes depth 22
 CONTROL_DEPTH = (2, 22)
+# the MoE family at full width with its depth cut to fit one card's 80 GB
+# in bf16 (widths, heads, experts, top-k and capacity factor are the
+# published configs'): grok-1-314b's 64 layers to 4 (an expert stack of
+# 8 x 3 x 6144 x 32768 = 4.83 G parameters, 9.66 GB, and 88 M of
+# attention a layer; embed and head 2 x 131072 x 6144, 3.2 GB: 42.6 GB),
+# llama4-maverick-400b-a17b's 48 layers to one layer group (an MoE layer
+# of 128 experts x 3 x 5120 x 8192 = 32.2 GB with its shared expert, then
+# a dense layer; embed and head 2 x 202048 x 5120, 4.1 GB: about 37 GB)
+MOE_DEPTH = {"grok-1-314b": 4, "llama4-maverick-400b-a17b": 2}
+MOE_ARCHS = tuple(MOE_DEPTH)
+# grok's kernel-vs-einsum gate in f32 at 1 layer (about 26 GB): one
+# layer's attention differs between the paths by f32 rounding only, far
+# below any router margin, so every token routes alike and the gate is
+# F32_PATH_TOL over all rows
+MOE_F32_DEPTH = 1
 
 
 def log(msg: str) -> None:
@@ -225,7 +268,7 @@ def _free(torch) -> None:
 
 
 # ---------------------------------------------------------------- phase 1-3
-def phase_card(torch) -> None:
+def phase_card(torch) -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -238,6 +281,7 @@ def phase_card(torch) -> None:
         f"count {torch.cuda.device_count()}")
     log(f"[card] tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
+    return smi
 
 
 def phase_build(build) -> None:
@@ -570,7 +614,7 @@ def _per_dispatch(cfg) -> dict:
     tick (the balancer's whole action)."""
     from repro_torch.models.ssm_lm import n_invocations
 
-    dense = cfg.family == "dense"
+    dense = cfg.family in ("dense", "moe")     # attention LMs, no SSM
     attn = cfg.num_layers if dense else n_invocations(cfg)
     return {"flash_decode": (0, attn), "flash_attention": (attn, 0),
             "ssd_scan": (0 if dense else cfg.num_layers, 0)}
@@ -634,8 +678,6 @@ def _bucket(prompts, device, torch):
 
 def phase_paths(torch, cfg, model, params, workload, small):
     """Kernel path vs einsum path on the card."""
-    from repro_torch.launch import serve
-
     batch = _bucket([w["prompt"] for w in workload[:MAX_BATCH]], "cuda",
                     torch)
     checks = [("bf16", params, torch.bfloat16, BF16_PATH_TOL)]
@@ -681,10 +723,15 @@ def phase_paths(torch, cfg, model, params, workload, small):
                 raise AssertionError(f"{what} logits differ by {rel:.3e}")
     del checks, out
     torch.cuda.empty_cache()
+    phase_streams(torch, cfg, small, workload)
 
-    # f32, full width, 2 layers: identical greedy streams through the
-    # whole drain-mode path, kernel against einsum, and the replicas'
-    # graph-replayed steps against eager ones
+
+def phase_streams(torch, cfg, small, workload) -> None:
+    """f32, full width, depth cut (``small``): identical greedy streams
+    through the whole drain-mode path, kernel against einsum, and the
+    replicas' graph-replayed steps against eager ones."""
+    from repro_torch.launch import serve
+
     cfg2, model2, params2 = small
     streams = {}
     for name, backend, graph in (("pallas", "pallas", True),
@@ -699,7 +746,7 @@ def phase_paths(torch, cfg, model, params, workload, small):
     same = streams["pallas"] == streams["einsum"]
     eager = streams["pallas"] == streams["eager"]
     n_tok = sum(len(s[1]) for s in streams["pallas"])
-    log(f"[paths] {cfg.name} f32 full width, 2 layers: "
+    log(f"[paths] {cfg.name} f32 full width, {cfg2.num_layers} layers: "
         f"{len(streams['pallas'])} "
         f"requests, {n_tok} tokens, streams identical: {same}; graph-"
         f"replayed steps against eager ones identical: {eager}")
@@ -719,6 +766,20 @@ def _where(filename: str) -> str:
     path = Path(filename).resolve()
     return str(path.relative_to(ROOT)) if path.is_relative_to(ROOT) \
         else path.name
+
+
+def _admit_fetch_lines() -> set:
+    """The ``file:line`` keys of ``engine._timed_get``: the eager fetch of
+    an exact-length admit's first token (the reference's single-admit
+    path, which the MoE family takes: one blocking sync an admit, counted
+    as the replica's own, ``replica_syncs``)."""
+    import inspect
+
+    from repro_torch.serving import engine
+
+    lines, start = inspect.getsourcelines(engine._timed_get)
+    path = _where(inspect.getsourcefile(engine._timed_get))
+    return {f"{path}:{start + i}" for i in range(len(lines))}
 
 
 def _control_args(serve, *extra):
@@ -756,15 +817,19 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
     flagged = collections.Counter(
         f"{_where(w.filename)}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
+    fe, plane, ticks = out["fe"], out["plane"], out["ticks"]
+    # exact-length admits (the moe family) fetch their first token eagerly,
+    # as the reference's do: allowed only in a run that made them
+    singles = sum(t["replica_syncs"] for t in ticks)
+    admits = _admit_fetch_lines() if singles else set()
     log(f"[control] synchronising operations flagged in the run: "
-        f"{dict(flagged)}")
+        f"{dict(flagged)}; exact-length admits' own syncs {singles}")
     hidden = {k: n for k, n in flagged.items()
               if k.startswith("src/repro_torch/")
-              and not k.startswith(PLANE_FETCHES)}
+              and not k.startswith(PLANE_FETCHES) and k not in admits}
     if hidden:
-        raise AssertionError(f"host syncs besides the plane's fetches: "
-                             f"{hidden}")
-    fe, plane, ticks = out["fe"], out["plane"], out["ticks"]
+        raise AssertionError(f"host syncs besides the plane's fetches and "
+                             f"the exact-length admits': {hidden}")
     L = cfg.num_layers
     decode, prefill = fe.decode_steps(), fe.prefill_dispatches()
     syncs = fe.sync_count()
@@ -2181,6 +2246,11 @@ def _describe(cfg) -> str:
     if cfg.attn_every:
         parts.append(f"shared attention block every {cfg.attn_every} "
                      "layers")
+    if cfg.uses_moe:
+        parts.append(f"MoE every {cfg.moe_every} layer(s): "
+                     f"{cfg.num_experts} experts, top-{cfg.num_experts_per_tok}"
+                     f", capacity factor {cfg.capacity_factor}"
+                     + (", a shared expert" if cfg.moe_shared_expert else ""))
     parts.append(f"vocab {cfg.vocab_size}")
     return ", ".join(parts)
 
@@ -2336,6 +2406,257 @@ def phase_times_ssm(torch, F, ops, ref, served) -> dict:
     return rows
 
 
+# ------------------------------------------------------------- the MoE family
+class _Routes:
+    """While entered, records the experts each MoE layer routes every token
+    to (a wrapper of ``models.moe.route``), one (B, S, k) tensor a layer a
+    forward, in call order. Given ``force`` (such a record of another
+    run), each call routes as that run did instead: the recorded experts,
+    with their gates renormalised from this run's own probabilities."""
+
+    def __init__(self, force=None):
+        from repro_torch.models import moe
+        self.moe, self.calls, self.force = moe, [], force
+
+    def __enter__(self):
+        route = self.orig = self.moe.route
+        forced = iter(self.force) if self.force is not None else None
+
+        def recorded(router, x, k):
+            probs, top_p, top_i = route(router, x, k)
+            if forced is not None:
+                top_i = next(forced)
+                top_p = probs.gather(-1, top_i)
+                top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+            self.calls.append(top_i)
+            return probs, top_p, top_i
+        self.moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def phase_moe_paths(torch, cfg, model, params, workload, dtype,
+                    tol) -> None:
+    """Kernel path against einsum path on an MoE model, counting routing.
+    The prefill runs 8 workload prompts (bucketed, ``lengths`` marking the
+    real tokens) through each path, recording every layer's top-k set a
+    token; then both paths decode the einsum prefill's token from a copy
+    of the einsum prefill's cache. A token whose top-k set differs between
+    the paths runs other experts: its FFN output is a different function,
+    not a rounding of the same one, and through attention it reaches every
+    later token of its row. So the flips are counted and the logit gap is
+    reported over every row and over the rows whose every real token
+    routes alike in every layer; the gate is a third run, the kernel path
+    routed as the einsum path routed (each layer given the einsum run's
+    experts, its gates from its own probabilities), whose every row is
+    held to ``tol``. In f32 the rounding between the paths is far below
+    any router margin: the free run's every row is held to ``tol`` too."""
+    batch = _bucket([w["prompt"] for w in workload[:MAX_BATCH]], "cuda",
+                    torch)
+    B, S = batch["tokens"].shape
+    real = torch.arange(S, device="cuda")[None, :] < batch["lengths"][:, None]
+    runs = (("einsum", "einsum", False), ("pallas", "pallas", False),
+            ("forced", "pallas", True))
+    out = {}
+    for name, backend, force in runs:
+        with _Routes(out["einsum"][1] if force else None) as routes:
+            logits, cache, _ = model.prefill(
+                params, batch, cache_len=MAX_SEQ, cache_dtype=dtype,
+                attn_backend=backend)
+        out[name] = [logits.float(), routes.calls]
+        if name == "einsum":
+            base, tok = cache, torch.argmax(logits, dim=-1)[:, None].to(
+                torch.int32)
+        del cache
+    pos = batch["lengths"].to(torch.int32)
+    for name, backend, force in runs:
+        with _Routes(out["einsum"][3] if force else None) as routes:
+            dlogits, _ = model.decode(
+                params, {k: v.clone() for k, v in base.items()}, tok, pos,
+                attn_backend=backend)
+        out[name] += [dlogits.float(), routes.calls]
+    del base
+    label = str(dtype).removeprefix("torch.")
+    for i, what in ((0, "prefill last-token"), (2, "first decode")):
+        e = out["einsum"][i]
+        scale = e.abs().max()
+        flip = (torch.stack(out["pallas"][i + 1]).sort(-1).values
+                != torch.stack(out["einsum"][i + 1]).sort(-1).values
+                ).any(-1)                                  # (L, B, S)
+        if i == 0:
+            flip = flip & real
+        n_pairs = int((real if i == 0 else flip.new_ones(B, 1)).sum()) \
+            * flip.shape[0]
+        agree = ~flip.any(dim=0).any(dim=-1)               # (B,)
+        gap = {n: ((out[n][i] - e) / scale).abs() for n in ("pallas",
+                                                           "forced")}
+        alike = gap["pallas"][agree].max().item() if agree.any() else None
+        free, forced = gap["pallas"].max().item(), gap["forced"].max().item()
+        log(f"[paths] {cfg.name} {label} full width, {cfg.num_layers} "
+            f"layers, {what}: top-k sets differing between the paths "
+            f"{int(flip.sum())} of {n_pairs} (token, layer) pairs, rows "
+            f"routing alike {int(agree.sum())}/{B}; max|kernel-einsum| / "
+            f"max|einsum| over every row {free:.3e}, over the rows routing "
+            f"alike {'none' if alike is None else f'{alike:.3e}'}; the "
+            f"kernel path routed as the einsum path: {forced:.3e} "
+            f"(tolerance {tol}); argmax agreement "
+            f"{(out['pallas'][i].argmax(-1) == e.argmax(-1)).float().mean().item():.3f}")
+        worst = max(forced, free) if dtype == torch.float32 else forced
+        if not worst <= tol:
+            raise AssertionError(f"{cfg.name} {what} logits differ by "
+                                 f"{worst:.3e} > {tol}")
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_moe_f32(torch, cfg, workload) -> None:
+    """grok-1-314b at full width cut to ``MOE_F32_DEPTH`` layers in f32:
+    the kernel path against the einsum path (logits, every row, at
+    ``F32_PATH_TOL``) and identical drain-mode streams, kernel, einsum and
+    eager steps."""
+    from repro_torch.models.model import make_model
+
+    cfg1 = dataclasses.replace(cfg, num_layers=MOE_F32_DEPTH)
+    model1 = make_model(cfg1)
+    params1 = model1.init(seed=SEED, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {cfg1.name} f32 at {MOE_F32_DEPTH} layer: "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    phase_moe_paths(torch, cfg1, model1, params1, workload, torch.float32,
+                    F32_PATH_TOL)
+    phase_streams(torch, cfg1, (cfg1, model1, params1), workload)
+    del params1
+    _free(torch)
+
+
+def _param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def phase_moe_times(torch, F, ops, ref, cfg, model, params, reps, workload,
+                    smi) -> dict:
+    """The ``[moe]`` line: the decode step (``MAX_BATCH`` slots at the
+    drain mode's depths) on the device, split into its MoE layers
+    (``moe_apply`` alone on the step's (B, 1, d) input, replayed from a
+    graph) and the rest; the expert weights' bytes a step (the reference
+    runs every expert densely, so a step reads them all) against their
+    bound at 3.35 TB/s; one single admit's prefill (the workload's longest
+    prompt, as the engine admits it) on the host clock and the device;
+    the peak device memory of the model's phases. Then the attention
+    kernels at this model's heads: flash_decode over the drain pool and
+    flash_attention at that prefill's shape, against plain, SDPA and the
+    bound; returns their rows."""
+    from repro_torch.models import moe
+
+    bf = torch.bfloat16
+    pos = torch.tensor([min(len(w["prompt"]) + MAX_NEW // 2, MAX_SEQ - 1)
+                        for w in workload[:MAX_BATCH]], dtype=torch.int32,
+                       device="cuda")
+    tok = torch.ones((MAX_BATCH, 1), dtype=torch.int32, device="cuda")
+    pool = reps[0].cache
+    step_ms = _graph_ms(torch, lambda: model.decode(params, pool, tok, pos),
+                        1, reps=5)
+    layers = [lp["moe"] for lp in params["layers"] if "moe" in lp]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(MAX_BATCH, 1, cfg.d_model, generator=gen,
+                    device="cuda").to(bf)
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+              capacity_factor=cfg.capacity_factor, activation=cfg.activation)
+    moe_ms = _graph_ms(torch, lambda: [moe.moe_apply(p, x, **kw)
+                                       for p in layers], 1, reps=5)
+    experts = sum(_param_bytes({k: p[k] for k in ("w_gate", "w_up", "w_down")
+                                if k in p}) for p in layers)
+    shared = sum(_param_bytes(p.get("shared", {})) for p in layers)
+    bound = (experts + shared) / HBM_BYTES_PER_S * 1e3
+    prompt = max((w["prompt"] for w in workload), key=len)
+    batch = {"tokens": torch.tensor([prompt], dtype=torch.int32,
+                                    device="cuda")}
+
+    def prefill():
+        logits, _, _ = model.prefill(params, batch, cache_len=len(prompt),
+                                     cache_dtype=bf)
+        return torch.argmax(logits, dim=-1).cpu()
+
+    prefill()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        prefill()
+        host.append((time.perf_counter() - t0) * 1e3)
+    prefill_dev = _graph_ms(torch, lambda: model.prefill(
+        params, batch, cache_len=len(prompt), cache_dtype=bf), 1, reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[moe] {cfg.name}, {cfg.num_layers} layers ({len(layers)} MoE), "
+        f"{smi}: decode step, {MAX_BATCH} slots, device {step_ms:.2f} ms "
+        f"(CUDA-graph replay, median of 5): MoE layers {moe_ms:.2f} ms, the "
+        f"rest {step_ms - moe_ms:.2f} ms; expert weights a step "
+        f"{experts / 1e9:.2f} GB (+ shared expert {shared / 1e9:.3f} GB), "
+        f"bound {bound:.2f} ms at 3.35 TB/s: the MoE layers take "
+        f"{moe_ms / bound:.2f}x it; single-admit prefill of {len(prompt)} "
+        f"tokens: host {statistics.median(host):.2f} ms (median of 3, to "
+        f"its first token), device {prefill_dev:.2f} ms (CUDA-graph replay, "
+        f"median of 3); peak device memory {peak:.1f} GiB")
+
+    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    qpg = cfg.num_heads // G
+    q = torch.randn(MAX_BATCH, G, qpg, hd, generator=gen,
+                    device="cuda").to(bf)
+    return {"flash_decode": _time_decode(
+        torch, F, ops, ref, q, [(pool["k"][li], pool["v"][li])
+                                for li in range(cfg.num_layers)], pos,
+        f"{cfg.name} drain"),
+        "flash_attention": _time_attention(
+            torch, F, ops, ref, gen, 1, len(prompt), G, qpg, hd,
+            f"{cfg.name} single admit")}
+
+
+def serve_moe(torch, F, ops, ref, cfg_full, smi) -> dict:
+    """One MoE architecture at full width, depth cut (``MOE_DEPTH``), bf16
+    weights from ``SEED``: drain mode (counted: flash_attention once a
+    layer a single admit, flash_decode once a layer a step), the ``[moe]``
+    line and the attention kernels' times at its heads. grok-1-314b also
+    runs the kernel path against the einsum path (f32 at 1 layer, gated,
+    with identical drain streams; bf16 at full depth, routing flips
+    counted) and the control loop of phase 6 with its checks. Returns the
+    launch counts and kernel rows."""
+    from repro_torch.data.pipeline import prompt_workload
+    from repro_torch.models.model import make_model
+
+    cfg = dataclasses.replace(cfg_full, num_layers=MOE_DEPTH[cfg_full.name])
+    torch.cuda.reset_peak_memory_stats()
+    workload = prompt_workload(cfg.vocab_size, N_REQUESTS, seed=SEED,
+                               max_len=MAX_PROMPT, max_new=MAX_NEW)
+    grok = cfg.name == MOE_ARCHS[0]
+    if grok:
+        phase_moe_f32(torch, cfg, workload)
+    model = make_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {_describe(cfg)}; depth cut from "
+        f"{cfg_full.num_layers} layers; {cfg.param_count() / 1e9:.2f} B "
+        f"params, {_param_bytes(params) / 1e9:.1f} GB in bf16, random from "
+        f"seed {SEED}, built in {time.perf_counter() - t0:.1f}s; device "
+        f"memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    reps, drain, _ = phase_serve(torch, ops, cfg, model, params, workload)
+    out = {"drain": drain, "cfg": cfg}
+    if grok:
+        phase_moe_paths(torch, cfg, model, params, workload, torch.bfloat16,
+                        BF16_PATH_TOL)
+        out["control"] = phase_control(torch, ops, cfg, model, params)
+    out.update(phase_moe_times(torch, F, ops, ref, cfg, model, params, reps,
+                               workload, smi))
+    del reps, params
+    _free(torch)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2353,7 +2674,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
 
     t_start = time.perf_counter()
-    phase_card(torch)
+    smi = phase_card(torch)
     phase_build(build)
     errs = phase_parity(torch, ops, ref)
     variant_errs = phase_parity_variants(
@@ -2392,6 +2713,25 @@ def main() -> int:
         rows[name]["variants"] = {vname: dict(
             launches=n, launches_of=of, max_abs_err=variant_errs[name],
             **vtimes[name])}
+    # the MoE family: the attention kernels at its heads (qpg 6 and 5),
+    # with their launches on its paths (grok-1-314b's control loop, and
+    # llama4-maverick's drain run, which is all it runs)
+    moe_runs = {}
+    for name in MOE_ARCHS:
+        moe_runs[name] = serve_moe(torch, F, ops, ref, get_config(name), smi)
+        _free(torch)
+    for kernel in ("flash_decode", "flash_attention"):
+        rows[kernel]["moe"] = {}
+        for name, run in moe_runs.items():
+            L = run["cfg"].num_layers
+            counted = run.get("control", {}).get("launches", run["drain"])
+            of = ("its control loop" if "control" in run
+                  else "its drain run") + f" at {L} layers"
+            shape = ("drain pool, 8 slots" if kernel == "flash_decode"
+                     else "single admit, the longest prompt")
+            rows[kernel]["moe"][name] = dict(
+                launches=counted[kernel], launches_of=of,
+                timed_at=shape, **run[kernel])
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

@@ -8,7 +8,11 @@ numpy leaves (``jax.tree.map(np.asarray, params)``) and slices it layer by
 layer, so both packages compute with the same weights in the tests. The
 ssm/hybrid tree (``repro.models.ssm_lm``) stacks ``layers/{norm, mamba/*}``
 the same way; its hybrid ``shared_attn`` block is not stacked and maps as
-it is.
+it is. An MoE tree with ``moe_every`` 1 stacks its ``layers/moe/*`` leaves
+the same way too; with ``moe_every`` me > 1 the reference stacks layer
+groups instead: ``moe_layers`` (n_groups, ...) and ``dense_layers``
+(n_groups, me - 1, ...), which flatten to layer g·me (the MoE layer) and
+g·me + j (dense layer j - 1 of group g).
 
 The control plane's parameters carry across the same way: ``rl_from_jax``
 maps the reference's DDPG state (actor, critic and their targets: the GCN's
@@ -51,20 +55,35 @@ def _leaves(tree):
         yield tree
 
 
+def _unstack(tree, dev, *index) -> dict:
+    """Slice ``index`` off the front of every leaf of a stacked tree."""
+    return _map(tree, lambda a: _tensor(a[index], dev))
+
+
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """The reference's LM params (numpy leaves; dense, ssm or hybrid) as the
-    port's: the stacked ``layers`` tree split into one dict per layer, every
+    """The reference's LM params (numpy leaves; dense, moe, ssm or hybrid)
+    as the port's: the stacked ``layers`` tree (or the moe layer groups
+    ``moe_layers`` / ``dense_layers``) split into one dict per layer, every
     other entry (``embed``, ``final_norm``, ``lm_head``, the hybrid's
     unstacked ``shared_attn`` block) mapped leaf by leaf as it is."""
     dev = resolve_device(device)
-    if "layers" not in tree:
-        raise ValueError("params_from_jax maps a stacked 'layers' tree; "
-                         "other layouts are not yet ported")
-    n_layers = np.asarray(next(_leaves(tree["layers"]))).shape[0]
+    stacked = ("layers", "moe_layers", "dense_layers")
     out = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items()
-           if k != "layers"}
-    out["layers"] = [_map(tree["layers"], lambda a, i=i: _tensor(a[i], dev))
-                     for i in range(n_layers)]
+           if k not in stacked}
+    if "layers" in tree:
+        n = np.asarray(next(_leaves(tree["layers"]))).shape[0]
+        out["layers"] = [_unstack(tree["layers"], dev, i) for i in range(n)]
+    elif "moe_layers" in tree and "dense_layers" in tree:
+        n_groups, me1 = np.asarray(
+            next(_leaves(tree["dense_layers"]))).shape[:2]
+        out["layers"] = [
+            _unstack(tree["moe_layers"], dev, g) if j == 0
+            else _unstack(tree["dense_layers"], dev, g, j - 1)
+            for g in range(n_groups) for j in range(me1 + 1)]
+    else:
+        raise ValueError("params_from_jax maps a stacked 'layers' tree or "
+                         "the moe layer groups 'moe_layers' / "
+                         "'dense_layers'; other layouts are not yet ported")
     return out
 
 

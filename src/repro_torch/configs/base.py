@@ -2,8 +2,8 @@
 
 Every assigned architecture is expressed as an ``ArchConfig``. The model substrate
 (`repro_torch.models`) consumes these; the launchers select them via
-``--arch <id>``. The port serves the dense, ssm and hybrid families; the
-others are declared so that configs stay copies of the reference's.
+``--arch <id>``. The port serves the dense, moe, ssm and hybrid families;
+the others are declared so that configs stay copies of the reference's.
 
 Families:
   dense   — decoder-only transformer (GQA, SwiGLU)

@@ -272,6 +272,7 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
                       "prefill_dispatches": m["prefill_dispatches"],
                       "syncs": m["syncs"],
                       "reconciles": m.get("reconciles"),
+                      "replica_syncs": m.get("replica_syncs"),
                       "last_round_dispatches": m.get(
                           "last_round_dispatches"),
                       "in_flight_groups": m.get("in_flight_groups")})

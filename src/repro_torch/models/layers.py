@@ -16,7 +16,8 @@ def he_init(gen: torch.Generator, shape, dtype, fan_in=None,
     unless ``device`` is given)."""
     fan_in = fan_in or shape[0]
     w = torch.randn(shape, generator=gen, device=device or gen.device)
-    return (w / math.sqrt(fan_in)).to(dtype)
+    # in place: a full-width expert stack is tens of GB in f32
+    return w.div_(math.sqrt(fan_in)).to(dtype)
 
 
 def rms_norm(x, scale, eps=1e-5):

@@ -1,11 +1,14 @@
-"""Decoder-only LM, dense family (the port of ``repro.models.lm``'s dense
-path).
+"""Decoder-only LM, the dense and moe families (the port of
+``repro.models.lm``'s serve path).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless embeddings are tied, and ``layers``, a list with
-one dict per layer (``attn_norm``, ``attn``, ``ffn_norm``, ``mlp``) -- the
-reference stacks the same leaves along a leading layer axis for
-``lax.scan``; ``repro_torch.bridge`` maps one onto the other.
+one dict per layer (``attn_norm``, ``attn``, ``ffn_norm``, and ``mlp`` or,
+on an MoE layer, ``moe``) -- the reference stacks the same leaves along a
+leading layer axis for ``lax.scan``; ``repro_torch.bridge`` maps one onto
+the other. Layer i is an MoE layer iff the config uses MoE and i is a
+multiple of ``moe_every``: the reference's layer groups (one MoE layer,
+then ``moe_every - 1`` dense ones) in order, flattened.
 
 The KV cache is a dict of two (L, B, S, G, hd) tensors, ``k`` and ``v``,
 or with ``cache_dtype="int8"`` the quantized pool of
@@ -26,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
 from repro_torch.models.layers import gelu, he_init, rms_norm, silu
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.serving import kv_quant
 
 
@@ -43,16 +47,31 @@ def mlp_apply(p, x, activation):
     return h @ p["w_down"]
 
 
-def _init_layer(gen, cfg: ArchConfig, dims: PaddedDims, dtype) -> dict:
+def n_layers(cfg: ArchConfig) -> int:
+    """Layers the model runs: the reference builds whole groups of
+    ``moe_every`` layers only."""
+    me = cfg.moe_every if cfg.uses_moe else 1
+    return cfg.num_layers // me * me
+
+
+def _init_layer(gen, cfg: ArchConfig, dims: PaddedDims, dtype,
+                is_moe: bool) -> dict:
     zeros = dict(dtype=torch.float32, device=gen.device)
-    return {
+    p = {
         "attn_norm": torch.zeros((cfg.d_model,), **zeros),
         "attn": attn.init_attention(gen, cfg.d_model, dims,
                                     cfg.resolved_head_dim, cfg.qkv_bias,
                                     dtype),
         "ffn_norm": torch.zeros((cfg.d_model,), **zeros),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype),
     }
+    if is_moe:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                            cfg.num_experts, dtype, cfg.moe_shared_expert,
+                            cfg.activation)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                            dtype)
+    return p
 
 
 def init_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
@@ -68,13 +87,22 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
     if not cfg.tie_embeddings:
         params["lm_head"] = he_init(gen, (cfg.d_model, dims.vocab), dtype,
                                     cfg.d_model)
-    params["layers"] = [_init_layer(gen, cfg, dims, dtype)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(gen, cfg, dims, dtype,
+                                    cfg.uses_moe and i % cfg.moe_every == 0)
+                        for i in range(n_layers(cfg))]
     return params
 
 
 def _ffn_sublayer(lp, h, cfg):
+    """The FFN half of a block: the dense MLP, or on an MoE layer the
+    routed experts (serving drops their aux loss)."""
     x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+    if "moe" in lp:
+        y, _ = moe_apply(lp["moe"], x, num_experts=cfg.num_experts,
+                         top_k=cfg.num_experts_per_tok,
+                         capacity_factor=cfg.capacity_factor,
+                         activation=cfg.activation)
+        return h + y
     return h + mlp_apply(lp["mlp"], x, cfg.activation)
 
 

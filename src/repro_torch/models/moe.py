@@ -1,0 +1,152 @@
+"""Top-k mixture-of-experts FFN with capacity-bounded dispatch (the port of
+``repro.models.moe``).
+
+Routing runs in f32: softmax over the router logits, the top-k experts a
+token (ties to the lower expert index, as ``jax.lax.top_k`` breaks them),
+their gates renormalised to sum to one. Capacity is per batch row: each
+row's (token, k) pairs take slots in token-major order, a running count
+per expert, and a pair whose slot reaches the capacity C is dropped (it
+reads back zeros, Switch/GShard semantics). The experts run densely over
+an (E, B·C, d) buffer as batched products (``torch.bmm``), empty slots
+included, as in the reference.
+
+Nothing here synchronises with the host or has a data-dependent shape, so
+a decode step with MoE layers can be captured in a CUDA graph: one-hots
+are comparisons with an ``arange``, and the buffer has one extra column a
+row per expert that takes the dropped pairs, so no index goes out of
+bounds; that column is never run through an expert, and the gather reads
+zeros there.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import gelu, he_init, silu
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
+             num_experts: int, dtype, shared_expert: bool,
+             activation: str) -> dict:
+    """The reference's leaves: ``router`` f32 (d, E); ``w_gate`` / ``w_up``
+    (E, d, ff) and ``w_down`` (E, ff, d), no ``w_up`` for gelu; and with
+    ``shared_expert`` a dense SwiGLU-shaped FFN ``shared``."""
+    E = num_experts
+    p = {"router": he_init(gen, (d_model, E), torch.float32, d_model),
+         "w_gate": he_init(gen, (E, d_model, d_ff), dtype, d_model)}
+    if activation == "swiglu":
+        p["w_up"] = he_init(gen, (E, d_model, d_ff), dtype, d_model)
+    p["w_down"] = he_init(gen, (E, d_ff, d_model), dtype, d_ff)
+    if shared_expert:
+        p["shared"] = {
+            "w_gate": he_init(gen, (d_model, d_ff), dtype, d_model),
+            "w_up": he_init(gen, (d_model, d_ff), dtype, d_model),
+            "w_down": he_init(gen, (d_ff, d_model), dtype, d_ff),
+        }
+    return p
+
+
+def _expert_ffn(p, buf, activation):
+    """buf: (E, N, d) -> (E, N, d), expert e's FFN on its N rows."""
+    g = torch.bmm(buf, p["w_gate"])
+    h = silu(g) * torch.bmm(buf, p["w_up"]) if activation == "swiglu" \
+        else gelu(g)
+    return torch.bmm(h, p["w_down"])
+
+
+def _dense_ffn(p, x, activation):
+    g = x @ p["w_gate"]
+    h = silu(g) * (x @ p["w_up"]) if activation == "swiglu" else gelu(g)
+    return h @ p["w_down"]
+
+
+def ranked_top_k(probs: torch.Tensor, k: int) -> tuple:
+    """The ``k`` largest of ``probs`` along the last axis, in descending
+    order, ties to the lower index (``jax.lax.top_k``'s order; ``torch.
+    topk`` promises none): ``k`` argmax passes, each masking the last
+    pick. Returns (values, int64 indices)."""
+    ids = torch.arange(probs.shape[-1], device=probs.device)
+    vals, idx, p = [], [], probs
+    for _ in range(k):
+        i = torch.argmax(p, dim=-1, keepdim=True)    # first maximal index
+        vals.append(torch.gather(probs, -1, i))
+        idx.append(i)
+        p = torch.where(ids == i, float("-inf"), p)
+    return torch.cat(vals, -1), torch.cat(idx, -1)
+
+
+def route(router: torch.Tensor, x: torch.Tensor, k: int) -> tuple:
+    """f32 router: (probs (..., E), top-k gates renormalised with a 1e-9
+    floor (..., k), their experts (..., k))."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    top_p, top_i = ranked_top_k(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def capacity(S: int, k: int, E: int, capacity_factor: float) -> int:
+    """Slots an expert has in one batch row of S tokens."""
+    return max(int(math.ceil(S * k / E * capacity_factor)), k)
+
+
+def dispatch_slots(top_i: torch.Tensor, E: int, C: int) -> tuple:
+    """top_i (B, S, k) -> (experts (B, S·k), slots (B, S·k)): pair j of a
+    row (token j // k, choice j % k) takes the next free slot of its
+    expert in that row; C marks a dropped pair."""
+    B = top_i.shape[0]
+    flat_e = top_i.reshape(B, -1)
+    ids = torch.arange(E, device=top_i.device)
+    onehot = (flat_e[..., None] == ids).to(torch.int32)     # (B, S·k, E)
+    slot = (torch.cumsum(onehot, dim=1) * onehot).sum(-1) - 1
+    return flat_e, torch.where(slot < C, slot, C)
+
+
+def moe_apply(params, x, *, num_experts: int, top_k: int,
+              capacity_factor: float = 1.25, activation: str = "swiglu"):
+    """x: (B, S, d) -> (y (B, S, d), aux), the Switch load-balance loss
+    on the top-1 assignment. Capacity and slot order are per batch row, so
+    rows cannot displace each other's tokens (a fleet slab's empty rows
+    leave its live rows' routing alone)."""
+    B, S, d = x.shape
+    E, K = num_experts, top_k
+    probs, top_p, top_i = route(params["router"], x, K)
+    ids = torch.arange(E, device=x.device)
+    assign = (top_i[..., :1] == ids).float()                # top-1 one-hot
+    aux = E * torch.mean(assign.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+
+    C = capacity(S, K, E, capacity_factor)
+    flat_e, slot = dispatch_slots(top_i, E, C)
+    rows = torch.arange(B, device=x.device)[:, None]
+    tok = torch.arange(S * K, device=x.device) // K     # pair -> token
+    buf = x.new_zeros((E, B, C + 1, d))     # column C takes the drops
+    buf[flat_e, rows, slot] = x[:, tok]
+    out = _expert_ffn(params, buf[:, :, :C].reshape(E, B * C, d),
+                      activation).reshape(E, B, C, d)
+    out = torch.cat([out, out.new_zeros((E, B, 1, d))], dim=2)
+    gathered = out[flat_e, rows, slot]                      # (B, S·k, d)
+    weighted = gathered * top_p.reshape(B, S * K, 1).to(gathered.dtype)
+    # the reference adds the k terms of a token into zeros one by one; for
+    # k <= 2 one sum rounded once is the same value
+    y = weighted.reshape(B, S, K, d).sum(dim=2)
+    if "shared" in params:
+        y = y + _dense_ffn(params["shared"], x.reshape(B * S, d),
+                           activation).reshape(B, S, d)
+    return y, aux
+
+
+def moe_dense_oracle(params, x, *, num_experts: int, top_k: int,
+                     activation: str = "swiglu"):
+    """O(T·E) oracle: every expert on every token, combined with the top-k
+    gates in f32. No capacity drops: the tests hold ``moe_apply`` to it at
+    a high capacity factor."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    probs, top_p, top_i = route(params["router"], xt, top_k)
+    gates = torch.zeros_like(probs).scatter(-1, top_i, top_p)
+    outs = _expert_ffn(params, xt.expand(num_experts, -1, -1).contiguous(),
+                       activation)                          # (E, T, d)
+    y = torch.einsum("te,etd->td", gates, outs.float())
+    if "shared" in params:
+        y = y + _dense_ffn(params["shared"], xt, activation).float()
+    return y.reshape(B, S, d).to(x.dtype)

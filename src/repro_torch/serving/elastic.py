@@ -46,7 +46,7 @@ docstring).
 capacity leases** are the reference's, unchanged; see
 ``repro.serving.elastic`` for the full contract. ``metrics()`` carries the
 reference's keys, plus the async tick's sync accounting (``reconciles``,
-``last_round_dispatches``, ``in_flight_groups``) that
+``replica_syncs``, ``last_round_dispatches``, ``in_flight_groups``) that
 ``async_tick_violations`` holds to its contract.
 
 Not yet ported, and raising when asked for: ``mesh=`` (fleet-mesh
@@ -92,7 +92,10 @@ def async_tick_violations(per_tick: list) -> list:
     broken tick; empty when the contract held."""
     bad, carried = [], 0
     for t, m in enumerate(per_tick):
-        syncs, left = m["syncs"], m["in_flight_groups"]
+        # a replica's own syncs (an exact-length admit's eager prefill
+        # fetch, the reference's single-admit path) consume no dispatch
+        syncs = m["syncs"] - m.get("replica_syncs", 0)
+        left = m["in_flight_groups"]
         if syncs + left > carried + m["decode_dispatches"]:
             bad.append(f"tick {t}: {syncs} syncs + {left} in flight > "
                        f"{carried} carried + {m['decode_dispatches']} "
@@ -415,6 +418,7 @@ class ElasticClusterFrontend:
         self._tick_dispatches = 0    # decode dispatches issued this tick
         self._tick_prefill_dispatches = 0  # admission dispatches this tick
         self._tick_syncs = 0         # blocking host syncs this tick
+        self._tick_replica_syncs = 0  # of which the replicas' own
         self._tick_reconciles = 0    # of which at the reconcile points
         self._tick_last_round = 0    # decode dispatches of the last round
         self._tick_sync_wait = 0.0   # seconds blocked on device this tick
@@ -422,7 +426,8 @@ class ElasticClusterFrontend:
         self._retired_steps = 0      # decode micro-steps of evicted groups
         self._retired_graphs: dict = {}  # graph counts of evicted groups
         self._retired_prefill_dispatches = 0  # of evicted groups + engines
-        self._retired_syncs = 0      # sync counts of evicted groups/engines
+        self._retired_group_syncs = 0    # sync counts of evicted groups
+        self._retired_replica_syncs = 0  # and of retired engines
         self._retired_sync_wait = 0.0
         self._retired_peak_rows = 0   # largest slab of an evicted group
         self._async_stash: list = []  # finishes flushed by mid-tick churn
@@ -473,7 +478,7 @@ class ElasticClusterFrontend:
             for k, n in g.graphs.stats().items():
                 self._retired_graphs[k] = self._retired_graphs.get(k, 0) + n
             self._retired_prefill_dispatches += g.prefill_dispatches
-            self._retired_syncs += g.syncs
+            self._retired_group_syncs += g.syncs
             self._retired_sync_wait += g.sync_wait
             self._retired_peak_rows = max(self._retired_peak_rows,
                                           g.peak_rows)
@@ -520,9 +525,15 @@ class ElasticClusterFrontend:
         """Total blocking host syncs performed (group reconciles + eager
         fetches), including retired engines and evicted groups — the async
         tick's ``syncs`` currency, mirroring ``decode_dispatches``."""
-        live = sum(e.syncs for n in self.nodes for e in n.live + n.draining)
-        return self._retired_syncs + live + \
+        return self.replica_sync_count() + self._retired_group_syncs + \
             sum(g.syncs for g in self._fleets.values())
+
+    def replica_sync_count(self) -> int:
+        """The syncs of ``sync_count`` that replicas took themselves (not
+        their fleet group): under the async fleet tick, the exact-length
+        admits' eager prefill fetches."""
+        return self._retired_replica_syncs + sum(
+            e.syncs for n in self.nodes for e in n.live + n.draining)
 
     def sync_wait_s(self) -> float:
         """Total wall seconds the host spent *blocked* on device results —
@@ -918,7 +929,7 @@ class ElasticClusterFrontend:
         node.credit.pop(id(eng), None)
         self._leave_fleet(eng, restore=False)   # row dropped, not unstacked
         self._retired_prefill_dispatches += eng.prefill_dispatches
-        self._retired_syncs += eng.syncs
+        self._retired_replica_syncs += eng.syncs
         self._retired_sync_wait += eng.sync_wait
 
     def _inject_failures(self):
@@ -1012,6 +1023,7 @@ class ElasticClusterFrontend:
         self.t += 1
         prefill_before = self.prefill_dispatches()
         syncs_before = self.sync_count()
+        replica_syncs_before = self.replica_sync_count()
         wait_before = self.sync_wait_s()
         self._tick_reconciles = 0
         # async reconcile point: commit the previous tick's in-flight device
@@ -1086,12 +1098,14 @@ class ElasticClusterFrontend:
                     self._leave_fleet(eng, restore=False)
                     self._retired_prefill_dispatches += \
                         eng.prefill_dispatches
-                    self._retired_syncs += eng.syncs
+                    self._retired_replica_syncs += eng.syncs
                     self._retired_sync_wait += eng.sync_wait
             self.replica_ticks += len(node.live)
         self._tick_prefill_dispatches = \
             self.prefill_dispatches() - prefill_before
         self._tick_syncs = self.sync_count() - syncs_before
+        self._tick_replica_syncs = \
+            self.replica_sync_count() - replica_syncs_before
         self._tick_sync_wait = self.sync_wait_s() - wait_before
         # finishes force-flushed by mid-tick churn (drain retires, failure
         # evacuations) land in stashes — collect them NOW so a drain loop
@@ -1288,6 +1302,7 @@ class ElasticClusterFrontend:
             # came at the reconcile points (the rest are churn flushes); the
             # last round's fleet dispatches stay in flight past the tick
             "reconciles": int(self._tick_reconciles),
+            "replica_syncs": int(self._tick_replica_syncs),
             "last_round_dispatches": int(self._tick_last_round),
             "in_flight_groups": int(sum(1 for g in self._fleets.values()
                                         if g.pending)),

@@ -1,5 +1,6 @@
 """Request-level serving engine: continuous batching over real model forwards
-(the port of ``repro.serving.engine``, dense, ssm and hybrid families).
+(the port of ``repro.serving.engine``: the dense, moe, ssm and hybrid
+families).
 
 ``ReplicaEngine`` runs one model replica: a slot-based KV pool on the
 device, per-slot positions (the vector-``pos`` decode path),
@@ -12,6 +13,14 @@ ssm and hybrid families: causal attention masks trailing pads, and padded
 steps get dt = 0 in the SSM scan (decay 1, no input). Prompts longer than
 ``max_seq - 1`` are truncated to their last ``max_seq - 1`` tokens at
 admission (the KV pool can never overflow).
+
+**MoE replicas admit exact-length prompts** one at a time, as in the
+reference: expert capacity scales with the padded length, so a bucketed
+prefill could drop other tokens than the prompt's own. Such a single
+admit fetches its first token eagerly (one blocking sync, counted on the
+replica) and, in a fleet, registers its slot in the group's device
+operands (``FleetGroup.write_slot``); the async tick's decode around it is
+unchanged.
 
 **SLO tiers.** Each replica's pending queue is a ``TieredQueue``: one FIFO
 per priority class (``workload.trace.TierSet``), drained in weighted-deficit
@@ -71,8 +80,8 @@ advances a step (``plan_admission`` / ``_chunk_due``). In async mode a
 cursor advances at dispatch and the final chunk's first token commits at
 the next reconcile. Chunk by chunk equals single-shot prefill.
 
-**The int8 KV cache** (``cache_dtype="int8"``, the dense family; ssm and
-hybrid raise as in the reference): the pool is int8 with per-(token, head)
+**The int8 KV cache** (``cache_dtype="int8"``, the dense and moe
+families; ssm and hybrid raise as in the reference): the pool is int8 with per-(token, head)
 f32 scales (``serving.kv_quant``); a prefill quantizes its prompt once at
 the end, a decode quantizes each new token on write and reads the pool
 through ``ops.flash_decode``, which dequantizes in its loads. The four
@@ -105,7 +114,8 @@ it, and the host bookkeeping captured at dispatch time waits on
 work for tick t overlaps the device computing tick t's decode. Per-dispatch
 operands built on the host go through one pinned staging copy
 (``non_blocking``); nothing in the tick calls ``.item()``, ``.tolist()``
-or ``.cpu()`` on a device tensor outside ``reconcile``. Token streams and
+or ``.cpu()`` on a device tensor outside ``reconcile`` and the
+exact-length admits' eager fetch. Token streams and
 finish ticks are bit-identical to the eager oracle (``async_mode=False``),
 only the host-side observation is one tick late. Membership churn
 (scale-up joins, drain retire, failure) force-flushes pending results
@@ -121,7 +131,7 @@ its (K, cap, B) results reconcile at the block's end with finish clocks
 decoding at its end (a lag of at most K - 1 ticks).
 
 Not yet ported, and raising when asked for: fleet-mesh sharding
-(``mesh``) and families other than dense, ssm and hybrid.
+(``mesh``) and families other than dense, moe, ssm and hybrid.
 """
 from __future__ import annotations
 
@@ -140,10 +150,11 @@ from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
 
 # families whose prefill accepts per-row ``lengths`` (bucketed prompts are
-# exact)
+# exact). moe is absent: expert capacity scales with the padded bucket
 _BUCKET_FAMILIES = ("dense", "ssm", "hybrid")
 # families with a chunked-prefill continuation (cache-offset attention for
-# dense, carried ssm/conv state for ssm/hybrid)
+# dense, carried ssm/conv state for ssm/hybrid); moe is absent for the
+# same capacity reason
 _CHUNK_FAMILIES = ("dense", "ssm", "hybrid")
 
 
@@ -1128,12 +1139,15 @@ class FleetGroup:
         fetched by that path)."""
         _write_state(self.slab, f * self.max_batch + slot, small_state, row)
         if self.async_mode and req is not None:
+            # fill_ takes the value as a kernel argument: an item
+            # assignment would copy it from pageable memory, a blocking
+            # sync for each operand on a card
             o = self.ops
-            o["toks"][f, slot] = int(req.output[-1])
-            o["pos"][f, slot] = int(prompt_len)
-            o["rem"][f, slot] = req.rem_tokens(self.members[f].clock)
-            o["eos"][f, slot] = int(req.eos_id)
-            o["active"][f, slot] = True
+            o["toks"][f, slot].fill_(int(req.output[-1]))
+            o["pos"][f, slot].fill_(int(prompt_len))
+            o["rem"][f, slot].fill_(req.rem_tokens(self.members[f].clock))
+            o["eos"][f, slot].fill_(int(req.eos_id))
+            o["active"][f, slot].fill_(True)
             # single admits bypass ``pending`` (their sync was eager), so
             # they veto a fused block separately
             self._admitted = True

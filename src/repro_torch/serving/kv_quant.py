@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 def quantize(x: torch.Tensor, dim: int = -1) -> tuple:
     """x: (..., d) -> (int8 values, f32 scales with ``dim`` reduced)."""
@@ -35,8 +37,10 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
 
 
 def init_quant_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
-                        device="cpu") -> dict:
-    """The quantized analogue of one layer's KV cache."""
+                        device="cuda") -> dict:
+    """The quantized analogue of one layer's KV cache, on ``device``
+    (raises when CUDA is asked for and absent)."""
+    device = resolve_device(device)
     shape = (batch, max_len, n_kv)
     return {
         "k_q": torch.zeros(shape + (head_dim,), dtype=torch.int8,

@@ -69,7 +69,7 @@ def test_quant_attention_close_to_exact():
     q = rng.standard_normal((B, G, qpg, d)).astype(np.float32)
     ks = rng.standard_normal((64, B, 1, G, d)).astype(np.float32)
     vs = rng.standard_normal((64, B, 1, G, d)).astype(np.float32)
-    cache = kv_quant.init_quant_kv_cache(B, S, G, d)
+    cache = kv_quant.init_quant_kv_cache(B, S, G, d, device="cpu")
     jcache = jax_kvq.init_quant_kv_cache(B, S, G, d)
     for t in range(64):
         kv_quant.write_kv_quant(cache, torch.from_numpy(ks[t]),
@@ -100,10 +100,21 @@ def test_quant_attention_close_to_exact():
 
 def test_quant_cache_bytes_halved():
     B, S, G, d = 4, 1024, 8, 128
-    c = kv_quant.init_quant_kv_cache(B, S, G, d)
+    c = kv_quant.init_quant_kv_cache(B, S, G, d, device="cpu")
     q_bytes = sum(t.numel() * t.element_size() for t in c.values())
     bf16_bytes = 2 * B * S * G * d * 2
     assert q_bytes < 0.6 * bf16_bytes
+
+
+def test_quant_cache_defaults_to_cuda(monkeypatch):
+    """Like every entry point of the port, the int8 cache is made on the
+    card unless the caller names the CPU: with no CUDA it raises, never
+    moves."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        kv_quant.init_quant_kv_cache(2, 8, 2, 32)
+    c = kv_quant.init_quant_kv_cache(2, 8, 2, 32, device="cpu")
+    assert {t.device.type for t in c.values()} == {"cpu"}
 
 
 # ------------------------------------------------------------------ engine

@@ -107,7 +107,7 @@ def test_greedy_streams_match_reference(pair, backend):
 
 def test_unported_family_raises():
     cfg = dataclasses.replace(get_config("granite-3-8b").reduced(),
-                              family="moe")
+                              family="vlm")
     with pytest.raises(ValueError, match="not yet ported"):
         make_model(cfg)
 
