@@ -148,12 +148,32 @@ the script exits non-zero:
      phase 6 at 4 layers with its checks: graph-replayed fleet decodes,
      the async tick's sync contract with each exact-length admit's eager
      sync counted as the replica's own, and no other sync in the engine.
+ 11. the paper's experiment over the fluid simulator, and the control
+     plane's training: (a) gcn_layer_bwd (the GCN layer's backward, dW,
+     db and dX in one launch) against its plain version (autograd through
+     ``ref.gcn_layer_ref``) at the DDPG update's shapes -- 128 graphs of 8
+     and 16 nodes, 36 -> 64 with relu and 64 -> 64 without, dX on and off
+     -- within 1e-5, two launches bit-equal; times of one GCN's backward
+     against the plain version, a ``torch.matmul`` chain and the bound;
+     (b) one ``ddpg_update`` at the paper's ClusterConfig() (16 nodes,
+     batch 128) on the card against the CPU within 1e-4, its launches as
+     derived, its host and device ms and idle share; (c) an RRA episode
+     of 400 ticks at 8 nodes, the sim's tick on the card against the CPU
+     (1e-5, replicas equal); (d) ``python -m repro_torch.sim.experiment``
+     at its defaults (the GRU's training, the balancer's 4 episodes, one
+     episode a method, the table), counted -- gcn_layer once an OURS tick
+     plus 9 an update, gcn_layer_bwd 4 an update -- every summary finite
+     and OURS's mean response below RRA's, with each stage's seconds,
+     host ms a tick per method and a forecaster step's ms; (e) a training
+     episode of OURS at ClusterConfig(), counted the same way, with its
+     syncs a tick.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
-gcn_layer, mamba2's for ssd_scan; the attention kernels' ``moe`` entries
-give their times at the MoE heads and their launches on the MoE paths);
-the last line is ``{"ok": true, "device": {...}}``.
+gcn_layer, mamba2's for ssd_scan; gcn_layer_bwd's from the experiment of
+phase 11, where gcn_layer's are given too; the attention kernels' ``moe``
+entries give their times at the MoE heads and their launches on the MoE
+paths); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -196,6 +216,12 @@ KERNELS = {
                       replaces="src/repro/kernels/gcn_fused.py:17"),
     "ssd_scan": dict(source="src/repro_torch/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:24"),
+    # no Pallas counterpart: the reference differentiates its plain XLA
+    # GCN (src/repro/core/gcn.py:52 under jax.value_and_grad, from
+    # src/repro/core/ddpg.py:141); this backward belongs to the same
+    # Pallas kernel's layer
+    "gcn_layer_bwd": dict(source="src/repro_torch/csrc/gcn_layer.cu",
+                          replaces="src/repro/kernels/gcn_fused.py:17"),
 }
 # the ssm/hybrid family, served at full width after granite-3-8b, then
 # mistral-nemo-12b (dense, a query width of 4096 against d_model 5120)
@@ -626,6 +652,7 @@ def _check_launches(cfg, launches, prefill, decode, ticks=0) -> None:
     want = {k: p * prefill + d * decode
             for k, (p, d) in _per_dispatch(cfg).items()}
     want["gcn_layer"] = ticks
+    want["gcn_layer_bwd"] = 0         # the serve path never trains
     path = [k for k, (p, d) in _per_dispatch(cfg).items() if p or d]
     if ticks:
         path.append("gcn_layer")
@@ -2657,6 +2684,377 @@ def serve_moe(torch, F, ops, ref, cfg_full, smi) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 11
+# the control plane's training and the paper's experiment over the fluid
+# simulator. The DDPG update's GCN layers: Bt = ClusterConfig.batch_size
+# graphs of the experiment's 8 nodes and the paper's 16, F = 4 + horizon 32
+# into gcn_hidden 64 (relu), then 64 into 64 (none)
+BWD_BATCH = 128
+BWD_NODES = (8, 16)
+BWD_LAYERS = ((36, 64, True), (64, 64, False))
+UPDATE_TOL = dict(atol=1e-4, rtol=1e-4)   # card against CPU, whole update
+EPISODE_RTOL = 1e-5                        # card against CPU, per tick
+EXPERIMENT_TICKS, TRAIN_TICKS, TRAIN_EPISODES = 400, 400, 4
+
+
+def _update_launches(n_layers: int, fused_target: bool) -> tuple:
+    """(gcn_layer, gcn_layer_bwd) launches of one ``ddpg_update`` (derived
+    from its code): the target action (one fused launch, else L layered),
+    the target, online and actor-loss critics and the actor's layered
+    action (L each); L backward launches for the critic's gradient and L
+    for the actor's."""
+    return (1 if fused_target else n_layers) + 4 * n_layers, 2 * n_layers
+
+
+def _bwd_chain(torch, a, x, w, out, dh, relu, need_dx):
+    """One layer's backward as a chain of ``torch.matmul`` calls: the
+    library yardstick (the port never calls it)."""
+    g = dh * (out > 0) if relu else dh
+    f, h = w.shape
+    dw = torch.matmul(a, x).reshape(-1, f).T @ g.reshape(-1, h)
+    db = g.sum(dim=(0, 1))
+    dx = torch.matmul(a.T, g @ w.T) if need_dx else None
+    return dx, dw, db
+
+
+def _bwd_bound(n, f, h, relu, need_dx):
+    """Bytes (each input read once -- A_hat, X, W, dH and, with the relu,
+    H -- each output written once) and operations (A_hat.X, dW, db, the
+    relu's mask, and for dX G.W^T and A_hat^T.(G.W^T)) of one backward of
+    BWD_BATCH graphs."""
+    bt = BWD_BATCH
+    nbytes = 4 * (n * n + bt * n * f + f * h + bt * n * h * (2 if relu
+                                                               else 1)
+                  + f * h + h + (bt * n * f if need_dx else 0))
+    flops = 2 * bt * n * n * f + 2 * bt * n * f * h + bt * n * h \
+        + (bt * n * h if relu else 0) \
+        + ((2 * bt * n * h * f + 2 * bt * n * n * f) if need_dx else 0)
+    return nbytes, flops
+
+
+def phase_bwd(torch, ops, ref, gen) -> dict:
+    """(a) gcn_layer_bwd against its plain version (autograd through
+    ``ref.gcn_layer_ref``) at the update's shapes: N 8 and 16, the layers
+    36 -> 64 with relu and 64 -> 64 without, dX on and off, f32 within
+    GCN_TOL; two launches on the same inputs must agree bit for bit (the
+    batch sums have a fixed order). Then the times of one GCN's backward as
+    the update runs it (the first layer without dX, its input being the
+    observation; the second with): kernel, plain version, the matmul chain,
+    bound. Returns the JSON row (at N 16) and the worst error."""
+    from repro_torch.core.gcn import make_topology, normalize_adjacency
+
+    worst, row = 0.0, {}
+    for n in BWD_NODES:
+        a = torch.from_numpy(normalize_adjacency(make_topology(n))).cuda()
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+        for f, h, relu in BWD_LAYERS:
+            x = torch.randn((BWD_BATCH, n, f), generator=gen, device="cuda")
+            if not relu:                  # the second layer reads relu(h1)
+                x = torch.relu(x)
+            w = torch.randn((f, h), generator=gen, device="cuda") \
+                * (2.0 / f) ** 0.5
+            b = 0.1 * torch.randn((h,), generator=gen, device="cuda")
+            out = ops.gcn_layer(a, x, w, b, relu=relu)
+            dh = torch.randn(out.shape, generator=gen, device="cuda") \
+                / BWD_BATCH
+            for need_dx in (False, True):
+                args = (a, x, w, b, out, dh)
+                got = ops.gcn_layer_bwd(*args, relu=relu, need_dx=need_dx)
+                again = ops.gcn_layer_bwd(*args, relu=relu, need_dx=need_dx)
+                want = ref.gcn_layer_bwd_ref(a, x, w, b, dh, relu=relu,
+                                             need_dx=need_dx)
+                torch.cuda.synchronize()
+                errs = []
+                for name, g, g2, wt in zip(("dx", "dw", "db"), got, again,
+                                           want):
+                    if wt is None:
+                        if g is not None:
+                            raise AssertionError("gcn_layer_bwd: dx given "
+                                                 "unasked")
+                        continue
+                    torch.testing.assert_close(
+                        g, wt, **GCN_TOL,
+                        msg=lambda m: f"gcn_layer_bwd {n} {f}->{h} {name}: "
+                                      f"{m}")
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"gcn_layer_bwd {n} {f}->{h} "
+                                             f"{name}: two launches differ")
+                    errs.append((g - wt).abs().max().item())
+                worst = max(worst, *errs)
+                log(f"[parity] gcn_layer_bwd Bt={BWD_BATCH} N={n} {f}->{h} "
+                    f"relu={relu} dX={need_dx} f32: max|err| "
+                    f"{max(errs):.3e} (atol/rtol {GCN_TOL['atol']}); "
+                    f"deterministic")
+            need_dx = not relu          # as the update runs the layer
+            n_in = 20
+            kw = dict(relu=relu, need_dx=need_dx)
+            ms = _graph_ms(torch, lambda: [ops.gcn_layer_bwd(
+                a, x, w, b, out, dh, **kw) for _ in range(n_in)], n_in)
+            plain = _graph_ms(torch, lambda: [ref.gcn_layer_bwd_ref(
+                a, x, w, b, dh, **kw) for _ in range(n_in)], n_in)
+            lib = _graph_ms(torch, lambda: [_bwd_chain(
+                torch, a, x, w, out, dh, relu, need_dx)
+                for _ in range(n_in)], n_in)
+            nbytes, flops = _bwd_bound(n, f, h, relu, need_dx)
+            bound, by = _bound(nbytes, flops, F32_FLOPS_PER_S)
+            log(f"[times] gcn_layer_bwd Bt={BWD_BATCH} N={n} {f}->{h} "
+                f"relu={relu} dX={need_dx}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f}, matmul chain {lib:.4f}, bound {bound:.6f} "
+                f"({by}: {nbytes} B, {flops} flop)")
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("nbytes", nbytes), ("flops", flops)):
+                tot[k] += v
+        bound, by = _bound(tot["nbytes"], tot["flops"], F32_FLOPS_PER_S)
+        row = dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bound,
+                   bound_by=by, library_ms=tot["library_ms"],
+                   timed_at=f"one GCN's backward in the update: Bt "
+                            f"{BWD_BATCH}, N {n}, 36->64 relu without dX "
+                            f"+ 64->64 with dX (two launches)")
+        log(f"[times] gcn_layer_bwd, one GCN's backward (2 launches) at "
+            f"N={n}: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+            f"matmul chain {tot['library_ms']:.4f}, bound {bound:.6f} "
+            f"({by})")
+    return row, worst
+
+
+def _np_batch(n, feat, batch, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    obs = rng.standard_normal((batch, n, feat)).astype(np.float32)
+    nxt = rng.standard_normal((batch, n, feat)).astype(np.float32)
+    act = rng.dirichlet(np.ones(n), batch).astype(np.float32)
+    rew = rng.uniform(-2.0, 0.0, batch).astype(np.float32)
+    mask = (rng.random((batch, n)) > 0.1).astype(np.float32)
+    return obs, act, rew, nxt, mask
+
+
+def phase_update(torch, ops) -> None:
+    """(b) One ``ddpg_update`` on the card against the same update on the
+    CPU, from one state (the paper's ClusterConfig(): 16 nodes, horizon 32,
+    batch 128) and one batch: every leaf of the four trees and both losses
+    within UPDATE_TOL; the update's launches as derived. Then one update's
+    host ms (enqueue; to the results), device ms (a CUDA-graph replay of
+    the same update: busy time only) and idle share."""
+    from repro_torch.configs.paper_cluster import ClusterConfig
+    from repro_torch.core import ddpg
+    from repro_torch.core.gcn import make_topology, normalize_adjacency
+    from repro_torch.core.tree import leaves, tree_map
+
+    cfg = ClusterConfig()
+    n, feat = cfg.num_nodes, 4 + cfg.horizon
+    state = ddpg.init_ddpg(torch.Generator().manual_seed(SEED), feat, cfg)
+    cpu = (state.actor, state.critic, state.actor_target,
+           state.critic_target)
+    card = tuple(tree_map(lambda t: t.cuda(), tr) for tr in cpu)
+    a_hat = torch.from_numpy(normalize_adjacency(make_topology(
+        n, cfg.topology)))
+    batch = tuple(torch.from_numpy(v) for v in _np_batch(
+        n, feat, cfg.batch_size, SEED))
+    hyper = dict(gamma=cfg.gamma, tau=cfg.tau, actor_lr=cfg.actor_lr,
+                 critic_lr=cfg.critic_lr, fused_target=True)
+    want, wm = ddpg.ddpg_update(cpu, a_hat, batch, **hyper)
+    a_card = a_hat.cuda()
+    b_card = tuple(v.cuda() for v in batch)
+    ops.reset_launches()
+    got, gm = ddpg.ddpg_update(card, a_card, b_card, **hyper)
+    torch.cuda.synchronize()
+    fwd, bwd = _update_launches(len(state.actor["gcn"]["w"]), True)
+    if (ops.LAUNCHES["gcn_layer"], ops.LAUNCHES["gcn_layer_bwd"]) != \
+            (fwd, bwd):
+        raise AssertionError(f"ddpg_update launches {dict(ops.LAUNCHES)}, "
+                             f"expected gcn_layer {fwd}, bwd {bwd}")
+    worst = 0.0
+    for g_tree, w_tree, name in zip(got, want, ("actor", "critic",
+                                                "actor_target",
+                                                "critic_target")):
+        for g, w in zip(leaves(g_tree), leaves(w_tree)):
+            torch.testing.assert_close(
+                g.cpu(), w, **UPDATE_TOL,
+                msg=lambda m: f"ddpg_update {name}: {m}")
+            worst = max(worst, (g.cpu() - w).abs().max().item())
+    for k in wm:
+        torch.testing.assert_close(gm[k].cpu(), wm[k], **UPDATE_TOL)
+    enq, done = [], []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ddpg.ddpg_update(card, a_card, b_card, **hyper)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append((t1 - t0) * 1e3)
+        done.append((time.perf_counter() - t0) * 1e3)
+    host = statistics.median(done[1:])
+    dev = _graph_ms(torch, lambda: ddpg.ddpg_update(card, a_card, b_card,
+                                                    **hyper), 1)
+    log(f"[train] ddpg_update on the card against the CPU (16 nodes, F "
+        f"{feat}, batch {cfg.batch_size}): max|err| over the four trees "
+        f"{worst:.3e} (atol/rtol {UPDATE_TOL['atol']}); losses critic "
+        f"{gm['critic_loss'].item():.5f} / {wm['critic_loss'].item():.5f}, "
+        f"actor {gm['actor_loss'].item():.5f} / "
+        f"{wm['actor_loss'].item():.5f}; launches gcn_layer {fwd}, "
+        f"gcn_layer_bwd {bwd}; host {statistics.median(enq[1:]):.2f} ms to "
+        f"enqueue, {host:.2f} ms to the results, device busy {dev:.3f} ms "
+        f"(CUDA-graph replay; medians of 10): idle share "
+        f"{1 - dev / host:.3f}")
+
+
+def phase_episode(torch) -> None:
+    """(c) An RRA episode of EXPERIMENT_TICKS ticks at 8 nodes with the
+    sim's tick on the card against the same episode on the CPU: every
+    tick's utilization, response, served and fairness within EPISODE_RTOL,
+    the replicas equal, one readback of the sim a tick."""
+    from repro_torch.configs.paper_cluster import ClusterConfig
+    from repro_torch.sim.experiment import jain_fairness, make_plane
+    from repro_torch.workload.trace import TraceConfig, generate_trace
+
+    cfg = ClusterConfig(num_nodes=8)
+    trace = generate_trace(TraceConfig(ticks=EXPERIMENT_TICKS), seed=0,
+                           load_scale=1.8)
+    planes = [make_plane(cfg, trace, "RRA", unit_capacity=30.0, seed=1,
+                         device=d) for d in ("cuda", "cpu")]
+    worst = 0.0
+    for t, rate in enumerate(trace["arrivals"]):
+        mg, mc = (p.step(float(rate)) for p in planes)
+        pairs = [(mg[k], mc[k]) for k in ("mean_utilization",
+                                          "response_time", "served")]
+        pairs.append((jain_fairness(mg["utilization"] + 1e-6),
+                      jain_fairness(mc["utilization"] + 1e-6)))
+        for g, c in pairs:
+            rel = abs(g - c) / max(abs(c), 1e-12)
+            worst = max(worst, rel)
+            if rel > EPISODE_RTOL and abs(g - c) > 1e-9:
+                raise AssertionError(f"RRA episode tick {t}: card {g} cpu "
+                                     f"{c}")
+        if (mg["active_replicas"] != mc["active_replicas"]).any():
+            raise AssertionError(f"RRA episode tick {t}: replicas differ")
+    sim = planes[0].backend.sim
+    if sim.fetches != EXPERIMENT_TICKS:
+        raise AssertionError(f"sim fetches {sim.fetches}")
+    log(f"[sim] RRA episode, 8 nodes, {EXPERIMENT_TICKS} ticks, the tick "
+        f"on the card against the CPU: max relative difference {worst:.2e} "
+        f"(tolerance {EPISODE_RTOL}), replicas equal every tick; "
+        f"{sim.fetches} readbacks of the sim")
+
+
+def _tick_ms(res) -> str:
+    ms = sorted(res.tick_s * 1e3)
+    return (f"{statistics.median(ms):.2f} / "
+            f"{ms[int(0.95 * (len(ms) - 1))]:.2f}")
+
+
+def phase_experiment(torch, ops) -> dict:
+    """(d) The experiment at its defaults (``sim.experiment.experiment``,
+    the entry point of ``python -m repro_torch.sim.experiment``): the GRU
+    forecaster's training, the balancer's (TRAIN_EPISODES episodes of
+    TRAIN_TICKS), one episode a method, the table. Counts zeroed just
+    before and read just after: gcn_layer once an OURS tick (the action,
+    one fused launch) plus each update's, gcn_layer_bwd each update's.
+    Every summary finite; OURS's mean response below RRA's. Then (e) one
+    training episode of OURS at the paper's default cluster (16 nodes,
+    horizon 32, batch 128), counted the same way, with its syncs a tick.
+    Returns the launches, the updates and the forecaster's params."""
+    import math
+
+    from repro_torch.configs.paper_cluster import ClusterConfig
+    from repro_torch.core.balancer import RLBalancer
+    from repro_torch.sim.experiment import (collect_episode, experiment,
+                                            make_plane)
+    from repro_torch.workload.trace import TraceConfig, generate_trace
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = experiment(EXPERIMENT_TICKS, 1.8, "cuda", log=log)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    rl = out["rl"]
+    updates = rl.fetches
+    ticks = TRAIN_EPISODES * TRAIN_TICKS + EXPERIMENT_TICKS
+    fused = rl.actor == "fused"
+    fwd, bwd = _update_launches(len(rl.state.actor["gcn"]["w"]), fused)
+    want = {"gcn_layer": ticks * (1 if fused else 2) + updates * fwd,
+            "gcn_layer_bwd": updates * bwd}
+    got = {k: launches[k] for k in want}
+    if got != want or updates == 0:
+        raise AssertionError(f"experiment launches {launches}, expected "
+                             f"{want} ({ticks} OURS ticks, {updates} "
+                             "updates)")
+    summ = out["summaries"]
+    if not all(math.isfinite(v) for s in summ.values() for v in s.values()):
+        raise AssertionError(f"experiment: a summary is not finite {summ}")
+    if not summ["OURS"]["mean_resp"] < summ["RRA"]["mean_resp"]:
+        raise AssertionError("experiment: OURS's mean response "
+                             f"{summ['OURS']['mean_resp']} not below RRA's "
+                             f"{summ['RRA']['mean_resp']}")
+    secs = out["seconds"]
+    log(f"[sim] experiment: {total:.1f} s -- forecaster "
+        f"{secs['forecaster']:.1f} s (300 steps: {secs['forecaster'] / 0.3:.1f}"
+        f" ms a step; mse {out['losses'][0]:.3f} -> {out['losses'][-1]:.3f}),"
+        f" balancer {secs['balancer']:.1f} s ({TRAIN_EPISODES} episodes, "
+        f"{updates} updates), episodes {secs['episodes']:.1f} s; launches "
+        f"gcn_layer {got['gcn_layer']} = {ticks} OURS ticks + {updates} x "
+        f"{fwd}, gcn_layer_bwd {got['gcn_layer_bwd']} = {updates} x {bwd}")
+    log("[sim] host ms a tick, p50 / p95: " + "; ".join(
+        f"{m} {_tick_ms(r)}" for m, r in out["results"].items()))
+    r, o = summ["RRA"], summ["OURS"]
+    log(f"[sim] OURS against RRA: mean response {o['mean_resp']:.3f} / "
+        f"{r['mean_resp']:.3f} s ({1 - o['mean_resp'] / r['mean_resp']:+.1%}"
+        f" delay cut), scaling efficiency {o['scaling_efficiency']:.3f} / "
+        f"{r['scaling_efficiency']:.3f}")
+
+    # (e) a training episode at the paper's default cluster
+    cfg = ClusterConfig()
+    rl16 = RLBalancer(cfg, 4 + cfg.horizon, seed=SEED, device="cuda")
+    trace = generate_trace(TraceConfig(ticks=TRAIN_TICKS), seed=0,
+                           load_scale=1.8)
+    plane = make_plane(cfg, trace, "OURS", unit_capacity=30.0, rl=rl16,
+                       forecaster_params=out["forecaster"], train_rl=True,
+                       explore=True, failures=False, seed=SEED,
+                       device="cuda")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = collect_episode(plane, trace["arrivals"], "OURS", cfg, 30.0)
+    torch.cuda.synchronize()
+    secs16 = time.perf_counter() - t0
+    u16 = rl16.fetches
+    fused16 = rl16.actor == "fused"
+    fwd16, bwd16 = _update_launches(len(rl16.state.actor["gcn"]["w"]),
+                                    fused16)
+    want16 = {"gcn_layer": TRAIN_TICKS * (1 if fused16 else 2)
+              + u16 * fwd16, "gcn_layer_bwd": u16 * bwd16}
+    got16 = {k: ops.LAUNCHES[k] for k in want16}
+    s16 = res.summary()
+    if got16 != want16 or u16 == 0 or not all(
+            math.isfinite(v) for v in s16.values()):
+        raise AssertionError(f"training episode at 16 nodes: launches "
+                             f"{got16}, expected {want16}; summary {s16}")
+    sim = plane.backend.sim
+    per = {"sim": sim.fetches, "plane": plane.fetches, "updates": u16}
+    hs = {k: v / TRAIN_TICKS * 1e3 for k, v in plane.host_s.items()}
+    log(f"[sim] OURS training episode, ClusterConfig() (16 nodes, horizon "
+        f"{cfg.horizon}, batch {cfg.batch_size}), {TRAIN_TICKS} ticks: "
+        f"{secs16:.1f} s, {u16} updates ({hs['learn'] * TRAIN_TICKS / u16:.2f}"
+        f" host ms an update with its replay), actor {rl16.actor}; launches "
+        f"{got16}; host ms a tick p50 / p95 {_tick_ms(res)} (forecast "
+        f"{hs['forecast']:.2f}, balance {hs['balance']:.2f}, learn "
+        f"{hs['learn']:.2f}, scale {hs['scale']:.2f}); syncs a tick "
+        f"{sum(per.values()) / TRAIN_TICKS:.2f} ({per}: the sim's readback, "
+        f"the plane's forecast, fractions and plans, one fetch of the "
+        f"losses an update); mean resp {s16['mean_resp']:.3f}")
+    return {"launches": got, "updates": updates, "ticks": ticks}
+
+
+def phase_sim(torch, ops, ref) -> tuple:
+    """Phase 11, (a)-(e). Returns the gcn_layer_bwd JSON row, its worst
+    parity error and the experiment's launch counts."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    row, err = phase_bwd(torch, ops, ref, gen)
+    phase_update(torch, ops)
+    phase_episode(torch)
+    exp = phase_experiment(torch, ops)
+    return row, err, exp
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2732,6 +3130,18 @@ def main() -> int:
             rows[kernel]["moe"][name] = dict(
                 launches=counted[kernel], launches_of=of,
                 timed_at=shape, **run[kernel])
+    _free(torch)
+    t_sim = time.perf_counter()
+    rows["gcn_layer_bwd"], errs["gcn_layer_bwd"], exp = phase_sim(
+        torch, ops, ref)
+    # the experiment is this kernel's main path (and the GCN's second)
+    of = (f"python -m repro_torch.sim.experiment: {exp['ticks']} OURS "
+          f"ticks, {exp['updates']} DDPG updates")
+    launches["gcn_layer_bwd"] = exp["launches"]["gcn_layer_bwd"]
+    rows["gcn_layer_bwd"]["launches_of"] = of
+    rows["gcn_layer"]["experiment"] = dict(
+        launches=exp["launches"]["gcn_layer"], launches_of=of)
+    log(f"[sim] phase 11: {time.perf_counter() - t_sim:.1f}s")
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

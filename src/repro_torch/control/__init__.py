@@ -1,7 +1,8 @@
 """The unified control plane: one forecast -> balance -> scale loop over any
-``ClusterBackend``, the multi-cell routing plane and the two-level control
-hierarchy (the port of ``repro.control``)."""
-from repro_torch.control.backend import ClusterBackend  # noqa: F401
+``ClusterBackend`` -- the fluid ``ClusterSim`` and the request-level
+``ElasticClusterFrontend`` alike -- the multi-cell routing plane and the
+two-level control hierarchy (the port of ``repro.control``)."""
+from repro_torch.control.backend import ClusterBackend, SimBackend  # noqa: F401
 from repro_torch.control.cells import (  # noqa: F401
     CellRouter, MetricsView, MultiCellBackend,
 )

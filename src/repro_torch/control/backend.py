@@ -1,11 +1,15 @@
 """The ``ClusterBackend`` protocol: what a cluster must expose for the
 control plane to drive it (the port of ``repro.control.backend``).
 
-The implementation in the port so far is
-``repro_torch.serving.elastic.ElasticClusterFrontend`` (node groups of real
-``ReplicaEngine`` model replicas with cold-start provisioning, graceful
-drain and failure injection). The fluid simulator's ``SimBackend`` comes
-with the simulator slice.
+Two implementations exist:
+
+  * ``SimBackend`` (here) -- wraps ``repro_torch.sim.cluster.ClusterSim``;
+    cheap, used for RL training, baseline sweeps and the paper's
+    experiment (``repro_torch.sim.experiment``);
+  * ``repro_torch.serving.elastic.ElasticClusterFrontend`` -- node groups
+    of real ``ReplicaEngine`` model replicas with cold-start provisioning,
+    graceful drain and failure injection; used by
+    ``repro_torch.launch.serve``.
 
 The per-tick contract (what ``ControlPlane.step`` calls, in order):
 
@@ -77,3 +81,47 @@ class ClusterBackend(Protocol):
     def scale_to(self, target: np.ndarray) -> None:
         """Apply an autoscaler plan (per-node replica targets)."""
         ...
+
+
+class SimBackend:
+    """``ClusterBackend`` over the fluid simulator."""
+
+    def __init__(self, sim):
+        self.sim = sim
+        self.num_nodes = sim.cfg.num_nodes
+        self._fractions = np.full(self.num_nodes, 1.0 / self.num_nodes,
+                                  np.float32)
+        self._m: dict = {}
+
+    @property
+    def node_speed(self) -> np.ndarray:
+        return self.sim.node_speed
+
+    def observe(self, forecast: np.ndarray) -> np.ndarray:
+        return self.sim.observation(forecast)
+
+    def up_mask(self) -> np.ndarray:
+        return self.sim.state.up.copy()
+
+    def queue_depths(self) -> np.ndarray:
+        return self.sim.state.queue.copy()
+
+    def capacity(self) -> np.ndarray:
+        return self.sim.capacity()
+
+    def in_flight(self) -> np.ndarray:
+        s = self.sim.state
+        return s.active + s.pending.sum(axis=1)
+
+    def route(self, fractions: np.ndarray) -> None:
+        self._fractions = np.asarray(fractions, np.float32)
+
+    def tick(self, arrival_rate: float) -> dict:
+        self._m = self.sim.tick(arrival_rate, self._fractions)
+        return self._m
+
+    def metrics(self) -> dict:
+        return self._m
+
+    def scale_to(self, target: np.ndarray) -> None:
+        self.sim.scale_to(target)

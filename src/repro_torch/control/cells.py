@@ -1,24 +1,25 @@
 """Multi-cell fault-tolerant routing plane: ``CellRouter`` + ``MultiCellBackend``
-(the port of ``repro.control.cells``, over request-level cells).
+(the port of ``repro.control.cells``).
 
 The paper's decentralization claim ("decentralised decision-making ...
 enhances fault tolerance") needs a plane that is not a single synchronous
-brain over one cluster. This module treats N request-level
-``ElasticClusterFrontend``s as *cells* behind one federated
-``ClusterBackend``: the unchanged ``ControlPlane`` drives the federation
-exactly like a single cluster (``num_nodes`` = number of cells,
-``scale_to`` targets are per-cell replica totals), while the router
-handles the intra-federation placement of every request. Three failure
-classes are survived end-to-end:
+brain over one cluster. This module treats N existing backends -- fluid
+``ClusterSim`` or request-level ``ElasticClusterFrontend``, mixed -- as
+*cells* behind one federated ``ClusterBackend``: the unchanged
+``ControlPlane`` drives the federation exactly like a single cluster
+(``num_nodes`` = number of cells, ``scale_to`` targets are per-cell replica
+totals), while the router handles the intra-federation placement of every
+request. Three failure classes are survived end-to-end:
 
   * **cell blackout** (``cell_down@t:cC`` / ``cell_up@t:cC`` in
     ``ChaosSchedule``): the dead cell's entire queue + in-flight work is
     evacuated through the frontend's ledger-safe path (``blackout()`` on
-    the cell) and re-routed to siblings in arrival order. Exactly-once
-    accounting is lifted to ONE global ``RequestLedger`` shared by every
-    cell, so ``double_served == 0`` holds *across* cells: a request that
-    dies in cell A and finishes in cell B is still a single rid with a
-    single terminal state.
+    the cell; a fluid cell hands back its backlog's work mass instead) and
+    re-routed to siblings in arrival order. Exactly-once accounting is
+    lifted to ONE global ``RequestLedger`` shared by every elastic cell, so
+    ``double_served == 0`` holds *across* cells: a request that dies in
+    cell A and finishes in cell B is still a single rid with a single
+    terminal state.
   * **control-plane partition** (``partition@t:cC[:kK]`` / ``heal@t:cC``):
     a cell keeps serving but its metrics feed goes dark. The router keeps a
     per-cell ``MetricsView`` with a staleness clock; a stale cell's learned
@@ -53,7 +54,7 @@ classes are survived end-to-end:
 ``[min_replicas, max_replicas]`` bound on the cell's TOTAL in-flight
 replica count, granted by the hierarchy's ``GlobalPlanner`` and enforced
 by the cell backends themselves (``set_lease`` on
-``ElasticClusterFrontend`` clamps every ``scale_to``) —
+``ElasticClusterFrontend`` / ``ClusterSim`` clamps every ``scale_to``) —
 so both the local ``CellController`` and a restored global plane
 replaying a stale plan are bounded by the same authority. During an
 outage the LAST granted lease stays in force: local reactive scaling
@@ -74,12 +75,6 @@ Clients (``workload.clients.ClientPool``) submit to the *router*, not a
 cell: ``MultiCellBackend`` exposes the same frontend facade
 (``alloc_rid`` / ``submit`` / ``abandon`` / ``ledger`` / ``t`` /
 ``run_until_drained``) so the pool is reused unchanged.
-
-Not yet ported, and raising when given: fluid ``ClusterSim`` cells (they
-come with the simulator). The reference's mixed federations, and its
-fluid-cell branches of the snapshot, the blackout, the scaling and the
-tick, wait for it; every path of an all-elastic federation is the
-reference's.
 """
 from __future__ import annotations
 
@@ -215,11 +210,13 @@ class MultiCellBackend:
     protocol (``num_nodes`` = number of cells) plus the frontend facade
     closed-loop clients need. See module docstring for the failure model.
 
-    ``cells`` are ``ElasticClusterFrontend`` (request-level) instances.
-    They share ONE global ``RequestLedger`` (theirs is replaced) and always
-    tick with zero open-loop arrival rate — the router owns rid allocation
-    and arrival generation, so per-cell counters can never collide in the
-    shared ledger. Intra-cell placement is reactive weighted-capacity over the
+    ``cells`` mixes ``ElasticClusterFrontend`` (request-level) and
+    ``ClusterSim`` (fluid) instances. Elastic cells share ONE global
+    ``RequestLedger`` (theirs is replaced) and always tick with zero
+    open-loop arrival rate — the router owns rid allocation and arrival
+    generation, so per-cell counters can never collide in the shared
+    ledger. Fluid cells receive their routed share of the arrival-rate
+    mass. Intra-cell placement is reactive weighted-capacity over the
     cell's own (locally fresh) node state — the decentralized half of the
     design: a partition starves the *global* view, never the local one."""
 
@@ -231,10 +228,6 @@ class MultiCellBackend:
                  ledger: Optional[RequestLedger] = None):
         if not cells:
             raise ValueError("MultiCellBackend needs at least one cell")
-        if not all(self._is_elastic(c) for c in cells):
-            raise NotImplementedError("fluid ClusterSim cells are not yet "
-                                      "ported (they come with the "
-                                      "simulator)")
         self.cells = list(cells)
         self.n_cells = len(self.cells)
         self.num_nodes = self.n_cells          # the plane sees cells as nodes
@@ -246,8 +239,10 @@ class MultiCellBackend:
         self.max_queue = max_queue
         self.rng = np.random.default_rng(seed)
         self.ledger = RequestLedger() if ledger is None else ledger
-        for cell in self.cells:
-            cell.ledger = self.ledger          # ONE ledger across the fleet
+        self._elastic = [self._is_elastic(c) for c in self.cells]
+        for cell, el in zip(self.cells, self._elastic):
+            if el:
+                cell.ledger = self.ledger      # ONE ledger across the fleet
         self.t = 0
         self._req_id = 0
         self._acc = 0.0
@@ -276,6 +271,7 @@ class MultiCellBackend:
         # here (note_local_action) so the federation metrics expose them
         self._local_actions_acc = 0
         self.local_actions_total = 0
+        self._fluid_backlog = 0.0              # evacuated fluid work mass
         self._live_m: list = [{} for _ in self.cells]
         self.views = [MetricsView(*self._snapshot(c))
                       for c in range(self.n_cells)]
@@ -291,23 +287,44 @@ class MultiCellBackend:
         feed would deliver this tick). Only called when the feed is up."""
         cell = self.cells[c]
         m = self._live_m[c]
-        q = float(cell.queue_depths().sum())
-        cap = float(cell.request_capacity().sum())
-        tiered = len(cell.tiers) > 1
-        press = float(cell.tiers.pressure(cell.tier_depths()).sum()) \
-            if tiered else q
-        snap = {
-            "queue": q, "capacity": cap, "pressure": press,
-            "risk": float(cell.preempt_risk().mean()),
-            "in_flight": int(cell.in_flight().sum()),
-            "active": int(sum(len(n.live) for n in cell.nodes)),
-            "speed": float(np.mean(cell.node_speed)),
-            "util": float(m.get("mean_utilization", 0.0)),
-        }
+        if self._elastic[c]:
+            q = float(cell.queue_depths().sum())
+            cap = float(cell.request_capacity().sum())
+            tiered = len(cell.tiers) > 1
+            press = float(cell.tiers.pressure(cell.tier_depths()).sum()) \
+                if tiered else q
+            snap = {
+                "queue": q, "capacity": cap, "pressure": press,
+                "risk": float(cell.preempt_risk().mean()),
+                "in_flight": int(cell.in_flight().sum()),
+                "active": int(sum(len(n.live) for n in cell.nodes)),
+                "speed": float(np.mean(cell.node_speed)),
+                "util": float(m.get("mean_utilization", 0.0)),
+            }
+        else:
+            s = cell.state
+            q = float(s.queue.sum())
+            cap = float(cell.capacity().sum()) * self.tick_seconds
+            press = float(cell.tiers.pressure(cell.tier_queue).sum()) \
+                if cell.tier_queue is not None else q
+            snap = {
+                "queue": q, "capacity": cap, "pressure": press,
+                "risk": float(cell.preempt_risk().mean()),
+                "in_flight": int((s.active + s.pending.sum(axis=1)).sum()),
+                "active": int(s.active.sum()),
+                "speed": float(np.mean(cell.node_speed)),
+                "util": float(m.get("mean_utilization", 0.0)),
+            }
         return snap, m
 
+    def _elastic_cells(self):
+        return [c for c in range(self.n_cells) if self._elastic[c]]
+
     def _outstanding(self) -> int:
-        return len(self.pending) + sum(c._outstanding() for c in self.cells)
+        out = len(self.pending)
+        for c in self._elastic_cells():
+            out += self.cells[c]._outstanding()
+        return out
 
     # ----------------------------------------------------- frontend facade
     def alloc_rid(self) -> int:
@@ -320,6 +337,9 @@ class MultiCellBackend:
         cell). Duplicate suppression and admission shedding both happen
         HERE — a request never reaches a cell unless it is the rid's only
         live attempt and its tier is currently admitted."""
+        if not any(self._elastic):
+            raise RuntimeError(
+                "submit() needs at least one request-level (elastic) cell")
         if req.arrival == 0.0:
             req.arrival = float(self.t)
         if not self.ledger.register(req):
@@ -342,17 +362,19 @@ class MultiCellBackend:
     def finished(self) -> list:
         """All completions across the federation + router-level culls."""
         out = list(self.culled)
-        for cell in self.cells:
-            out.extend(cell.finished)
+        for c in self._elastic_cells():
+            out.extend(self.cells[c].finished)
         return out
 
-    # fleet-stat aggregation over the cells, so drivers report a
+    # fleet-stat aggregation over the elastic cells, so callers report a
     # federation exactly like a single frontend (``launch.serve``)
     def _sum_attr(self, name: str) -> int:
-        return sum(getattr(cell, name) for cell in self.cells)
+        return sum(getattr(self.cells[c], name)
+                   for c in self._elastic_cells())
 
     def _sum_call(self, name: str):
-        return sum(getattr(cell, name)() for cell in self.cells)
+        return sum(getattr(self.cells[c], name)()
+                   for c in self._elastic_cells())
 
     @property
     def replicas_spawned(self) -> int:
@@ -402,15 +424,18 @@ class MultiCellBackend:
     def cell_down(self, c: int) -> None:
         """Blackout cell ``c``: evacuate everything it holds through the
         ledger-safe path and merge it back into the global pool in arrival
-        order for re-routing."""
+        order for re-routing (fluid cells return work *mass* instead)."""
         self._check_cell(c)
         if not self._alive[c]:
             raise ValueError(f"cell c{c} is already down")
         self._alive[c] = False
         self.cell_downs += 1
-        evac = self.cells[c].blackout()
-        self.evacuated_total += len(evac)
-        _requeue_merged(self.pending, evac)
+        if self._elastic[c]:
+            evac = self.cells[c].blackout()
+            self.evacuated_total += len(evac)
+            _requeue_merged(self.pending, evac)
+        else:
+            self._fluid_backlog += self.cells[c].blackout()
 
     def cell_up(self, c: int) -> None:
         """Restore cell ``c`` (capacity returns through provisioning)."""
@@ -477,10 +502,12 @@ class MultiCellBackend:
     # ------------------------------------------------------------- arrivals
     def _generate_arrivals(self, arrival_rate: float, w: np.ndarray):
         """Open-loop arrivals: the elastic cells' combined routing share
-        becomes discrete requests (router-owned rids)."""
+        becomes discrete requests (router-owned rids); fluid cells consume
+        their share as rate mass inside their own tick."""
         if self.request_factory is None or arrival_rate <= 0.0:
             return
-        self._acc += arrival_rate * self.tick_seconds * float(sum(w))
+        e_share = float(sum(w[c] for c in self._elastic_cells()))
+        self._acc += arrival_rate * self.tick_seconds * e_share
         n = int(self._acc)
         self._acc -= n
         for _ in range(n):
@@ -492,10 +519,11 @@ class MultiCellBackend:
 
     def _distribute(self, w: np.ndarray, shed: frozenset):
         """Place the global pool: cull expired, shed overloaded tiers,
-        route the rest to the cells ∝ weight. Zero total weight (full
-        blackout) parks everything — the retry-pool semantics of the
-        all-false-mask rule."""
-        we = np.asarray(w, np.float64)
+        route the rest to elastic cells ∝ weight. Zero total weight over
+        elastic cells (full blackout) parks everything — the retry-pool
+        semantics of the all-false-mask rule."""
+        eidx = self._elastic_cells()
+        we = np.asarray([w[c] for c in eidx], np.float64)
         s = we.sum()
         routable = s > 1e-12
         if routable:
@@ -513,9 +541,10 @@ class MultiCellBackend:
             elif not routable:
                 hold.append(req)
             else:
-                # one cell: no rng draw (single-cell parity)
-                c = 0 if self.n_cells == 1 else \
-                    int(self.rng.choice(self.n_cells, p=we))
+                if len(eidx) == 1:
+                    c = eidx[0]       # no rng draw: single-cell parity
+                else:
+                    c = eidx[int(self.rng.choice(len(eidx), p=we))]
                 self.cells[c].pending.append(req)
         self.pending = hold
 
@@ -589,21 +618,37 @@ class MultiCellBackend:
         tgt = max(int(tgt), 0)
         if tgt == self.cell_in_flight(c):
             return                     # no total change: never reshuffle
-        ok = [i for i, nd in enumerate(cell.nodes)
-              if not nd.down and nd.preempt_left < 0]
-        if not ok:
-            return
-        per = np.zeros(cell.num_nodes, np.int32)
-        base, rem = divmod(tgt, len(ok))
-        for j, i in enumerate(ok):
-            per[i] = base + (1 if j < rem else 0)
-        cell.scale_to(per)
+        if self._elastic[c]:
+            ok = [i for i, nd in enumerate(cell.nodes)
+                  if not nd.down and nd.preempt_left < 0]
+            if not ok:
+                return
+            per = np.zeros(cell.num_nodes, np.int32)
+            base, rem = divmod(tgt, len(ok))
+            for j, i in enumerate(ok):
+                per[i] = base + (1 if j < rem else 0)
+            cell.scale_to(per)
+        else:
+            s = cell.state
+            ok = [i for i in range(cell.cfg.num_nodes)
+                  if not cell._preempt_down[i] and s.notice_left[i] < 0]
+            if not ok:
+                return
+            per = (s.active + s.pending.sum(axis=1)).copy()
+            base, rem = divmod(tgt, len(ok))
+            for j, i in enumerate(ok):
+                per[i] = base + (1 if j < rem else 0)
+            cell.scale_to(per)
 
     def cell_in_flight(self, c: int) -> int:
         """Live total in-flight replicas of ONE cell (local, never stale —
         what a CellController may legitimately observe at tick rate)."""
         self._check_cell(c)
-        return int(self.cells[c].in_flight().sum())
+        cell = self.cells[c]
+        if self._elastic[c]:
+            return int(cell.in_flight().sum())
+        s = cell.state
+        return int((s.active + s.pending.sum(axis=1)).sum())
 
     # ---------------------------------------------------------------- tick
     def tick(self, arrival_rate: float = 0.0) -> dict:
@@ -616,6 +661,17 @@ class MultiCellBackend:
             self.views, self._alive, self._plane_stale)
         self._generate_arrivals(arrival_rate, w)
         self._distribute(w, shed)
+        # fluid share: routed rate mass + re-injected evacuated backlog
+        fidx = [c for c in range(self.n_cells) if not self._elastic[c]]
+        fluid_extra = np.zeros(self.n_cells, np.float64)
+        if fidx and self._fluid_backlog > 0.0:
+            wf = np.asarray([w[c] for c in fidx], np.float64)
+            if wf.sum() > 1e-12:
+                share = wf / wf.sum()
+                for j, c in enumerate(fidx):
+                    fluid_extra[c] = self._fluid_backlog * share[j] \
+                        / max(self.tick_seconds, 1e-9)
+                self._fluid_backlog = 0.0
         # a dark plane ages EVERY feed together (plane_staleness), on top
         # of any per-cell partition still running its own clock
         plane_dark = self._plane_left != 0
@@ -627,11 +683,17 @@ class MultiCellBackend:
         else:
             self._plane_stale = 0
         for c, cell in enumerate(self.cells):
-            # intra-cell routing: reactive weighted-capacity over the
-            # cell's OWN (locally fresh) node state
-            cell.route(normalize_fractions(cell.capacity(),
-                                           mask=cell.up_mask()))
-            self._live_m[c] = cell.tick(0.0)
+            if self._elastic[c]:
+                # intra-cell routing: reactive weighted-capacity over the
+                # cell's OWN (locally fresh) node state
+                cell.route(normalize_fractions(cell.capacity(),
+                                               mask=cell.up_mask()))
+                self._live_m[c] = cell.tick(0.0)
+            else:
+                fr = normalize_fractions(cell.capacity(),
+                                         mask=cell.state.up)
+                rate = float(arrival_rate) * float(w[c]) + fluid_extra[c]
+                self._live_m[c] = cell.tick(rate, fr)
             # feed update: partitioned cells age instead (their live
             # metrics exist — the plane just can't see them)
             if plane_dark or self._partition[c] != 0:
@@ -734,7 +796,8 @@ class MultiCellBackend:
             "lease_util": self._lease_util(),
             "local_actions": float(self._take_local_actions()),
         }
-        rates = [c.service_rate for c in self.cells if c.service_rate]
+        rates = [c.service_rate for e, c in zip(self._elastic, self.cells)
+                 if e and c.service_rate]
         m["service_rate"] = float(np.mean(rates)) if rates else None
         if len(self.tiers) > 1:
             tq = np.zeros((len(self.tiers), self.n_cells), np.float32)
@@ -769,9 +832,11 @@ class MultiCellBackend:
             for _ in range(max_steps):
                 if self._outstanding() == 0:
                     return
-                if self.pending and not self._alive.any():
-                    self.cell_up(0)           # parked work needs a home
-                for c, cell in enumerate(self.cells):
+                eidx = self._elastic_cells()
+                if self.pending and not any(self._alive[c] for c in eidx):
+                    self.cell_up(eidx[0])     # parked work needs a home
+                for c in eidx:
+                    cell = self.cells[c]
                     if not self._alive[c] or cell._outstanding() == 0:
                         continue
                     if not any(n.live or n.spawning for n in cell.nodes):

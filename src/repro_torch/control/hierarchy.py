@@ -1,7 +1,6 @@
 """Decentralized two-level control: per-cell autoscalers under capacity
 leases, with a crash-tolerant global plane (the port of
-``repro.control.hierarchy``, over request-level cells; the fluid cells of
-the reference wait for the simulator).
+``repro.control.hierarchy``).
 
 The paper's fault-tolerance claim is that *decentralised decision-making*
 keeps scaling responsive when the central coordinator degrades. With
@@ -131,8 +130,12 @@ class CellController:
     def _signals(self) -> tuple:
         """(utilization proxy, queue, capacity) from LIVE cell state."""
         cell = self.backend.cells[self.c]
-        q = float(cell.queue_depths().sum())
-        cap = float(cell.request_capacity().sum())
+        if self.backend._elastic[self.c]:
+            q = float(cell.queue_depths().sum())
+            cap = float(cell.request_capacity().sum())
+        else:
+            q = float(cell.state.queue.sum())
+            cap = float(cell.capacity().sum()) * self.backend.tick_seconds
         m = self.backend._live_m[self.c]
         util = float(m.get("mean_utilization", 0.0)) if m else 0.0
         return util, q, cap

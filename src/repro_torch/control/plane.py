@@ -7,13 +7,16 @@ Per tick (Eq.1-11):
        when a trained forecaster is given, last-value persistence otherwise,
     2. balancer action a_t (MADRL GCN+DDPG, or the RRA/LCA/WRR baselines),
     3. backend advances one dt under a_t,
-    4. RL reward (replay and training are not yet ported),
+    4. RL reward/replay (optional training: with ``train_rl`` the plane
+       stores each transition and runs a DDPG update every
+       ``train_every`` ticks),
     5. autoscaling: GPSO replans every ``scale_interval`` ticks with
        volatility-aware headroom + an instantaneous-overload emergency path;
        the HPA/RBAS rule baselines observe every tick.
 
 **Where it runs.** The plane's device work -- the GCN actor (both layers
-through the ``gcn_layer`` kernel), the tensor balancers and GPSO -- runs on
+through the ``gcn_layer`` kernel), its DDPG updates, the tensor balancers,
+the GRU forecast and GPSO -- runs on
 ``device`` (default ``"cuda"``). On a card it runs on a CUDA stream of its
 own: the backend's decode runs on the default stream, and the fractions and
 the plan the plane fetches to the host then wait only for the plane's own
@@ -23,10 +26,11 @@ tick. The observation, the window and the metrics stay numpy, as in the
 reference.
 
 **Accounting.** ``host_s`` sums the host seconds of each phase (forecast,
-balance, scale); ``fetches`` / ``fetch_wait`` count the plane's blocking
-device-to-host fetches (the fractions, and the GPSO plan through the
+balance, learn -- the replay and the DDPG updates --, scale);
+``fetches`` / ``fetch_wait`` count the plane's blocking device-to-host
+fetches (the GRU forecast, the fractions, and the GPSO plan through the
 ``fetch`` the plane hands the autoscaler) apart from the engine's
-``syncs``.
+``syncs`` (a training balancer counts its own: ``RLBalancer.fetches``).
 
 ``state_dict`` / ``load_state_dict`` snapshot every piece of mutable
 decision state (forecast window, residual tracker, fractions, tick counter,
@@ -94,9 +98,6 @@ class ControlPlane:
                  init_arrival: float = 1.0, device="cuda"):
         if balancer == "rl" and rl is None:
             raise ValueError("balancer='rl' needs an RLBalancer instance")
-        if train_rl:
-            raise NotImplementedError("train_rl (DDPG training) is not yet "
-                                      "ported")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.backend = backend
@@ -119,7 +120,8 @@ class ControlPlane:
         self._prev = None            # (obs, action, reward) of the last tick
         self._resid = np.zeros(64, np.float32)   # rolling forecast residuals
         self._prev_fc1 = None
-        self.host_s = {"forecast": 0.0, "balance": 0.0, "scale": 0.0}
+        self.host_s = {"forecast": 0.0, "balance": 0.0, "learn": 0.0,
+                       "scale": 0.0}
         self.fetches = 0
         self.fetch_wait = 0.0
         self._stream = None
@@ -256,7 +258,7 @@ class ControlPlane:
 
     # ---------------------------------------------------------------- tick
     def step(self, arrival_rate: float) -> dict:
-        """One forecast -> balance -> advance -> scale tick."""
+        """One forecast -> balance -> advance -> (learn) -> scale tick."""
         cfg = self.cfg
         t0 = time.perf_counter()
         fc = self._forecast(arrival_rate)
@@ -275,7 +277,14 @@ class ControlPlane:
                                    cfg.alpha, cfg.beta, m["overload"],
                                    slo_cost=cfg.slo_gamma *
                                    float(m.get("tier_slo_cost") or 0.0))
+            if self._prev is not None and self.train_rl:
+                self.rl.observe(self._prev[0], self._prev[1],
+                                float(self._prev[2]), obs, up)
+                if self.t % self.train_every == 0:
+                    with self._on_plane():
+                        self.rl.train_step()
             self._prev = (obs, self.fractions, reward)
+        t4 = time.perf_counter()
 
         self._scale(m, fc, arrival_rate)
 
@@ -284,7 +293,8 @@ class ControlPlane:
         self.t += 1
         self.host_s["forecast"] += t1 - t0
         self.host_s["balance"] += t2 - t1
-        self.host_s["scale"] += time.perf_counter() - t3
+        self.host_s["learn"] += t4 - t3
+        self.host_s["scale"] += time.perf_counter() - t4
         return m
 
     def run(self, arrivals: np.ndarray) -> list:

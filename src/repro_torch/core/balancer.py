@@ -81,8 +81,10 @@ class RLBalancer:
     the topology's graph fits one block (``ddpg.actor_fits``), else
     "layered": both GCN layers through the ``gcn_layer`` kernel, the head
     as eager ops. ``layered=True`` forces the latter (the A/B against the
-    fused path). Training is not yet ported (the serve path never
-    trains)."""
+    fused path). ``train_step`` runs one ``ddpg.ddpg_update`` on a batch
+    sampled from the numpy replay buffer by ``_rng`` -- the generator the
+    exploration noise comes from, drawn in the reference's order -- and
+    fetches its two losses in one device-to-host copy (``fetches``)."""
     cluster_cfg: "ClusterConfig"
     feat_dim: int
     seed: int = 0
@@ -104,6 +106,7 @@ class RLBalancer:
         self.buffer = ddpg.ReplayBuffer(cfg.buffer_size, cfg.num_nodes,
                                         self.feat_dim)
         self._rng = np.random.default_rng(self.seed)
+        self.fetches = 0
 
     # -- acting ---------------------------------------------------------
     def act(self, obs, up_mask, explore: bool = False):
@@ -124,8 +127,21 @@ class RLBalancer:
                         np.asarray(next_obs), np.asarray(up_mask))
 
     def train_step(self):
-        raise NotImplementedError("RLBalancer.train_step (DDPG training) is "
-                                  "not yet ported")
+        cfg = self.cluster_cfg
+        if self.buffer.size < cfg.batch_size:
+            return {}
+        batch = tuple(host_to_device(a, self.device) for a in
+                      self.buffer.sample(self._rng, cfg.batch_size))
+        tup = (self.state.actor, self.state.critic,
+               self.state.actor_target, self.state.critic_target)
+        tup, metrics = ddpg.ddpg_update(
+            tup, self.a_hat, batch, gamma=cfg.gamma, tau=cfg.tau,
+            actor_lr=cfg.actor_lr, critic_lr=cfg.critic_lr,
+            fused_target=self.actor == "fused")
+        self.state = ddpg.DDPGState(*tup)
+        losses = torch.stack(list(metrics.values())).cpu().tolist()
+        self.fetches += 1
+        return dict(zip(metrics, losses))
 
 
 def reward_fn(response_time, utilization, alpha, beta, overload,

@@ -10,11 +10,17 @@ Critic: Q(S_t, A_t) — GCN embeddings concat per-node action, shared MLP,
 summed over nodes (permutation-equivariant).
 
 The greedy action runs as one launch of the GCN kernel (``ops.gcn_actor``)
-or layered; ``RLBalancer`` chooses once, from the graph's size. Parameters are nested dicts
-of tensors. ``init_*`` draw them from a ``torch.Generator``;
-``repro_torch.bridge.rl_from_jax`` carries the reference's across instead.
-Training (``ddpg_update``) belongs to a later slice of the port: the serve
-path acts greedily and never trains.
+or layered; ``RLBalancer`` chooses once, from the graph's size. Parameters
+are nested dicts of tensors. ``init_*`` draw them from a
+``torch.Generator``; ``repro_torch.bridge.rl_from_jax`` carries the
+reference's across instead.
+
+Training (``ddpg_update``, Eq.8) is the reference's step: one TD step of
+the critic and one policy-gradient step of the actor, each a plain SGD step
+``p - lr·g`` on gradients clipped to norm 1, then polyak target updates.
+Gradients through the GCN come from ``core.gcn.GCNLayer``, whose backward
+is the ``gcn_layer_bwd`` kernel on the card. Nothing in the update reads a
+value back to the host.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gcn import gcn_apply, init_gcn
+from repro_torch.core.tree import leaves, tree_map, value_and_grad
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import he_init
 
@@ -131,11 +138,20 @@ class DDPGState:
 
 
 def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return tree.clone()
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def polyak(target, online, tau):
+    return tree_map(lambda t, o: (1 - tau) * t + tau * o, target, online)
+
+
+def clip_by_norm(grads, max_norm=1.0):
+    """Scale a gradient tree to global norm at most ``max_norm`` (on the
+    device: the norm is never read back)."""
+    g2 = sum(torch.sum(torch.square(g)) for g in leaves(grads))
+    scale = torch.clamp(max_norm / torch.clamp(torch.sqrt(g2), min=1e-9),
+                        max=1.0)
+    return tree_map(lambda g: g * scale, grads)
 
 
 def init_ddpg(generator, feat_dim, cfg) -> DDPGState:
@@ -144,6 +160,45 @@ def init_ddpg(generator, feat_dim, cfg) -> DDPGState:
     return DDPGState(actor, critic, _clone(actor), _clone(critic))
 
 
-def ddpg_update(*args, **kwargs):
-    """The TD + policy-gradient step (Eq.8) belongs to the training slice."""
-    raise NotImplementedError("ddpg_update (DDPG training) is not yet ported")
+def ddpg_update(state_tuple, a_hat, batch, *, gamma, tau, actor_lr,
+                critic_lr, fused_target=True):
+    """One TD + policy-gradient step (Eq.8). state_tuple = (actor, critic,
+    actor_t, critic_t); batch = (obs, act, rew, nxt, mask), tensors on
+    a_hat's device. Returns the new tuple and the losses (0-d tensors, not
+    fetched).
+
+    GCN launches on the card (L GCN layers): the target action, one fused
+    ``gcn_actor`` launch (``fused_target``; else L layered); the target,
+    online and actor-loss critics and the actor's action, L ``gcn_layer``
+    launches each; L ``gcn_layer_bwd`` launches for the critic's gradient
+    and L for the actor's (dX on all layers but the first, whose input is
+    the observation). The critic's GCN in the actor loss takes no gradient:
+    its parameters are held constant there, as the reference's are."""
+    actor, critic, actor_t, critic_t = state_tuple
+    obs, act, rew, nxt, mask = batch
+
+    with torch.no_grad():
+        next_a = actor_action(actor_t, a_hat, nxt, up_mask=mask,
+                              fused=fused_target)
+        target_q = rew + gamma * critic_q(critic_t, a_hat, nxt, next_a)
+
+    def critic_loss(c):
+        q = critic_q(c, a_hat, obs, act)
+        return torch.mean(torch.square(q - target_q))
+
+    c_loss, c_grads = value_and_grad(critic_loss, critic)
+    c_grads = clip_by_norm(c_grads)
+    critic = tree_map(lambda p, g: p - critic_lr * g, critic, c_grads)
+
+    def actor_loss(a):
+        action = actor_action(a, a_hat, obs, up_mask=mask, fused=False)
+        return -torch.mean(critic_q(critic, a_hat, obs, action))
+
+    a_loss, a_grads = value_and_grad(actor_loss, actor)
+    a_grads = clip_by_norm(a_grads)
+    actor = tree_map(lambda p, g: p - actor_lr * g, actor, a_grads)
+
+    actor_t = polyak(actor_t, actor, tau)
+    critic_t = polyak(critic_t, critic, tau)
+    return (actor, critic, actor_t, critic_t), {"critic_loss": c_loss,
+                                                "actor_loss": a_loss}

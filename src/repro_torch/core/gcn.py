@@ -8,6 +8,12 @@ are (N, F) node-feature matrices or batched (..., N, F). Every layer of
 ``gcn_apply`` runs through ``ops.gcn_layer``: the hand-written CUDA kernel
 on a CUDA tensor, its plain version on a CPU tensor. The reference computes
 the same function as an XLA einsum; its Pallas kernel is held to that.
+
+When a gradient is needed (the DDPG update) each layer runs as
+``GCNLayer``, an autograd function whose forward is ``ops.gcn_layer`` and
+whose backward is ``ops.gcn_layer_bwd``: the backward kernel on the card,
+autograd through the plain version on the CPU. The reference's Pallas
+kernel has no VJP; it differentiates its plain XLA GCN.
 """
 from __future__ import annotations
 
@@ -52,15 +58,42 @@ def init_gcn(generator: torch.Generator, in_dim: int, hidden: int,
     }
 
 
+class GCNLayer(torch.autograd.Function):
+    """One GCN layer with its gradient: forward ``ops.gcn_layer``, backward
+    ``ops.gcn_layer_bwd`` (dX only when x needs it). a_hat takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, a_hat, x, w, b, relu):
+        out = ops.gcn_layer(a_hat, x, w, b, relu=relu)
+        ctx.save_for_backward(a_hat, x, w, b, out)
+        ctx.relu = relu
+        return out
+
+    @staticmethod
+    def backward(ctx, dh):
+        a_hat, x, w, b, out = ctx.saved_tensors
+        dx, dw, db = ops.gcn_layer_bwd(a_hat, x, w, b, out, dh.contiguous(),
+                                       relu=ctx.relu,
+                                       need_dx=ctx.needs_input_grad[1])
+        return None, dx, dw, db, None
+
+
 def gcn_apply(params, a_hat, x, final_activation=None):
     """x: (..., N, F) -> (..., N, H). a_hat: (N, N) normalized adjacency.
     Inner layers apply the relu inside the kernel; the last layer applies
-    ``final_activation`` if one is given."""
+    ``final_activation`` if one is given. Layers run as ``GCNLayer`` when
+    autograd records and x or a layer's weights need a gradient."""
     lead = x.shape[:-2]
     h = x.reshape((-1,) + tuple(x.shape[-2:])) if len(lead) > 1 else x
     n_layers = len(params["w"])
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):
-        h = ops.gcn_layer(a_hat, h, w, b, relu=i < n_layers - 1)
+        relu = i < n_layers - 1
+        if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad
+                                        or b.requires_grad):
+            h = GCNLayer.apply(a_hat, h, w, b, relu)
+        else:
+            h = ops.gcn_layer(a_hat, h, w, b, relu=relu)
     if final_activation is not None:
         h = final_activation(h)
     return h.reshape(tuple(lead) + tuple(h.shape[-2:]))

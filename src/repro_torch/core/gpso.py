@@ -58,24 +58,26 @@ class TorchKey:
             self.seq.entropy, spawn_key=self.seq.spawn_key + (n, i)),
             self.device) for i in range(n)]
 
-    def _gen(self) -> torch.Generator:
+    def generator(self) -> torch.Generator:
+        """A ``torch.Generator`` on the key's device seeded from the key
+        (the same one each time: the key is a value)."""
         seed = int(self.seq.generate_state(1, np.uint64)[0])
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def uniform(self, shape, lo=0.0, hi=1.0) -> torch.Tensor:
-        u = torch.rand(tuple(shape), generator=self._gen(),
+        u = torch.rand(tuple(shape), generator=self.generator(),
                        device=self.device)
         return torch.clamp(u * (hi - lo) + lo, min=lo)
 
     def randint(self, shape, lo: int, hi: int) -> torch.Tensor:
-        return torch.randint(lo, hi, tuple(shape), generator=self._gen(),
-                             device=self.device)
+        return torch.randint(lo, hi, tuple(shape),
+                             generator=self.generator(), device=self.device)
 
     def categorical(self, logits: torch.Tensor, n: int) -> torch.Tensor:
         """n draws from softmax(logits) (1-D) by the Gumbel-max trick: on
         the device, with no host sync."""
-        u = torch.rand((n,) + tuple(logits.shape), generator=self._gen(),
-                       device=self.device)
+        u = torch.rand((n,) + tuple(logits.shape),
+                       generator=self.generator(), device=self.device)
         tiny = torch.finfo(u.dtype).tiny
         gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
         return torch.argmax(logits + gumbel, dim=-1)

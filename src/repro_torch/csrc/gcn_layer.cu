@@ -60,6 +60,30 @@
 // One layer takes F up to ~1,800 at any N; the action at the paper's widths
 // takes N up to 144 nodes (F 12) or 126 (F 36), A_hat being N x N.
 //
+// The backward of one layer (gcn_layer_bwd_launch), for the DDPG update's
+// gradients. The reference's Pallas kernel has no VJP: it trains through
+// its plain XLA GCN. With H = act(A_hat . X . W + b) and G = dH where the
+// layer's relu passed (H > 0; everywhere without the relu), one launch
+// computes dW = sum_b (A_hat . X_b)^T . G_b, db = sum_{b, nodes} G and,
+// when asked, dX_b = A_hat^T . (G_b . W^T). It recomputes A_hat . X (a
+// tile of N x 4, cheap) instead of having the forward save it, so the
+// forward kernel is unchanged. At the update's shapes (Bt 128 graphs of N 8
+// or 16, F 36 or 64 into H 64) a launch moves 0.7-1.6 MB and does 5-42
+// MFLOP: under 0.7 us at 3.35 TB/s or at 67 TFLOP/s f32; like the forward,
+// it is bound by its launch and its chains of loads and barriers.
+// So the work spreads over the card: dW is cut into tiles of 4 input
+// features and the batch into chunks of up to 128 nodes (8 graphs of 16),
+// one block each (144 blocks at N 16, F 36), and each block leaves its
+// tile's partial sum over its chunk. The sums over the batch are
+// deterministic -- no float atomics, no order that depends on scheduling:
+// every partial entry is one thread's sum in row order, and the last block
+// of a tile to finish (an integer ticket counter a tile, which the wrapper
+// keeps zeroed per device and the launch leaves zero) adds the tile's
+// partials in chunk order. Block 0's tile also sums db. dX takes one block
+// a graph, with W staged in shared memory (coalesced loads, rows padded
+// against bank conflicts). Two runs of the same training give the same
+// weights.
+//
 // For tools/gcn_breakdown.py, -DGCN_SKIP=bits leaves parts of the action
 // out (1 the head's products, 2 the products by W, 4 the products
 // A_hat . h, 8 the copies of A_hat and the weights, 16 the softmax), so
@@ -580,6 +604,148 @@ int launch(const void* a, const void* x, const Layers& ly, const Head& hd,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------- backward
+constexpr int kBwdFT = 4;      // rows of dW (input features) a block
+constexpr int kBwdRows = 128;  // graph nodes a dW block sums, whole graphs
+
+__host__ __device__ inline int round4(int floats) { return (floats + 3) & ~3; }
+
+// Graphs a dW block sums: whole graphs, up to kBwdRows nodes.
+__host__ __device__ inline int bwd_graphs(int n) {
+  return n >= kBwdRows ? 1 : kBwdRows / n;
+}
+
+// Floats of dynamic shared memory: the dW blocks' A_hat, X and A_hat . X
+// tiles and G; the dX blocks' A_hat, G, G . W^T and W (rows padded to
+// h + 1, so a warp's 32 rows fall in 32 banks).
+inline int bwd_smem_floats(int n, int f, int h, bool with_dx) {
+  const int rows = bwd_graphs(n) * n;
+  const int wblk = round4(n * n) + 2 * round4(rows * kBwdFT) +
+                   round4(rows * h);
+  const int xblk = round4(n * n) + round4(n * h) + round4(n * f) +
+                   round4(f * (h + 1));
+  return with_dx && xblk > wblk ? xblk : wblk;
+}
+
+// G at flat index i of (batch, n, h): dH, zeroed where the relu did not pass.
+__device__ inline float grad_pre(const float* __restrict__ out,
+                                 const float* __restrict__ dh, long long i,
+                                 int relu) {
+  const float g = __ldg(dh + i);
+  return relu && !(__ldg(out + i) > 0.f) ? 0.f : g;
+}
+
+// Grid: w_blocks x chunks dW blocks, then (dx) one block a graph. dW block
+// (t, c) sums rows 4t .. 4t + 4 of dW (t == 0: and db) over chunk c's
+// graphs into part (chunks, f, h) and part_db (chunks, h); the last of a
+// tile's blocks to finish -- found by its ticket counter, which it leaves
+// zero -- sums the tile's partials in chunk order into dw (and db).
+__global__ void __launch_bounds__(kThreads)
+gcn_bwd_kernel(const float* __restrict__ a, const float* __restrict__ x,
+               const float* __restrict__ w, const float* __restrict__ out,
+               const float* __restrict__ dh, float* __restrict__ dx,
+               float* __restrict__ dw, float* __restrict__ db,
+               float* __restrict__ part, float* __restrict__ part_db,
+               int* __restrict__ tickets, int batch, int n, int f, int h,
+               int relu, int w_blocks, int chunks) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool merge_s;
+  const int tid = threadIdx.x;
+  float* as = smem;  // A_hat (n x n)
+  for (int i = tid; i < n * n; i += kThreads) as[i] = __ldg(a + i);
+
+  if (static_cast<int>(blockIdx.x) < w_blocks * chunks) {
+    const int tile = blockIdx.x % w_blocks, chunk = blockIdx.x / w_blocks;
+    const int f0 = tile * kBwdFT, ft = min(kBwdFT, f - f0);
+    const int gpc = bwd_graphs(n);
+    const int rows = min(gpc, batch - chunk * gpc) * n;
+    const long long base = static_cast<long long>(chunk) * gpc * n;
+    float* xs = as + round4(n * n);              // (rows, ft) of X
+    float* ax = xs + round4(gpc * n * kBwdFT);   // (rows, ft) of A_hat . X
+    float* gs = ax + round4(gpc * n * kBwdFT);   // (rows, h) of G
+    for (int i = tid; i < rows * ft; i += kThreads) {
+      const int r = i / ft, c = i % ft;
+      xs[i] = __ldg(x + (base + r) * f + f0 + c);
+    }
+    for (int i = tid; i < rows * h; i += kThreads)
+      gs[i] = grad_pre(out, dh, base * h + i, relu);
+    __syncthreads();
+    for (int i = tid; i < rows * ft; i += kThreads) {  // graph by graph
+      const int r = i / ft, c = i % ft, node = r % n;
+      const float* xg = xs + (r - node) * ft;
+      float s = 0.f;
+      for (int m = 0; m < n; ++m) s = fmaf(as[node * n + m], xg[m * ft + c], s);
+      ax[i] = s;
+    }
+    __syncthreads();
+    float* pw = part + (static_cast<long long>(chunk) * f + f0) * h;
+    for (int i = tid; i < ft * h; i += kThreads) {  // each entry one thread's
+      const int c = i / h, k = i % h;
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s = fmaf(ax[r * ft + c], gs[r * h + k], s);
+      pw[i] = s;
+    }
+    if (tile == 0) {
+      for (int k = tid; k < h; k += kThreads) {
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s += gs[r * h + k];
+        part_db[static_cast<long long>(chunk) * h + k] = s;
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      merge_s = atomicAdd(tickets + tile, 1) == chunks - 1;
+      if (merge_s) tickets[tile] = 0;  // every chunk of the tile is in
+    }
+    __syncthreads();
+    if (!merge_s) return;
+    __threadfence();
+    for (int i = tid; i < ft * h; i += kThreads) {  // in chunk order
+      float s = 0.f;
+      for (int c = 0; c < chunks; ++c)
+        s += __ldcg(part + (static_cast<long long>(c) * f + f0) * h + i);
+      dw[static_cast<long long>(f0) * h + i] = s;
+    }
+    if (tile == 0) {
+      for (int k = tid; k < h; k += kThreads) {
+        float s = 0.f;
+        for (int c = 0; c < chunks; ++c)
+          s += __ldcg(part_db + static_cast<long long>(c) * h + k);
+        db[k] = s;
+      }
+    }
+    return;
+  }
+
+  // dX of one graph: A_hat^T . (G . W^T)
+  const long long bi = blockIdx.x - static_cast<long long>(w_blocks) * chunks;
+  float* gs = as + round4(n * n);  // (n, h) of G
+  float* ts = gs + round4(n * h);  // (n, f) of G . W^T
+  float* ws = ts + round4(n * f);  // (f, h + 1) of W
+  for (int i = tid; i < n * h; i += kThreads)
+    gs[i] = grad_pre(out, dh, bi * n * h + i, relu);
+  for (int i = tid; i < f * h; i += kThreads)  // coalesced, then padded
+    ws[i / h * (h + 1) + i % h] = __ldg(w + i);
+  __syncthreads();
+  for (int i = tid; i < n * f; i += kThreads) {
+    const int r = i / f, c = i % f;
+    const float* wr = ws + c * (h + 1);
+    float s = 0.f;
+    for (int k = 0; k < h; ++k) s = fmaf(gs[r * h + k], wr[k], s);
+    ts[i] = s;
+  }
+  __syncthreads();
+  float* dxg = dx + bi * n * f;
+  for (int i = tid; i < n * f; i += kThreads) {
+    const int r = i / f, c = i % f;
+    float s = 0.f;
+    for (int m = 0; m < n; ++m) s = fmaf(as[m * n + r], ts[m * f + c], s);
+    dxg[i] = s;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -632,6 +798,44 @@ int gcn_actor_launch(const void* a, const void* x, const void* const* w,
   hd.noise_bs = noise_bs;
   hd.mask_bs = mask_bs;
   return launch(a, x, ly, hd, out, batch, n, stream);
+}
+
+// The backward of one layer. a (n, n), x (batch, n, f), w (f, h), out and
+// dh (batch, n, h): the forward's output and its gradient; dw (f, h), db
+// (h,) and dx (batch, n, f) or null (no gradient of x); part (chunks, f, h)
+// and part_db (chunks, h) scratch, chunks = ceil(batch / max(1, 128 / n));
+// tickets: ceil(f / 4) int32 zeros, left zero. Contiguous f32 device
+// pointers. relu: the layer applied its relu. Returns as gcn_layer_launch.
+int gcn_layer_bwd_launch(const void* a, const void* x, const void* w,
+                         const void* out, const void* dh, void* dx, void* dw,
+                         void* db, void* part, void* part_db, void* tickets,
+                         int batch, int n, int f, int h, int relu,
+                         void* stream) {
+  if (batch < 1 || n < 1 || f < 1 || h < 1) return -1;
+  const size_t smem =
+      static_cast<size_t>(bwd_smem_floats(n, f, h, dx != nullptr)) *
+      sizeof(float);
+  if (smem > kMaxSmem) return -1;
+  static size_t attr_set = kDefaultSmem;
+  if (smem > attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gcn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kMaxSmem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = kMaxSmem;
+  }
+  const int w_blocks = (f + kBwdFT - 1) / kBwdFT;
+  const int chunks = (batch + bwd_graphs(n) - 1) / bwd_graphs(n);
+  const int blocks = w_blocks * chunks + (dx ? batch : 0);
+  gcn_bwd_kernel<<<blocks, kThreads, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(x),
+      static_cast<const float*>(w), static_cast<const float*>(out),
+      static_cast<const float*>(dh), static_cast<float*>(dx),
+      static_cast<float*>(dw), static_cast<float*>(db),
+      static_cast<float*>(part), static_cast<float*>(part_db),
+      static_cast<int*>(tickets), batch, n, f, h, relu, w_blocks, chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* gcn_layer_error_string(int code) {

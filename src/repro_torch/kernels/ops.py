@@ -1,5 +1,6 @@
 """Public wrappers of the port's kernels: one per kernel, and for the GCN
-kernel a second, ``gcn_actor``, its whole-action entry point.
+kernel two more, ``gcn_actor``, its whole-action entry point, and
+``gcn_layer_bwd``, one layer's backward.
 
 A wrapper runs the kernel's plain version (``kernels.ref``) when its
 tensors lie on the CPU, and launches the CUDA kernel when they lie on a
@@ -21,7 +22,7 @@ from repro_torch.kernels import decode_attention, flash_attention as fa
 from repro_torch.kernels import gcn_fused, ref, ssd_scan as ssd
 
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "gcn_layer": 0,
-            "ssd_scan": 0}
+            "gcn_layer_bwd": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -205,6 +206,49 @@ def gcn_layer(a_hat: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     gcn_fused.launch(a_hat, x3, w, b, out, relu)
     LAUNCHES["gcn_layer"] += 1
     return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+def gcn_layer_bwd(a_hat: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor, out: torch.Tensor, dh: torch.Tensor, *,
+                  relu: bool = True, need_dx: bool = True) -> tuple:
+    """The backward of ``gcn_layer``: for out = relu?(a_hat . x . w + b)
+    and its gradient dh (like out), returns (dx or None, dw, db), dw and db
+    summed over the batch, in f32. The kernel masks dh by ``out`` > 0 (the
+    relu's derivative) and never reads b; the plain version differentiates
+    ``ref.gcn_layer_ref`` at b. Contiguous inputs, as ``gcn_layer``."""
+    if not _on_cuda("gcn_layer_bwd", a_hat, x, w, b, out, dh):
+        return ref.gcn_layer_bwd_ref(a_hat, x, w, b, dh, relu=relu,
+                                     need_dx=need_dx)
+    for t in (a_hat, x, w, b, out, dh):
+        if t.dtype != torch.float32:
+            raise TypeError(f"gcn_layer_bwd: f32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("gcn_layer_bwd: inputs must be contiguous, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+    if x.dim() not in (2, 3) or w.dim() != 2:
+        raise ValueError(f"gcn_layer_bwd: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}")
+    n, f = x.shape[-2:]
+    h = w.shape[1]
+    want = tuple(x.shape[:-1]) + (h,)
+    if tuple(a_hat.shape) != (n, n) or w.shape[0] != f \
+            or tuple(b.shape) != (h,) or tuple(out.shape) != want \
+            or tuple(dh.shape) != want:
+        raise ValueError(f"gcn_layer_bwd: a_hat {tuple(a_hat.shape)}, x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}, out "
+                         f"{tuple(out.shape)}, dh {tuple(dh.shape)} do not "
+                         "chain")
+    if gcn_fused.bwd_smem_bytes(n, f, h, need_dx) > gcn_fused.MAX_SMEM:
+        raise ValueError(f"gcn_layer_bwd: a graph of {n} nodes (F {f}, H "
+                         f"{h}) does not fit one block's shared memory")
+    x3 = x.reshape(-1, n, f)
+    dw = torch.empty((f, h), dtype=torch.float32, device=x.device)
+    db = torch.empty((h,), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x3) if need_dx else None
+    gcn_fused.launch_bwd(a_hat, x3, w, out.reshape(-1, n, h),
+                         dh.reshape(-1, n, h), dx, dw, db, relu)
+    LAUNCHES["gcn_layer_bwd"] += 1
+    return (dx.reshape(x.shape) if need_dx else None), dw, db
 
 
 def gcn_actor_fits(n: int, f: int, h: int, hidden: int,

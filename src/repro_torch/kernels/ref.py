@@ -7,7 +7,8 @@ card. Both take a ragged S (no tile size assumed), and ``flash_decode_ref``
 takes a per-row ``pos`` (B,) -- the serving slot pool, where every slot sits
 at its own fill depth; ``flash_decode_split_ref`` is the same function
 computed as the split-KV kernel does, chunk partials merged by their
-log-sum-exp. ``gcn_layer_ref`` is one layer of the paper's Eq. 6, and
+log-sum-exp. ``gcn_layer_ref`` is one layer of the paper's Eq. 6
+(``gcn_layer_bwd_ref`` its gradients, by autograd through it), and
 ``gcn_actor_ref`` the balancer's whole greedy action over it (GCN layers,
 ``actor_head_ref``'s head, mask and softmax) -- ``core.ddpg``'s layered
 path runs the same head after its GCN layers.
@@ -235,6 +236,19 @@ def gcn_layer_ref(a_hat, x, w, b, *, relu=True):
     if relu:
         h = torch.relu(h)
     return h.to(x.dtype)
+
+
+def gcn_layer_bwd_ref(a_hat, x, w, b, dh, *, relu=True, need_dx=True):
+    """The gradients of ``gcn_layer_ref`` at (x, w, b) for the output's
+    gradient ``dh``, by autograd through it: (dx or None, dw, db). x: (N, F)
+    or (Bt, N, F); dh like the output. dw and db sum over the batch."""
+    x = x.detach().float().requires_grad_(need_dx)
+    w, b = (t.detach().float().requires_grad_() for t in (w, b))
+    with torch.enable_grad():
+        out = gcn_layer_ref(a_hat, x, w, b, relu=relu)
+        leaves = [x, w, b] if need_dx else [w, b]
+        grads = torch.autograd.grad(out, leaves, dh.float())
+    return (grads[0] if need_dx else None,) + tuple(grads[-2:])
 
 
 def actor_head_ref(h, obs, head, up_mask=None, noise=None):

@@ -1,6 +1,7 @@
-"""SLO tiers and the synthetic arrival trace (copies of
-``repro.workload.trace``'s ``TierSet``/``parse_tiers`` and
-``TraceConfig``/``generate_trace``; numpy only).
+"""SLO tiers, the synthetic arrival trace and the forecaster's training
+windows (copies of ``repro.workload.trace``'s ``TierSet``/``parse_tiers``,
+``TraceConfig``/``generate_trace``, ``LOAD_LEVELS`` and
+``make_forecast_dataset``; numpy only).
 
 Real inference fleets serve several QoS classes over one pool
 (interactive premium traffic, default standard traffic, throughput-oriented
@@ -178,3 +179,18 @@ def generate_trace(cfg: TraceConfig = TraceConfig(), seed: int = 0,
                   - cfg.cost_lognorm_sigma ** 2 / 2)
     return {"arrivals": arrivals.astype(np.float32),
             "cost_mult": cost.astype(np.float32)}
+
+
+LOAD_LEVELS = {"low": 0.5, "medium": 1.0, "high": 1.8, "ultra": 2.8}
+
+
+def make_forecast_dataset(arrivals: np.ndarray, window: int, horizon: int):
+    """Sliding windows for forecaster training: (M, W, 1), (M, T, 1)."""
+    T = arrivals.shape[0]
+    xs, ys = [], []
+    scale = arrivals.mean()
+    a = arrivals / scale
+    for i in range(T - window - horizon):
+        xs.append(a[i:i + window, None])
+        ys.append(a[i + window:i + window + horizon, None])
+    return np.stack(xs), np.stack(ys), scale

@@ -12,8 +12,7 @@ with no controllers; a shed retry racing a cell restore. Each case runs on
 both packages with the same requests and its token streams, finish clocks,
 ledger and counts must be equal. ``--cells 2 --hierarchy`` through
 ``run_control_loop`` is held to the reference's too. The fluid
-``ClusterSim`` cases wait for the simulator's port: the port refuses a
-fluid cell.
+``ClusterSim`` cases are in ``tests/test_torch_hierarchy_fluid.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -22,20 +21,24 @@ import pytest
 
 from repro import control as jc
 from repro.configs import get_config as jax_get_config
+from repro.configs.paper_cluster import ClusterConfig as JaxClusterConfig
 from repro.models import make_model as jax_make_model
 from repro.serving import ChaosSchedule as JaxChaos
 from repro.serving import ElasticClusterFrontend as JaxElastic
 from repro.serving import ReplicaEngine as JaxReplica
 from repro.serving import Request as JaxRequest
+from repro.sim.cluster import ClusterSim as JaxClusterSim
 from repro.workload import ClientPool as JaxPool
 from repro.workload import parse_tiers as jax_parse_tiers
 from repro_torch import control as tc
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.configs.paper_cluster import ClusterConfig
 from repro_torch.launch import serve
 from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import ChaosSchedule, ElasticClusterFrontend
 from repro_torch.serving.engine import ReplicaEngine, Request
+from repro_torch.sim.cluster import ClusterSim
 from repro_torch.workload.clients import ClientPool
 from repro_torch.workload.trace import parse_tiers
 from test_torch_control_loop import (assert_loops_match, port_loop,
@@ -202,8 +205,17 @@ def test_global_planner_matches_reference():
 
 
 def test_fluid_cells_are_refused():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tc.MultiCellBackend([object()])
+    """Fluid cells take the routed rate mass, never requests: a federation
+    of fluid cells refuses a submission, as the reference's does."""
+    for mc, req in (
+            (tc.MultiCellBackend([ClusterSim(ClusterConfig(num_nodes=2),
+                                             2.0, device="cpu")]),
+             Request(0, [1, 2], max_new_tokens=2)),
+            (jc.MultiCellBackend([JaxClusterSim(
+                JaxClusterConfig(num_nodes=2), 2.0)]),
+             JaxRequest(0, [1, 2], max_new_tokens=2))):
+        with pytest.raises(RuntimeError, match="elastic"):
+            mc.submit(req)
 
 
 # ------------------------------------------------------ elastic federations
