@@ -154,7 +154,9 @@ the script exits non-zero:
      ``ref.gcn_layer_ref``) at the DDPG update's shapes -- 128 graphs of 8
      and 16 nodes, 36 -> 64 with relu and 64 -> 64 without, dX on and off
      -- within 1e-5, two launches bit-equal; times of one GCN's backward
-     against the plain version, a ``torch.matmul`` chain and the bound;
+     against the plain version, a ``torch.matmul`` chain and the bound,
+     and of gcn_layer (the forward) at the same shapes against its plain
+     version, a ``matmul``/``addmm`` chain and the bound;
      (b) one ``ddpg_update`` at the paper's ClusterConfig() (16 nodes,
      batch 128) on the card against the CPU within 1e-4, its launches as
      derived, its host and device ms and idle share; (c) an RRA episode
@@ -167,13 +169,39 @@ the script exits non-zero:
      host ms a tick per method and a forecaster step's ms; (e) a training
      episode of OURS at ClusterConfig(), counted the same way, with its
      syncs a tick.
+ 12. the vlm and audio families at full width and depth, bf16 weights
+     from seed 0, through the engine API with per-request extras (the
+     reference's CLI reaches neither): both attention kernels against
+     their plain versions at the new shapes in f32 and bf16, q drawn at 3x
+     so the outputs are O(1), each also held to an rms-relative error
+     (internvl2-2b's
+     prefill of 1,025 patches + 511 tokens, causal, qpg 2, hd 128;
+     whisper-base's encoder over 1,500 frames and its decoder's
+     cross-attention of 127 queries over them, full, qpg 1, hd 64;
+     flash_decode over internvl2-2b's 3,073-position pool and whisper's
+     self cache and 1,500-position cross cache at position 1,499); then
+     per arch a drain of 16 requests with extras on one ReplicaEngine of
+     8 slots (internvl2-2b at max_seq 2048, so the reference's retirement,
+     which counts the patch prefix, cuts no request; whisper-base at its
+     own 448), counted -- flash_attention 24 an admit and flash_decode 24
+     a step for internvl2-2b, 18 and 12 for whisper-base (encoder, self,
+     cross) -- every request finished with a non-empty stream; a single
+     admit's host ms (staging its extras included) and device ms; the
+     drain's own full-slot decode steps, host ms against the device ms of
+     their graph replays (CUDA events), and their idle share; tok/s;
+     the kernels timed at its shapes; and in f32 the first four requests
+     alone through the kernel and the einsum paths, their logit gap at
+     prefill and the first decode step held to F32_PATH_TOL and their
+     greedy streams compared.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
 gcn_layer, mamba2's for ssd_scan; gcn_layer_bwd's from the experiment of
-phase 11, where gcn_layer's are given too; the attention kernels' ``moe``
-entries give their times at the MoE heads and their launches on the MoE
-paths); the last line is ``{"ok": true, "device": {...}}``.
+phase 11, where gcn_layer's are given too, with its times at the DDPG
+update's shapes under ``update``; the attention kernels' ``moe`` entries
+give their times at the MoE heads and their launches on the MoE paths,
+their ``vlm`` and ``audio`` entries those of phase 12); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -635,12 +663,19 @@ def _serve_args(serve, backend="pallas"):
 def _per_dispatch(cfg) -> dict:
     """Launches of each kernel per (prefill, decode) dispatch of ``cfg``'s
     model: the attention kernels once per attention layer (the hybrid's
-    shared block once per invocation), ssd_scan once per mamba layer in
-    prefill and never in decode. gcn_layer runs in the plane: once a
+    shared block once per invocation; the audio family's prefill once per
+    encoder layer and twice per decoder layer, its decode twice per
+    decoder layer), ssd_scan once per mamba layer in prefill and never in
+    decode. gcn_layer runs in the plane: once a
     tick (the balancer's whole action)."""
     from repro_torch.models.ssm_lm import n_invocations
 
-    dense = cfg.family in ("dense", "moe")     # attention LMs, no SSM
+    if cfg.family == "audio":   # encoder, decoder self and cross; decode:
+        L = cfg.num_layers      # self and cross over the cached K/V
+        return {"flash_decode": (0, 2 * L),
+                "flash_attention": (cfg.encoder_layers + 2 * L, 0),
+                "ssd_scan": (0, 0)}
+    dense = cfg.family in ("dense", "moe", "vlm")  # attention LMs, no SSM
     attn = cfg.num_layers if dense else n_invocations(cfg)
     return {"flash_decode": (0, attn), "flash_attention": (attn, 0),
             "ssd_scan": (0 if dense else cfg.num_layers, 0)}
@@ -1330,29 +1365,33 @@ def _time_decode(torch, F, ops, ref, q, views, pos, label: str) -> dict:
 
 
 def _time_attention(torch, F, ops, ref, gen, kb, sb, G, qpg, hd,
-                    label: str) -> dict:
-    """Causal flash_attention at (kb prompts, bucket sb), bf16: kernel,
-    plain and sdpa times, and the bound."""
+                    label: str, causal: bool = True, sk=None) -> dict:
+    """flash_attention at (kb prompts, bucket sb), causal, or full over
+    ``sk`` keys (default sb), bf16: kernel, plain and sdpa times, and the
+    bound."""
     bf = torch.bfloat16
+    sk = sk or sb
     q = torch.randn(kb, sb, G, qpg, hd, generator=gen, device="cuda").to(bf)
-    k = torch.randn(kb, sb, G, hd, generator=gen, device="cuda").to(bf)
-    v = torch.randn(kb, sb, G, hd, generator=gen, device="cuda").to(bf)
+    k = torch.randn(kb, sk, G, hd, generator=gen, device="cuda").to(bf)
+    v = torch.randn(kb, sk, G, hd, generator=gen, device="cuda").to(bf)
     q4 = q.reshape(kb, sb, G * qpg, hd).transpose(1, 2)
     n = 10
-    ms = _graph_ms(torch, lambda: [ops.flash_attention(q, k, v, causal=True)
+    ms = _graph_ms(torch, lambda: [ops.flash_attention(q, k, v,
+                                                       causal=causal)
                                    for _ in range(n)], n)
-    plain = _graph_ms(torch, lambda: [ref.flash_attention_ref(q, k, v)
-                                      for _ in range(n)], n)
+    plain = _graph_ms(torch, lambda: [ref.flash_attention_ref(
+        q, k, v, causal=causal) for _ in range(n)], n)
     lib = _graph_ms(torch, lambda: [F.scaled_dot_product_attention(
-        q4, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        q4, k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
         enable_gqa=True) for _ in range(n)], n)
-    nbytes = 2 * (2 * kb * sb * G * qpg * hd + 2 * kb * sb * G * hd)
-    flops = 4 * hd * kb * G * qpg * sb * (sb + 1) // 2
+    nbytes = 2 * (2 * kb * sb * G * qpg * hd + 2 * kb * sk * G * hd)
+    pairs = sb * (sb + 1) // 2 if causal else sb * sk   # scores computed
+    flops = 4 * hd * kb * G * qpg * pairs
     bound, by = _bound(nbytes, flops)
-    log(f"[times] flash_attention {label} B={kb} S={sb} Hq={G * qpg} "
-        f"Hkv={G} hd={hd} causal bf16: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
-        f"{nbytes} B, {flops} flop)")
+    log(f"[times] flash_attention {label} B={kb} S={sb} Sk={sk} "
+        f"Hq={G * qpg} Hkv={G} hd={hd} {'causal' if causal else 'full'} "
+        f"bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} "
+        f"ms, bound {bound:.4f} ms ({by}: {nbytes} B, {flops} flop)")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=lib)
 
@@ -2817,6 +2856,66 @@ def phase_bwd(torch, ops, ref, gen) -> dict:
     return row, worst
 
 
+def _fwd_chain(torch, a, x, w, b, relu):
+    """One layer's forward as ``torch.matmul`` and ``torch.addmm``: the
+    library yardstick (the port never calls it)."""
+    f, h = w.shape
+    y = torch.addmm(b, torch.matmul(a, x).reshape(-1, f), w)
+    return (torch.relu(y) if relu else y).reshape(*x.shape[:-1], h)
+
+
+def phase_update_fwd(torch, ops, ref, gen) -> dict:
+    """gcn_layer (the forward) at the DDPG update's shapes -- BWD_BATCH
+    graphs of N nodes, 36 -> 64 with relu and 64 -> 64 without, two
+    launches a GCN, ``_update_launches`` GCNs' worth an update -- against
+    its plain version (within GCN_TOL), the matmul/addmm chain and the
+    bound. Returns {N: row} for the kernels line."""
+    from repro_torch.core.gcn import make_topology, normalize_adjacency
+
+    out = {}
+    per_update = _update_launches(2, True)[0]
+    for n in BWD_NODES:
+        a = torch.from_numpy(normalize_adjacency(make_topology(n))).cuda()
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+        for f, h, relu in BWD_LAYERS:
+            x = torch.randn((BWD_BATCH, n, f), generator=gen, device="cuda")
+            w = torch.randn((f, h), generator=gen, device="cuda") \
+                * (2.0 / f) ** 0.5
+            b = 0.1 * torch.randn((h,), generator=gen, device="cuda")
+            torch.testing.assert_close(
+                ops.gcn_layer(a, x, w, b, relu=relu),
+                ref.gcn_layer_ref(a, x, w, b, relu=relu), **GCN_TOL)
+            n_in = 20
+            ms = _graph_ms(torch, lambda: [ops.gcn_layer(a, x, w, b,
+                                                         relu=relu)
+                                           for _ in range(n_in)], n_in)
+            plain = _graph_ms(torch, lambda: [ref.gcn_layer_ref(
+                a, x, w, b, relu=relu) for _ in range(n_in)], n_in)
+            lib = _graph_ms(torch, lambda: [_fwd_chain(torch, a, x, w, b,
+                                                       relu)
+                                            for _ in range(n_in)], n_in)
+            bt = BWD_BATCH
+            nbytes = 4 * (n * n + bt * n * f + f * h + h + bt * n * h)
+            flops = 2 * bt * n * n * f + 2 * bt * n * f * h + bt * n * h \
+                * (2 if relu else 1)
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("nbytes", nbytes), ("flops", flops)):
+                tot[k] += v
+        bound, by = _bound(tot["nbytes"], tot["flops"], F32_FLOPS_PER_S)
+        out[n] = dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bound,
+                      bound_by=by, library_ms=tot["library_ms"],
+                      launches_per_update=per_update,
+                      timed_at=f"one GCN's forward in the update: Bt "
+                               f"{BWD_BATCH}, N {n}, 36->64 relu + 64->64 "
+                               "(two launches)")
+        log(f"[times] gcn_layer at the update's shapes, one GCN (2 launches;"
+            f" {per_update} launches an update) at Bt={BWD_BATCH} N={n}: "
+            f"kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f}, "
+            f"matmul/addmm chain {tot['library_ms']:.4f}, bound {bound:.6f} "
+            f"({by}: {tot['nbytes']} B, {tot['flops']} flop)")
+    return out
+
+
 def _np_batch(n, feat, batch, seed):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -3046,13 +3145,414 @@ def phase_experiment(torch, ops) -> dict:
 
 def phase_sim(torch, ops, ref) -> tuple:
     """Phase 11, (a)-(e). Returns the gcn_layer_bwd JSON row, its worst
-    parity error and the experiment's launch counts."""
+    parity error, the experiment's launch counts and gcn_layer's rows at
+    the update's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     row, err = phase_bwd(torch, ops, ref, gen)
+    fwd = phase_update_fwd(torch, ops, ref, gen)
     phase_update(torch, ops)
     phase_episode(torch)
     exp = phase_experiment(torch, ops)
-    return row, err, exp
+    return row, err, exp, fwd
+
+
+# ----------------------------------------------------------------- phase 12
+# the vlm and audio families at full width and depth, through the engine
+# API with per-request extras (the reference's CLI reaches neither). max_seq
+# 2048 holds internvl2-2b's longest request whole (1,025 patches + 511
+# prompt tokens + 63 new), so the retirement that counts the patch prefix
+# (pos >= max_seq - 1, the reference's rule) cuts no request; 448 is
+# whisper's own decoder context (arXiv:2212.04356)
+EXTRA_ARCHS = {"internvl2-2b": dict(max_seq=2048, max_prompt=512),
+               "whisper-base": dict(max_seq=448, max_prompt=128)}
+EXTRA_PATHS = 4        # requests of the f32 kernel-vs-einsum comparison
+# the parity inputs' query scale: with unit q and k the scores have std ~1
+# and the softmax spreads over ~Sk / e keys, so at 1,500 keys an output is
+# ~0.035, no larger than the bf16 tolerance; at 3x the scores have std ~3,
+# a few keys dominate and the outputs are O(1)
+EXTRA_Q_SCALE = 3.0
+# and rms(err) / rms(plain) at most this, in both dtypes: rounding the
+# probabilities and the outputs to bf16 leaves a few 1e-3 of the rms, a
+# tile of keys dropped or misplaced leaves 1e-2 to 1e-1
+EXTRA_REL_TOL = 0.01
+
+
+def _extras(cfg, n: int, seed: int) -> list:
+    """``n`` requests' extras from a numpy RNG x 0.1 (f32 on the host; the
+    engine stages them in the weights' dtype)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    name, length = (("patch_embeds", cfg.num_patches) if cfg.family == "vlm"
+                    else ("frame_embeds", cfg.encoder_seq_len))
+    return [{name: (0.1 * rng.standard_normal((1, length, cfg.d_model),
+                                              dtype=np.float32))}
+            for _ in range(n)]
+
+
+def phase_parity_extras(torch, ops, ref, gen) -> dict:
+    """Both attention kernels against their plain versions at this phase's
+    new shapes, f32 and bf16: flash_attention over internvl2-2b's patch
+    prefix and longest prompt (1,025 + 511, causal, 8 x 2 heads, hd 128),
+    whisper-base's encoder (1,500 frames, full, 8 x 1, hd 64) and its
+    decoder's cross-attention (127 queries over 1,500 keys, full); and
+    flash_decode over internvl2-2b's pool (8 rows of 3,073 positions,
+    ragged depths past the prefix) and whisper-base's self cache (8 x 448)
+    and cross cache (8 x 1,500, every row at position 1,499). q is drawn
+    at ``EXTRA_Q_SCALE`` so the outputs are O(1); each shape is held to
+    the dtype's tolerance and its error's rms to ``EXTRA_REL_TOL`` of the
+    plain output's."""
+    errs = {"flash_decode": 0.0, "flash_attention": 0.0}
+
+    def close(name, got, want, dname, what):
+        err = _close(name, got, want, dname, torch)
+        want = want.float()
+        rel = ((got.float() - want).pow(2).mean().sqrt()
+               / want.pow(2).mean().sqrt()).item()
+        log(f"[parity] {name} {what} {dname}: max|err|={err:.3e} (atol/rtol "
+            f"{TOLS[dname]['atol']}), rms(err) / rms(plain) = {rel:.3e} "
+            f"(tolerance {EXTRA_REL_TOL}), max|plain| "
+            f"{want.abs().max().item():.3f}")
+        if not rel <= EXTRA_REL_TOL:
+            raise AssertionError(f"{name} {what} {dname}: rms(err) / "
+                                 f"rms(plain) = {rel:.3e}")
+        errs[name] = max(errs[name], err)
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    attn = [((1, 1025 + 511, 8, 2, 128), 1025 + 511, True),
+            ((1, 1500, 8, 1, 64), 1500, False),
+            ((1, 127, 8, 1, 64), 1500, False)]
+    dec = [((8, 8, 2, 128), 3073, _ragged_pos(torch, gen, 8, 1025, 3072)),
+           ((8, 8, 1, 64), 448, _ragged_pos(torch, gen, 8, 1, 447)),
+           ((8, 8, 1, 64), 1500, torch.full((8,), 1499, dtype=torch.int32,
+                                            device="cuda"))]
+    for dname, dt in dtypes.items():
+        for (B, S, G, qpg, hd), sk, causal in attn:
+            q = (EXTRA_Q_SCALE * torch.randn(B, S, G, qpg, hd, generator=gen,
+                                             device="cuda")).to(dt)
+            k = torch.randn(B, sk, G, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, sk, G, hd, generator=gen, device="cuda").to(dt)
+            got = ops.flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            close("flash_attention", got, ref.flash_attention_ref(
+                q, k, v, causal=causal), dname,
+                f"B={B} S={S} Sk={sk} Hq={G * qpg} Hkv={G} hd={hd} "
+                f"causal={causal}")
+        for (B, G, qpg, hd), S, pos in dec:
+            q = (EXTRA_Q_SCALE * torch.randn(B, G, qpg, hd, generator=gen,
+                                             device="cuda")).to(dt)
+            k = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, S, G, hd, generator=gen, device="cuda").to(dt)
+            got = ops.flash_decode(q, k, v, pos)
+            torch.cuda.synchronize()
+            close("flash_decode", got, ref.flash_decode_ref(q, k, v, pos),
+                  dname, f"B={B} Hq={G * qpg} Hkv={G} hd={hd} S={S} "
+                  f"pos={pos.tolist()}")
+    return errs
+
+
+def phase_extras_drain(torch, ops, cfg, model, params, workload, extras,
+                       max_seq):
+    """The main path, counted: one ReplicaEngine (``MAX_BATCH`` slots, bf16
+    pool, the kernels) serving the workload's requests with their extras
+    until every one finishes. Each decode step's host time (its
+    ``finish_step``) and the device time of that same step's graph replay
+    (CUDA events around the replay) are kept. Returns the engine, the
+    launches, tok/s and the steps with every slot busy: host and device ms
+    (medians) and their idle share (1 - device sum / host sum)."""
+    from repro_torch.serving.engine import ReplicaEngine, Request
+
+    eng = ReplicaEngine(model, params, max_batch=MAX_BATCH, max_seq=max_seq,
+                        cache_dtype=torch.bfloat16, device="cuda")
+    replays = []
+    run = eng.graphs.run
+
+    def timed_run(key, fn):
+        n = eng.graphs.replays
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = run(key, fn)
+        end.record()
+        replays.append((start, end) if eng.graphs.replays > n else None)
+        return out
+
+    eng.graphs.run = timed_run
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reqs = []
+    for w, ex in zip(workload, extras):
+        reqs.append(Request(w["rid"], w["prompt"],
+                            max_new_tokens=w["max_new_tokens"]))
+        reqs[-1].extras = ex
+        eng.submit(reqs[-1])
+    finished, steps = [], []
+    while len(finished) < len(reqs):
+        finished += eng.begin_step()
+        busy = eng.n_decoding
+        n = len(replays)
+        t1 = time.perf_counter()
+        finished += eng.finish_step()
+        host_ms = (time.perf_counter() - t1) * 1e3
+        if len(replays) > n:
+            steps.append((busy, host_ms, replays[-1]))
+        if eng.clock > 10_000:
+            raise AssertionError(f"{cfg.name}: the drain did not end")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.graphs.run = run
+    launches = dict(ops.LAUNCHES)
+    toks = sum(len(r.output) for r in reqs)
+    shapes = len(eng._shapes)
+    log(f"[extras] {cfg.name} drain, one replica of {MAX_BATCH} slots, "
+        f"max_seq {max_seq} (a pool of {next(iter(eng.cache.values())).shape[2]}"
+        f" positions), bf16: launches {launches}; {eng.prefill_dispatches} "
+        f"single admits, {eng.steps} decode steps, {shapes} prefill shapes; "
+        f"syncs {eng.syncs}, sync wait {eng.sync_wait:.3f}s; {len(finished)} "
+        f"requests, {toks} tokens in {wall:.2f}s: {toks / wall:.1f} tok/s")
+    if len(finished) != len(reqs) or not all(r.done and r.output
+                                             for r in reqs):
+        raise AssertionError(f"{cfg.name}: {len(finished)}/{len(reqs)} "
+                             "finished, or an empty stream")
+    _check_launches(cfg, launches, eng.prefill_dispatches, eng.steps)
+    full = [(ms, ev[0].elapsed_time(ev[1])) for busy, ms, ev in steps
+            if busy == MAX_BATCH and ev is not None]
+    if not full:
+        raise AssertionError(f"{cfg.name}: no replayed step had every slot "
+                             "busy")
+    host, dev = zip(*full)
+    step = dict(n=len(full), host_ms=statistics.median(host),
+                device_ms=statistics.median(dev),
+                idle=1 - sum(dev) / sum(host))
+    return eng, launches, toks / wall, step
+
+
+def _greedy(torch, model, params, req, extras, backend, n_new):
+    """One request alone, greedy, through one backend: the stream and the
+    logits of the prefill and of every decode step."""
+    batch = {"tokens": torch.tensor([req["prompt"]], dtype=torch.int32,
+                                    device="cuda")}
+    for k, v in extras.items():
+        batch[k] = torch.from_numpy(v).cuda()
+    logits, state, pos = model.prefill(params, batch,
+                                       cache_len=len(req["prompt"]) + n_new,
+                                       cache_dtype=torch.float32,
+                                       attn_backend=backend)
+    out = [logits.float()]
+    for _ in range(n_new - 1):
+        tok = torch.argmax(out[-1], dim=-1)[:, None].to(torch.int32)
+        logits, state = model.decode(params, state, tok, pos,
+                                     attn_backend=backend)
+        pos = pos + 1
+        out.append(logits.float())
+    return out
+
+
+def phase_extras_paths(torch, cfg, workload, extras) -> None:
+    """The first ``EXTRA_PATHS`` requests in f32 at full width and depth,
+    each alone and greedy through the kernel path and the einsum path:
+    the largest |logit difference| / max|logits| at prefill and at the
+    first decode step (held to F32_PATH_TOL: the paths differ by the order
+    of f32 sums), and the streams' differences -- where a stream first
+    diverges, the einsum path's top-2 logit margin there."""
+    from repro_torch.models.model import make_model
+
+    model = make_model(cfg)
+    params = model.init(seed=SEED, dtype=torch.float32, device="cuda")
+    gap = {0: 0.0, 1: 0.0}
+    report = []
+    for w, ex in list(zip(workload, extras))[:EXTRA_PATHS]:
+        n_new = w["max_new_tokens"]
+        run = {b: _greedy(torch, model, params, w, ex, b, n_new)
+               for b in ("pallas", "einsum")}
+        for i in (0, 1):
+            e = run["einsum"][i]
+            gap[i] = max(gap[i], ((run["pallas"][i] - e).abs().max()
+                                  / e.abs().max()).item())
+        ks = [int(t.argmax()) for t in run["pallas"]]
+        es = [int(t.argmax()) for t in run["einsum"]]
+        first = next((j for j, (a, b) in enumerate(zip(ks, es)) if a != b),
+                     None)
+        if first is None:
+            report.append(f"rid {w['rid']}: {n_new} tokens equal")
+        else:
+            top2 = run["einsum"][first][0].topk(2).values
+            report.append(f"rid {w['rid']}: first differs at token {first} "
+                          f"of {n_new}, einsum top-2 margin "
+                          f"{(top2[0] - top2[1]).item():.3e}")
+    del params
+    _free(torch)
+    log(f"[paths] {cfg.name} f32 full width, {cfg.num_layers} layers, "
+        f"{EXTRA_PATHS} requests alone: max|kernel-einsum| / max|einsum| at "
+        f"prefill {gap[0]:.3e}, at the first decode step {gap[1]:.3e} "
+        f"(tolerance {F32_PATH_TOL}); greedy streams: {'; '.join(report)}")
+    if not max(gap.values()) <= F32_PATH_TOL:
+        raise AssertionError(f"{cfg.name}: f32 paths differ by "
+                             f"{max(gap.values()):.3e}")
+
+
+def phase_extras_times(torch, F, ops, ref, cfg, model, params, eng, workload,
+                       extras, max_seq, step, smi) -> dict:
+    """One admit's prefill (the longest prompt with its extras) on the host
+    clock, from staging its tokens and extras as the engine does to its
+    first token, and on the device (CUDA-graph replay); the drain's decode
+    steps with every slot busy (``step``, from ``phase_extras_drain``);
+    then the attention kernels at this model's shapes against plain, SDPA
+    and the bound. Returns the kernel rows."""
+    import numpy as np
+
+    from repro_torch.serving.engine import _stage, stage_extras
+
+    P = cfg.num_patches
+    longest = max(range(len(workload)),
+                  key=lambda i: len(workload[i]["prompt"]))
+    prompt = workload[longest]["prompt"]
+    dev = torch.device("cuda")
+
+    def stage():
+        batch = {"tokens": _stage(dev, np.asarray([prompt]))[0]}
+        batch.update(stage_extras(extras[longest], dev, torch.bfloat16))
+        return batch
+
+    def prefill(batch):
+        return model.prefill(params, batch, cache_len=len(prompt),
+                             cache_dtype=torch.bfloat16)
+
+    torch.argmax(prefill(stage())[0], dim=-1).cpu()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        torch.argmax(prefill(stage())[0], dim=-1).cpu()
+        host.append((time.perf_counter() - t0) * 1e3)
+    staged = stage()
+    prefill_dev = _graph_ms(torch, lambda: prefill(staged), 1, reps=3)
+    depth = [min(P + len(w["prompt"]) + MAX_NEW // 2, max_seq - 2)
+             for w in workload[:MAX_BATCH]]
+    pos = torch.tensor(depth, dtype=torch.int32, device="cuda")
+    log(f"[extras] {cfg.name} bf16, {smi}: single-admit prefill of "
+        f"{(P or 0) + len(prompt)} positions ({len(prompt)} tokens"
+        f"{f' after {P} patches' if P else ''}"
+        f"{f', {cfg.encoder_seq_len} frames encoded' if cfg.encoder_seq_len else ''}"
+        f"): host {statistics.median(host):.2f} ms (median of 3, from "
+        f"staging the tokens and extras to its first token), device "
+        f"{prefill_dev:.2f} ms (CUDA-graph replay, median of 3); decode "
+        f"step, {MAX_BATCH} slots, the drain's {step['n']} replayed steps "
+        f"with every slot busy: host {step['host_ms']:.2f} ms (finish_step, "
+        f"median), device {step['device_ms']:.2f} ms (CUDA events around "
+        f"the same steps' graph replays, median): idle share "
+        f"{step['idle']:.3f} (1 - device sum / host sum)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    G, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    qpg = cfg.num_heads // G
+    bf = torch.bfloat16
+    q = torch.randn(MAX_BATCH, G, qpg, hd, generator=gen, device="cuda").to(bf)
+    L = cfg.num_layers
+    if cfg.family == "vlm":
+        c = eng.cache
+        return {"flash_attention": {"prefill": _time_attention(
+            torch, F, ops, ref, gen, 1, P + len(prompt), G, qpg, hd,
+            f"{cfg.name} prefill, patches + longest prompt")},
+            "flash_decode": {"decode": _time_decode(
+                torch, F, ops, ref, q, [(c["k"][li], c["v"][li])
+                                        for li in range(L)], pos,
+                f"{cfg.name} drain pool")}}
+    c = eng.cache
+    Le = cfg.encoder_seq_len
+    cross = torch.full((MAX_BATCH,), Le - 1, dtype=torch.int32,
+                       device="cuda")
+    return {"flash_attention": {
+        "encoder": _time_attention(torch, F, ops, ref, gen, 1, Le, G, qpg,
+                                   hd, f"{cfg.name} encoder", causal=False),
+        "cross": _time_attention(torch, F, ops, ref, gen, 1, len(prompt), G,
+                                 qpg, hd, f"{cfg.name} decoder cross, the "
+                                 "longest prompt", causal=False, sk=Le),
+        "self": _time_attention(torch, F, ops, ref, gen, 1, len(prompt), G,
+                                qpg, hd, f"{cfg.name} decoder self, the "
+                                "longest prompt")},
+        "flash_decode": {
+            "cross": _time_decode(torch, F, ops, ref, q, [
+                (c["cross_k"][li], c["cross_v"][li]) for li in range(L)],
+                cross, f"{cfg.name} cross cache"),
+            "self": _time_decode(torch, F, ops, ref, q, [
+                (c["self_k"][li], c["self_v"][li]) for li in range(L)],
+                pos, f"{cfg.name} self cache")}}
+
+
+def serve_extras(torch, F, ops, ref, cfg, smi) -> dict:
+    """Phase 12 for one architecture at full width and depth, bf16 weights
+    from ``SEED``: the counted drain of requests with extras, the kernels'
+    times at its shapes, then the f32 kernel-vs-einsum comparison. Returns
+    the launches and kernel rows."""
+    from repro_torch.data.pipeline import prompt_workload
+    from repro_torch.models.model import make_model
+
+    run = EXTRA_ARCHS[cfg.name]
+    t0 = time.perf_counter()
+    model = make_model(cfg)
+    params = model.init(seed=SEED, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[model] {cfg.name}: {_describe(cfg)}"
+        + (f", {cfg.num_patches} patches" if cfg.num_patches else "")
+        + (f", encoder {cfg.encoder_layers} layers over "
+           f"{cfg.encoder_seq_len} frames" if cfg.encoder_layers else "")
+        + f"; {cfg.param_count() / 1e9:.3f} B params, "
+        f"{_param_bytes(params) / 1e9:.2f} GB in bf16, random from seed "
+        f"{SEED}, built in {time.perf_counter() - t0:.1f}s; nothing cut "
+        f"(widths and depth are the published config's)")
+    workload = prompt_workload(cfg.vocab_size, N_REQUESTS, seed=SEED,
+                               max_len=run["max_prompt"], max_new=MAX_NEW)
+    extras = _extras(cfg, N_REQUESTS, SEED + 12)
+    if cfg.family == "vlm":
+        need = cfg.num_patches + max(len(w["prompt"]) + w["max_new_tokens"]
+                                     for w in workload)
+        log(f"[extras] {cfg.name}: max_seq {run['max_seq']} because the "
+            f"reference's retirement (pos >= max_seq - 1) counts the "
+            f"{cfg.num_patches}-patch prefix: the longest request needs "
+            f"{need} positions, so no request is cut short")
+    eng, launches, tok_s, step = phase_extras_drain(
+        torch, ops, cfg, model, params, workload, extras, run["max_seq"])
+    rows = phase_extras_times(torch, F, ops, ref, cfg, model, params, eng,
+                              workload, extras, run["max_seq"], step, smi)
+    del eng, params
+    _free(torch)
+    phase_extras_paths(torch, cfg, workload, extras)
+    return {"launches": launches, "rows": rows, "tok_s": tok_s}
+
+
+def phase_families(torch, F, ops, ref, smi, errs) -> dict:
+    """Phase 12: the two architectures' runs; adds the new shapes' parity
+    errors to ``errs``. Returns each run's launches and kernel rows."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    for name, err in phase_parity_extras(torch, ops, ref, gen).items():
+        errs[name] = max(errs[name], err)
+    out = {}
+    for name in EXTRA_ARCHS:
+        out[name] = serve_extras(torch, F, ops, ref, get_config(name), smi)
+        _free(torch)
+    log(f"[extras] phase 12: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def extras_rows(rows: dict, runs: dict) -> None:
+    """The two architectures' entries in the kernels line: ``vlm`` and
+    ``audio`` under each attention kernel, with the launches of their
+    drain runs and the times at each of their shapes (the first shape's
+    numbers at the entry's top level)."""
+    from repro_torch.configs import get_config
+
+    for name, run in runs.items():
+        cfg = get_config(name)
+        for kernel in ("flash_attention", "flash_decode"):
+            shapes = run["rows"][kernel]
+            first = next(iter(shapes.values()))
+            rows[kernel][cfg.family] = dict(
+                arch=name, launches=run["launches"][kernel],
+                launches_of=f"{name}'s drain of {N_REQUESTS} requests with "
+                            "extras, one replica",
+                **first, shapes=shapes)
+
 
 
 def main() -> int:
@@ -3132,8 +3632,9 @@ def main() -> int:
                 timed_at=shape, **run[kernel])
     _free(torch)
     t_sim = time.perf_counter()
-    rows["gcn_layer_bwd"], errs["gcn_layer_bwd"], exp = phase_sim(
+    rows["gcn_layer_bwd"], errs["gcn_layer_bwd"], exp, fwd = phase_sim(
         torch, ops, ref)
+    rows["gcn_layer"]["update"] = {f"N{n}": r for n, r in fwd.items()}
     # the experiment is this kernel's main path (and the GCN's second)
     of = (f"python -m repro_torch.sim.experiment: {exp['ticks']} OURS "
           f"ticks, {exp['updates']} DDPG updates")
@@ -3142,6 +3643,8 @@ def main() -> int:
     rows["gcn_layer"]["experiment"] = dict(
         launches=exp["launches"]["gcn_layer"], launches_of=of)
     log(f"[sim] phase 11: {time.perf_counter() - t_sim:.1f}s")
+    _free(torch)
+    extras_rows(rows, phase_families(torch, F, ops, ref, smi, errs))
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

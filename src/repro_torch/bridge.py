@@ -12,7 +12,12 @@ it is. An MoE tree with ``moe_every`` 1 stacks its ``layers/moe/*`` leaves
 the same way too; with ``moe_every`` me > 1 the reference stacks layer
 groups instead: ``moe_layers`` (n_groups, ...) and ``dense_layers``
 (n_groups, me - 1, ...), which flatten to layer g·me (the MoE layer) and
-g·me + j (dense layer j - 1 of group g).
+g·me + j (dense layer j - 1 of group g). A vlm tree is the dense one
+with ``patch_proj`` beside it; the audio family's (``repro.models.encdec``)
+stacks ``enc_layers`` and ``dec_layers``, which split into one dict per
+layer the same way (LayerNorm ``scale``/``bias`` and the decoder's
+``cross``/``cross_norm`` included), beside ``embed``, ``dec_pos``,
+``enc_final_norm`` and ``dec_final_norm``.
 
 The control plane's parameters carry across the same way: ``rl_from_jax``
 maps the reference's DDPG state (actor, critic and their targets: the GCN's
@@ -61,16 +66,23 @@ def _unstack(tree, dev, *index) -> dict:
 
 
 def params_from_jax(tree: dict, device="cuda") -> dict:
-    """The reference's LM params (numpy leaves; dense, moe, ssm or hybrid)
-    as the port's: the stacked ``layers`` tree (or the moe layer groups
-    ``moe_layers`` / ``dense_layers``) split into one dict per layer, every
+    """The reference's model params (numpy leaves; any family) as the
+    port's: the stacked ``layers`` tree (or the moe layer groups
+    ``moe_layers`` / ``dense_layers``, or the audio family's
+    ``enc_layers`` and ``dec_layers``) split into one dict per layer, every
     other entry (``embed``, ``final_norm``, ``lm_head``, the hybrid's
-    unstacked ``shared_attn`` block) mapped leaf by leaf as it is."""
+    unstacked ``shared_attn`` block, the vlm's ``patch_proj``, the audio
+    family's ``dec_pos`` and final norms) mapped leaf by leaf as it is."""
     dev = resolve_device(device)
-    stacked = ("layers", "moe_layers", "dense_layers")
+    stacked = ("layers", "moe_layers", "dense_layers", "enc_layers",
+               "dec_layers")
     out = {k: _map(v, lambda a: _tensor(a, dev)) for k, v in tree.items()
            if k not in stacked}
-    if "layers" in tree:
+    if "enc_layers" in tree and "dec_layers" in tree:
+        for name in ("enc_layers", "dec_layers"):
+            n = np.asarray(next(_leaves(tree[name]))).shape[0]
+            out[name] = [_unstack(tree[name], dev, i) for i in range(n)]
+    elif "layers" in tree:
         n = np.asarray(next(_leaves(tree["layers"]))).shape[0]
         out["layers"] = [_unstack(tree["layers"], dev, i) for i in range(n)]
     elif "moe_layers" in tree and "dense_layers" in tree:
@@ -81,9 +93,11 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
             else _unstack(tree["dense_layers"], dev, g, j - 1)
             for g in range(n_groups) for j in range(me1 + 1)]
     else:
-        raise ValueError("params_from_jax maps a stacked 'layers' tree or "
+        raise ValueError("params_from_jax maps a stacked 'layers' tree, "
                          "the moe layer groups 'moe_layers' / "
-                         "'dense_layers'; other layouts are not yet ported")
+                         "'dense_layers' or the encoder-decoder's "
+                         "'enc_layers' / 'dec_layers'; got "
+                         f"{sorted(tree)}")
     return out
 
 

@@ -11,3 +11,5 @@ from repro_torch.configs import granite_3_8b  # noqa: F401
 from repro_torch.configs import qwen2_5_14b  # noqa: F401
 from repro_torch.configs import mamba2_1_3b  # noqa: F401
 from repro_torch.configs import zamba2_2_7b  # noqa: F401
+from repro_torch.configs import internvl2_2b  # noqa: F401
+from repro_torch.configs import whisper_base  # noqa: F401

@@ -2,8 +2,9 @@
 
 Every assigned architecture is expressed as an ``ArchConfig``. The model substrate
 (`repro_torch.models`) consumes these; the launchers select them via
-``--arch <id>``. The port serves the dense, moe, ssm and hybrid families;
-the others are declared so that configs stay copies of the reference's.
+``--arch <id>``. The port serves every family below; vlm and audio are
+served through the engine API (requests carrying their per-request
+extras), as in the reference, whose CLI does not reach them either.
 
 Families:
   dense   — decoder-only transformer (GQA, SwiGLU)

@@ -79,21 +79,27 @@ class GCNLayer(torch.autograd.Function):
         return None, dx, dw, db, None
 
 
-def gcn_apply(params, a_hat, x, final_activation=None):
+def gcn_apply(params, a_hat, x, activation=None, final_activation=None):
     """x: (..., N, F) -> (..., N, H). a_hat: (N, N) normalized adjacency.
-    Inner layers apply the relu inside the kernel; the last layer applies
-    ``final_activation`` if one is given. Layers run as ``GCNLayer`` when
-    autograd records and x or a layer's weights need a gradient."""
+    Inner layers apply ``activation`` (None: relu, the reference's default
+    ``jax.nn.relu``); the last layer applies ``final_activation`` if one is
+    given. Under relu the inner layers' relu runs inside the kernel; any
+    other activation runs after a kernel launched with ``relu=False``.
+    Layers run as ``GCNLayer`` when autograd records and x or a layer's
+    weights need a gradient."""
     lead = x.shape[:-2]
     h = x.reshape((-1,) + tuple(x.shape[-2:])) if len(lead) > 1 else x
     n_layers = len(params["w"])
     for i, (w, b) in enumerate(zip(params["w"], params["b"])):
-        relu = i < n_layers - 1
+        inner = i < n_layers - 1
+        relu = inner and activation is None
         if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad
                                         or b.requires_grad):
             h = GCNLayer.apply(a_hat, h, w, b, relu)
         else:
             h = ops.gcn_layer(a_hat, h, w, b, relu=relu)
+        if inner and activation is not None:
+            h = activation(h)
     if final_activation is not None:
         h = final_activation(h)
     return h.reshape(tuple(lead) + tuple(h.shape[-2:]))

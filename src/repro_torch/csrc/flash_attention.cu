@@ -52,7 +52,9 @@
 // the allocated pool. With `kv_rows` (B,) int32 given, row b of q reads row
 // kv_rows[b] of k / v, so a chunk of a few slots reads the fleet slab in
 // place, with no gather. Without them (the single-shot prefill) q_off is 0,
-// Sk = S and row b reads row b.
+// Sk = S and row b reads row b -- or, for full attention, Sk is any length:
+// the S queries of a decoder's cross-attention over Sk encoder positions
+// (every loop and mask here runs over Sk, not S).
 //
 // Layout: q (B, S, G, qpg, hd), k / v (B or more, Sk, G, hd), each by
 // strides with a contiguous last dim -- the model's grouped layout, with no
@@ -740,7 +742,8 @@ extern "C" {
 
 // dtype: 0 = float32 (SIMT body), 1 = bfloat16 (tensor-core body); q, k,
 // v and out share it. S queries a row, Sk keys. q_off (B,) int32: query i
-// of row b at position q_off[b] + i, or null for 0 (then Sk must be S).
+// of row b at position q_off[b] + i, or null for 0 (then a causal call
+// needs Sk = S; a full one takes any Sk: a cross-attention).
 // kv_rows (B,) int32: the k / v row of each q row, or null for row b.
 // q_strides (b, s, g, j), k_strides / v_strides (b, s, g), in elements.
 // Returns 0, a CUDA error code from the attribute call or the launch, or
@@ -754,7 +757,7 @@ int flash_attention_launch(int dtype, int hd, const void* q, const void* k,
                            void* stream) {
   if (B < 1 || S < 1 || Sk < 1 || G < 1 || qpg < 1 || qpg > tc::kM ||
       B > 65535 || G * qpg > 65535 || (dtype != 0 && dtype != 1) ||
-      (q_off == nullptr && Sk != S))
+      (q_off == nullptr && causal && Sk != S))
     return -1;
   return dispatch(dtype, hd, q, k, v, out, static_cast<const int*>(q_off),
                   static_cast<const int*>(kv_rows), B, S, Sk, G, qpg, causal,

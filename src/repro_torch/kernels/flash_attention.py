@@ -6,11 +6,12 @@ q ``(B, S, G, qpg, hd)`` over k/v ``(B, S, G, hd)``, read by strides in the
 model's grouped layout, with a ragged S masked in the kernel. It backs the
 bucketed prefill, and with a per-row cache offset ``q_off`` over a layer
 of the serve pool (k/v ``(R, Sk, G, hd)``, rows ``kv_rows``) every chunk of
-a chunked prefill. bf16 runs on the tensor cores (``wgmma``, the group's q
-heads packed into one 64-row tile); f32 runs SIMT, for the f32 parity
-gates. See the source for the design. Callers go through
-``repro_torch.kernels.ops``, which checks the arguments and counts
-launches.
+a chunked prefill; full attention also takes k/v of another length than
+q (``(B, Sk, G, hd)``), the cross-attention of an encoder-decoder. bf16
+runs on the tensor cores (``wgmma``, the group's q heads packed into one
+64-row tile); f32 runs SIMT, for the f32 parity gates. See the source
+for the design. Callers go through ``repro_torch.kernels.ops``, which
+checks the arguments and counts launches.
 """
 from __future__ import annotations
 

@@ -131,7 +131,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: torch.Tensor | None = None,
                     kv_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Causal or full GQA attention. Without ``q_offset``: over a whole
-    sequence, q (B, S, G, qpg, hd) against k, v (B, S, G, hd). With
+    sequence, q (B, S, G, qpg, hd) against k, v (B, S, G, hd); or, full
+    (``causal=False``), S queries against Sk keys of any length, k, v
+    (B, Sk, G, hd) -- a cross-attention over an encoder's output. With
     ``q_offset`` (B,) int32: q is one chunk of S queries against a layer of
     the serve pool, k, v (R, Sk, G, hd) with Sk >= S; query i of row b sits
     at position q_offset[b] + i and (causal) sees keys 0 .. q_offset[b] + i.
@@ -150,7 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     R, Sk = k.shape[:2]
     rows_ok = R >= B if kv_rows is not None else R == B
     if not rows_ok or tuple(k.shape[2:]) != (G, hd) \
-            or (Sk != S if q_offset is None else Sk < S):
+            or (Sk < S if q_offset is not None else causal and Sk != S):
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"match q {tuple(q.shape)} (q_offset "
                          f"{q_offset is not None}, kv_rows "

@@ -83,11 +83,25 @@ def _parse_timeout(spec: str):
         return out
 
 
+# families whose requests carry per-request extras that the CLI's workload
+# does not make: the reference's CLI fails on them too (KeyError on the
+# extra), and both packages serve them through the engine API
+_EXTRAS = {"vlm": "patch_embeds", "audio": "frame_embeds"}
+
+
 def unported(args) -> str:
     """The first flag of ``args`` that asks for a path not yet ported, or
     an empty string."""
     if args.devices > 0 or bool(args.mesh):
         return "--devices/--mesh"
+    from repro_torch.configs import REGISTRY
+
+    cfg = REGISTRY.get(args.arch)   # callers may pass a reduced config's name
+    fam = cfg.family if cfg is not None else None
+    if fam in _EXTRAS:
+        return (f"--arch {args.arch} on the CLI (a {fam} request carries a "
+                f"{_EXTRAS[fam]!r} extra the CLI's workload does not make; "
+                "serve it through ReplicaEngine with Request.extras)")
     return ""
 
 

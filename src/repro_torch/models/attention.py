@@ -57,17 +57,28 @@ def init_attention(gen: torch.Generator, d_model: int, dims: PaddedDims,
     return p
 
 
-def _project_qkv(params, x, dims: PaddedDims):
+def project_q(params, x, dims: PaddedDims):
+    """The grouped queries (B, S, G, qpg, hd) of ``x`` (B, S, d)."""
     B, S, d = x.shape
     hd = params["wq"].shape[-1]
     q = (x @ params["wq"].reshape(d, -1)).reshape(B, S, dims.n_q, hd)
-    k = (x @ params["wk"].reshape(d, -1)).reshape(B, S, dims.n_kv, hd)
-    v = (x @ params["wv"].reshape(d, -1)).reshape(B, S, dims.n_kv, hd)
     if "bq" in params:
         q = q + params["bq"]
+    return q.reshape(B, S, dims.n_kv, dims.q_per_group, hd)
+
+
+def _project_qkv(params, x, dims: PaddedDims, kv_x=None):
+    """q from ``x`` (B, S, d); k and v from ``kv_x`` (B, T, d), x itself
+    when None (cross-attention projects the encoder's output)."""
+    kv_x = x if kv_x is None else kv_x
+    B, T, d = kv_x.shape
+    hd = params["wq"].shape[-1]
+    k = (kv_x @ params["wk"].reshape(d, -1)).reshape(B, T, dims.n_kv, hd)
+    v = (kv_x @ params["wv"].reshape(d, -1)).reshape(B, T, dims.n_kv, hd)
+    if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    return q.reshape(B, S, dims.n_kv, dims.q_per_group, hd), k, v
+    return project_q(params, x, dims), k, v
 
 
 def _mask_pad_heads(ctx, dims: PaddedDims):
@@ -96,6 +107,39 @@ def _attend(q, k, v, q_pos, k_pos, causal: bool):
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bgqst,btgh->bsgqh", probs.to(v.dtype), v)
+
+
+def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
+              causal=True, kv_x=None, backend: str = "pallas", kv_out=None):
+    """Full-sequence attention (the reference's ``attention``): the queries
+    of ``x`` (B, S, d) over the keys of ``kv_x`` (B, T, d), x itself when
+    None -- an encoder's self-attention with ``causal=False``, a decoder's
+    cross-attention over the encoder's output with ``kv_x``. ``positions``
+    (S,) are the queries' (default 0 .. S-1), the keys' are 0 .. T-1; RoPE
+    rotates both when ``rope_theta`` is set. ``kv_out``, a pair of
+    (B, T, G, hd) tensors, receives the projected K and V in its own dtype
+    (the decoder's cross cache), in place. ``"pallas"`` attends through
+    ``ops.flash_attention`` (a causal call needs T == S), ``"einsum"``
+    through the reference's dense path. Returns (B, S, d_model)."""
+    S = x.shape[1]
+    q, k, v = _project_qkv(params, x, dims, kv_x)
+    T = k.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    k_pos = torch.arange(T, dtype=torch.int32, device=x.device)
+    if rope_theta:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, k_pos, rope_theta)
+    if kv_out is not None:
+        kv_out[0].copy_(k)
+        kv_out[1].copy_(v)
+    if backend == "pallas":
+        ctx = ops.flash_attention(q, k, v, causal=causal)
+    elif backend == "einsum":
+        ctx = _attend(q, k, v, positions, k_pos, causal)
+    else:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    return _out_proj(params, ctx, dims)
 
 
 def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,

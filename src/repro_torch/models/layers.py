@@ -28,6 +28,15 @@ def rms_norm(x, scale, eps=1e-5):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm over the last axis in f32, the result in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 def silu(x):
     return x * torch.sigmoid(x)
 
@@ -69,3 +78,20 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int) -> np.ndarray:
+    """Whisper-style sinusoidal embeddings (n_pos, d_model), numpy f32: the
+    reference's formula."""
+    log_timescale = np.log(10_000.0) / (d_model // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(d_model // 2, dtype=np.float32))
+    scaled = np.arange(n_pos, dtype=np.float32)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_positions_on(n_pos: int, d_model: int,
+                            device: torch.device) -> torch.Tensor:
+    """``sinusoidal_positions`` as an f32 tensor on ``device``, copied once
+    per (shape, device), as ``_rope_freqs_on`` is."""
+    return torch.from_numpy(sinusoidal_positions(n_pos, d_model)).to(device)

@@ -1,4 +1,4 @@
-"""Decoder-only LM, the dense and moe families (the port of
+"""Decoder-only LM, the dense, moe and vlm families (the port of
 ``repro.models.lm``'s serve path).
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
@@ -8,7 +8,11 @@ on an MoE layer, ``moe``) -- the reference stacks the same leaves along a
 leading layer axis for ``lax.scan``; ``repro_torch.bridge`` maps one onto
 the other. Layer i is an MoE layer iff the config uses MoE and i is a
 multiple of ``moe_every``: the reference's layer groups (one MoE layer,
-then ``moe_every - 1`` dense ones) in order, flattened.
+then ``moe_every - 1`` dense ones) in order, flattened. A vlm model has
+``patch_proj`` (d, d) too: a request's ``patch_embeds`` (B, P, d), times
+it, are prepended to its tokens, so the prompt is P + L positions, RoPE
+runs over 0 .. P + L - 1, the cache holds ``num_patches`` more positions
+than it is asked for, and every ``pos`` counts the prefix.
 
 The KV cache is a dict of two (L, B, S, G, hd) tensors, ``k`` and ``v``,
 or with ``cache_dtype="int8"`` the quantized pool of
@@ -90,7 +94,20 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
     params["layers"] = [_init_layer(gen, cfg, dims, dtype,
                                     cfg.uses_moe and i % cfg.moe_every == 0)
                         for i in range(n_layers(cfg))]
+    if cfg.family == "vlm":
+        params["patch_proj"] = he_init(gen, (cfg.d_model, cfg.d_model), dtype,
+                                       cfg.d_model)
     return params
+
+
+def embed_inputs(params, cfg, batch):
+    """Token embeddings, after the projected patch prefix for vlm. Returns
+    (h (B, S_total, d), text_start: the prefix length, 0 without one)."""
+    h = params["embed"][batch["tokens"]]                     # (B, L, d)
+    if cfg.family != "vlm":
+        return h, 0
+    patches = batch["patch_embeds"].to(h.dtype) @ params["patch_proj"]
+    return torch.cat([patches, h], dim=1), cfg.num_patches
 
 
 def _ffn_sublayer(lp, h, cfg):
@@ -157,18 +174,20 @@ def _logits(params, h):
     return h @ head if head is not None else h @ params["embed"].T
 
 
-def last_logits(params, h, cfg, lengths):
+def last_logits(params, h, cfg, lengths, text_start: int = 0):
     """Final norm and head at each row's last real position of a prompt
-    (``lengths`` (B,), or the last column when None). Returns (logits,
-    pos (B,) int32, each row's next cache index)."""
+    (``lengths`` (B,) real tokens after a prefix of ``text_start``
+    positions, or the last column when None). Returns (logits, pos (B,)
+    int32, each row's next cache index)."""
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     B, S = h.shape[:2]
     if lengths is None:
         last = h[:, -1]
         pos = torch.full((B,), S, dtype=torch.int32, device=h.device)
     else:
-        last = h[torch.arange(B, device=h.device), (lengths - 1).long()]
-        pos = lengths.to(torch.int32)
+        idx = (text_start + lengths - 1).long()
+        last = h[torch.arange(B, device=h.device), idx]
+        pos = (text_start + lengths).to(torch.int32)
     return _logits(params, last), pos
 
 
@@ -181,6 +200,10 @@ def is_int8(dtype) -> bool:
 
 def lm_init_cache(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cuda") -> dict:
+    """The KV pool of ``max_len`` positions a row (+ ``num_patches`` for
+    vlm: the prefix lives in the cache too)."""
+    if cfg.family == "vlm":
+        max_len = max_len + cfg.num_patches
     shape = (cfg.num_layers, batch, max_len, dims.n_kv,
              cfg.resolved_head_dim)
     if is_int8(dtype):
@@ -213,19 +236,20 @@ def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
 def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
                cache_dtype=torch.bfloat16, attn_backend: str = "pallas"):
     """Prefill: full forward + cache fill. Returns (last-token logits, cache,
-    pos (B,) int32).
+    pos (B,) int32). A vlm batch carries ``patch_embeds`` (B, P, d): the
+    prefix runs first, causal attention covers all P + L positions, and
+    ``pos`` counts it.
 
     ``batch["lengths"]`` (B,) marks the true prompt length per row when the
     token matrix is right-padded to a bucket length: logits are gathered at
-    ``lengths-1`` and ``pos`` is ``lengths``. Causal masking keeps real
-    positions exact under trailing pads; pad K/V beyond ``pos`` is masked by
-    the decode path until overwritten. ``cache_dtype="int8"`` runs the
+    ``lengths-1`` (after the prefix) and ``pos`` is ``lengths`` (+ P).
+    Causal masking keeps real positions exact under trailing pads; pad K/V
+    beyond ``pos`` is masked by the decode path until overwritten. ``cache_dtype="int8"`` runs the
     forward with an f32 cache and quantizes it once at the end, as the
     reference does (prefill is compute-bound; only decode needs the int8
     stream)."""
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    h = params["embed"][tokens]
+    h, text_start = embed_inputs(params, cfg, batch)
+    B = h.shape[0]
     quant = is_int8(cache_dtype)
     cache = lm_init_cache(cfg, dims, B, cache_len,
                           torch.float32 if quant else cache_dtype,
@@ -233,7 +257,8 @@ def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
     for li, lp in enumerate(params["layers"]):
         h = block_prefill(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
                           attn_backend)
-    logits, pos = last_logits(params, h, cfg, batch.get("lengths"))
+    logits, pos = last_logits(params, h, cfg, batch.get("lengths"),
+                              text_start)
     if quant:
         kq, ks = kv_quant.quantize(cache.pop("k"))
         vq, vs = kv_quant.quantize(cache.pop("v"))

@@ -1,6 +1,5 @@
 """Request-level serving engine: continuous batching over real model forwards
-(the port of ``repro.serving.engine``: the dense, moe, ssm and hybrid
-families).
+(the port of ``repro.serving.engine``: every family).
 
 ``ReplicaEngine`` runs one model replica: a slot-based KV pool on the
 device, per-slot positions (the vector-``pos`` decode path),
@@ -21,6 +20,19 @@ admit fetches its first token eagerly (one blocking sync, counted on the
 replica) and, in a fleet, registers its slot in the group's device
 operands (``FleetGroup.write_slot``); the async tick's decode around it is
 unchanged.
+
+**Requests with extras.** A vlm request carries ``extras =
+{"patch_embeds": (1, P, d)}``, an audio request ``{"frame_embeds": (1,
+Le, d)}`` (numpy or tensors; set as an attribute of the ``Request``, as in
+the reference). They take the exact-length single admit: the extras join
+the prefill's batch on the engine's device in the weights' dtype, copied
+from pinned host memory without blocking (``stage_extras``). A vlm
+pool holds ``max_seq + num_patches`` positions a row and its ``pos``
+counts the patch prefix, so the retirement at ``pos >= max_seq - 1``
+counts it too -- the reference's rule, kept for parity: a request whose
+prefix and prompt reach ``max_seq - 1`` stops after its first decoded
+token. These families run on standalone replicas only: a ``FleetGroup``
+over them raises, as nothing in the reference drives one.
 
 **SLO tiers.** Each replica's pending queue is a ``TieredQueue``: one FIFO
 per priority class (``workload.trace.TierSet``), drained in weighted-deficit
@@ -80,13 +92,13 @@ advances a step (``plan_admission`` / ``_chunk_due``). In async mode a
 cursor advances at dispatch and the final chunk's first token commits at
 the next reconcile. Chunk by chunk equals single-shot prefill.
 
-**The int8 KV cache** (``cache_dtype="int8"``, the dense and moe
-families; ssm and hybrid raise as in the reference): the pool is int8 with per-(token, head)
-f32 scales (``serving.kv_quant``); a prefill quantizes its prompt once at
-the end, a decode quantizes each new token on write and reads the pool
-through ``ops.flash_decode``, which dequantizes in its loads. The four
-leaves ride the fleet slab, its growth, backfill and ``write_slot`` like
-the float pool's two.
+**The int8 KV cache** (``cache_dtype="int8"``, the dense, moe and vlm
+families; ssm, hybrid and audio raise as in the reference): the pool is
+int8 with per-(token, head) f32 scales (``serving.kv_quant``); a prefill
+quantizes its prompt once at the end, a decode quantizes each new token on
+write and reads the pool through ``ops.flash_decode``, which dequantizes in
+its loads. The four leaves ride the fleet slab, its growth, backfill and
+``write_slot`` like the float pool's two.
 
 **Decode graphs.** On a card every decode dispatch of the async fleet tick
 and of a standalone replica replays a captured CUDA graph (``serving.
@@ -131,7 +143,7 @@ its (K, cap, B) results reconcile at the block's end with finish clocks
 decoding at its end (a lag of at most K - 1 ticks).
 
 Not yet ported, and raising when asked for: fleet-mesh sharding
-(``mesh``) and families other than dense, moe, ssm and hybrid.
+(``mesh``) and a ``FleetGroup`` of vlm or audio replicas.
 """
 from __future__ import annotations
 
@@ -256,6 +268,21 @@ def _stage(device: torch.device, *arrays) -> list:
         n = int(np.size(a))
         out.append(buf[o:o + n].view(tuple(np.shape(a))))
         o += n
+    return out
+
+
+def stage_extras(extras: dict, device: torch.device, dtype) -> dict:
+    """A request's extras (host arrays or tensors) on ``device`` in
+    ``dtype``. A host value goes through pinned memory and a non-blocking
+    copy (as ``_stage`` does), then is cast on the device; a tensor already
+    on a device is only cast."""
+    out = {}
+    for name, val in extras.items():
+        t = val if isinstance(val, torch.Tensor) \
+            else torch.from_numpy(np.array(val, order="C"))
+        if t.device.type == "cpu" and device.type == "cuda":
+            t = t.contiguous().pin_memory().to(device, non_blocking=True)
+        out[name] = t.to(device, dtype)
     return out
 
 
@@ -660,14 +687,18 @@ class ReplicaEngine:
             self._shapes.add(("bucketed", kb, sb))
         else:
             req = reqs[0]
-            if getattr(req, "extras", None):
-                raise NotImplementedError("requests with extras (vlm "
-                                          "patches, audio frames) are not "
-                                          "yet ported")
             # same overflow guard as the bucketed path
             prompt = req.prompt[-(self.max_seq - 1):]
             batch = {"tokens": _stage(self.device, [prompt])[0]}
-            self._shapes.add(("single", 1, len(prompt)))
+            shape = ("single", 1, len(prompt))
+            # per-request extras (a vlm request's patch_embeds, an audio
+            # request's frame_embeds) join the batch on the engine's
+            # device, in the weights' dtype
+            extras = stage_extras(getattr(req, "extras", None) or {},
+                                  self.device, self.params["embed"].dtype)
+            batch.update(extras)
+            self._shapes.add(shape + tuple((name,) + tuple(t.shape)
+                                           for name, t in extras.items()))
         sb = batch["tokens"].shape[1]
         logits, small, plen = self.model.prefill(
             self.params, batch, cache_len=sb, cache_dtype=self.cache_dtype,
@@ -1005,6 +1036,11 @@ class FleetGroup:
         if mesh is not None:
             raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
                                       "yet ported")
+        if model.cfg.family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"a fleet of {model.cfg.family} replicas is not yet ported "
+                "(the reference drives none either): serve these families "
+                "through standalone ReplicaEngines and requests with extras")
         self.device = resolve_device(device)
         self.model = model
         self.params = params

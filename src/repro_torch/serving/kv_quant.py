@@ -22,18 +22,18 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def quantize(x: torch.Tensor, dim: int = -1) -> tuple:
-    """x: (..., d) -> (int8 values, f32 scales with ``dim`` reduced)."""
+def quantize(x: torch.Tensor, axis: int = -1) -> tuple:
+    """x: (..., d) -> (int8 values, f32 scales with ``axis`` reduced)."""
     xf = x.float()
-    absmax = xf.abs().amax(dim=dim, keepdim=True)
+    absmax = xf.abs().amax(dim=axis, keepdim=True)
     scale = torch.where(absmax > 0, absmax / 127.0, 1.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
-    return q.to(torch.int8), scale.squeeze(dim)
+    return q.to(torch.int8), scale.squeeze(axis)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor,
-               dim: int = -1) -> torch.Tensor:
-    return q.float() * scale.unsqueeze(dim)
+               axis: int = -1) -> torch.Tensor:
+    return q.float() * scale.unsqueeze(axis)
 
 
 def init_quant_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,

@@ -117,6 +117,43 @@ def test_ops_gcn_layer_takes_plain_path_on_cpu():
 
 
 # -------------------------------------------------------------- GCN + DDPG
+@pytest.mark.parametrize("act", ["relu-default", "tanh", "tanh-grad"])
+def test_gcn_apply_activation_matches_reference(act):
+    """``gcn_apply(..., activation=)`` as the reference's: three layers
+    over 5 nodes with drawn biases, the inner activation relu (the default,
+    fused in the kernel) or tanh (after a kernel without relu), a sigmoid
+    on the last layer; 1e-6. Under "tanh-grad" the weights need a gradient,
+    so the layers run as ``GCNLayer``, and d<out, g>/dW of every layer
+    equals ``jax.grad`` of the reference's."""
+    rng = np.random.default_rng(4)
+    jp = jgcn.init_gcn(jax.random.PRNGKey(4), 6, 8, 3, out_dim=3)
+    jp = {"w": [np.asarray(w) for w in jp["w"]],
+          "b": [(0.1 * rng.standard_normal(b.shape)).astype(np.float32)
+                for b in jp["b"]]}
+    a_hat = jgcn.normalize_adjacency(jgcn.make_topology(5))
+    x = rng.standard_normal((2, 5, 6)).astype(np.float32)
+    g = rng.standard_normal((2, 5, 3)).astype(np.float32)
+    jkw = {} if act == "relu-default" else {"activation": jnp.tanh}
+    tkw = {} if act == "relu-default" else {"activation": torch.tanh}
+    tp = {k: [_t(a).requires_grad_(act == "tanh-grad") for a in v]
+          for k, v in jp.items()}
+
+    def jout(p):
+        return jgcn.gcn_apply(p, jnp.asarray(a_hat), jnp.asarray(x),
+                              final_activation=jax.nn.sigmoid, **jkw)
+    out = tgcn.gcn_apply(tp, _t(a_hat), _t(x),
+                         final_activation=torch.sigmoid, **tkw)
+    close = dict(atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout(jp)),
+                               **close)
+    if act == "tanh-grad":
+        (out * _t(g)).sum().backward()
+        jg = jax.grad(lambda p: jnp.sum(jout(p) * g))(jp)
+        for tw, jw in zip(tp["w"], jg["w"]):
+            np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jw),
+                                       **close)
+
+
 @pytest.mark.parametrize("n,lead", [(2, ()), (5, (3,)), (16, (2, 2))])
 def test_actor_and_critic_match_reference(n, lead):
     jcfg, _ = _cfgs(num_nodes=n)

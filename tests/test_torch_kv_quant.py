@@ -59,6 +59,23 @@ def test_quantize_zero_row_safe():
     assert torch.equal(s, torch.ones(2))
 
 
+def test_quantize_axis_keyword_matches_reference():
+    """``axis=`` is the reference's keyword: over axis -2 of a (2, 3, 4)
+    tensor the values stay (2, 3, 4) int8 and the scales are (2, 4), both
+    the reference's; dequantize over the same axis gives its result."""
+    x = np.random.default_rng(3).standard_normal((2, 3, 4)).astype(
+        np.float32)
+    q, s = kv_quant.quantize(torch.from_numpy(x), axis=-2)
+    jq, js = jax_kvq.quantize(jnp.asarray(x), axis=-2)
+    assert q.dtype == torch.int8 and tuple(q.shape) == (2, 3, 4)
+    assert tuple(s.shape) == (2, 4)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        kv_quant.dequantize(q, s, axis=-2).numpy(),
+        np.asarray(jax_kvq.dequantize(jq, js, axis=-2)))
+
+
 def test_quant_attention_close_to_exact():
     """Decode attention over a quantized cache written token by token stays
     within 2% of the exact f32 result; the port's dense read, its kernel's
