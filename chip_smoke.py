@@ -193,6 +193,26 @@ the script exits non-zero:
      alone through the kernel and the einsum paths, their logit gap at
      prefill and the first decode step held to F32_PATH_TOL and their
      greedy streams compared.
+ 13. model training (``python -m repro_torch.launch.train``'s stack),
+     which runs no kernel: the reference trains through einsum attention
+     and ``ssd_chunked``, and the kernels have no backward. granite-3-8b
+     reduced with the same weights on the CPU and the card: the first
+     gradient within 1e-4 of each leaf's largest |g|, three AdamW steps'
+     losses within 1e-5; the guard (flash_attention, ssd_scan,
+     flash_decode under grad raise and launch nothing). granite-3-8b at
+     full width, 4 of 40 layers (0.998 B params), f32 params and moments,
+     B 4 x S 1,024 Markov tokens: ``remat="full"`` against ``"none"`` (loss
+     and gradients within 1e-6, lower peak memory), ``grad_accum=2``
+     against 1 (the reference's 5e-5 / 5e-4), then 20 steps, counted (no
+     launches), the loss falling: tok/s, host ms against the CUDA-event
+     span and the profiler's busy time, idle share, the AdamW update's
+     share, peak memory against its reckoning, f32 MFU against 67
+     TFLOP/s. mamba2-1.3b at full width, 8 of 48 layers, 5 steps. The
+     training CLI in this process at the reference's defaults (100m, 300 steps
+     of 16 x 256, checkpoints every 100): the final loss below 0.75 x the
+     first, reported beside the unigram entropy; rerun to 320 steps, it
+     resumes from step 300; then the other families at 20m, 20 steps
+     each, losses finite and falling.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
@@ -209,6 +229,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3555,6 +3576,416 @@ def extras_rows(rows: dict, runs: dict) -> None:
 
 
 
+# --------------------------------------------------------------- phase 13
+# model training on the card (``repro_torch.launch.train``'s stack). The
+# reference trains through no Pallas kernel, and neither does the port:
+# einsum attention and ``ssd_chunked``, so no kernel launches
+TRAIN_LOSS_RTOL = 1e-5     # card against CPU, each step's loss
+TRAIN_GRAD_TOL = 1e-4      # card against CPU, of each leaf's largest |g|
+# ... floored at this share of the tree's largest |g|: a leaf whose
+# gradient is zero but for rounding (a key bias) is held to the floor
+# (tests/test_torch_train_lm.py)
+GRAD_NOISE_FLOOR = 1e-3
+REMAT_RTOL = 1e-6          # remat="full" against "none", same inputs
+ACCUM_TOL = dict(atol=5e-5, rtol=5e-4)   # tests/test_models.py:214-227
+# full width, depth cut so that f32 params, gradients and two moments fit
+# beside the activations: granite-3-8b 4 of 40 layers (0.998 B params, 16
+# B a param = 16.0 GB), mamba2-1.3b 8 of 48
+TRAIN_DEPTH = {"granite-3-8b": 4, "mamba2-1.3b": 8}
+TRAIN_STEPS = {"granite-3-8b": 20, "mamba2-1.3b": 5}
+TRAIN_B, TRAIN_S = 4, 1024
+# the training CLI's runs: the reference's defaults, then a resume, then the
+# other families at the 20m scale
+CLI_STEPS, CLI_RESUME = 300, 320
+CLI_100M = ["--scale", "100m", "--batch", "16", "--seq", "256",
+            "--ckpt-every", "100"]
+CLI_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b", "zamba2-2.7b",
+             "internvl2-2b", "whisper-base")
+
+
+def _grad_err(got, want) -> float:
+    """The largest |got - want| of a leaf over that leaf's largest |want|
+    (floored at GRAD_NOISE_FLOOR of the tree's largest), over all leaves;
+    ``got`` may lie on another device."""
+    from repro_torch.core.tree import leaves
+
+    gl, wl = leaves(got), leaves(want)
+    if len(gl) != len(wl):
+        raise AssertionError(f"{len(gl)} gradient leaves against {len(wl)}")
+    scales = [w.abs().max().item() for w in wl]
+    floor = GRAD_NOISE_FLOOR * max(scales)
+    return max((g.to(w.device) - w).abs().max().item() / max(sc, floor)
+               for g, w, sc in zip(gl, wl, scales))
+
+
+def _markov_tokens(torch, vocab: int, batch: int, seq: int, n: int) -> list:
+    from repro_torch.data.pipeline import DataLoader, MarkovCorpus
+
+    loader = DataLoader(MarkovCorpus(vocab, seed=SEED), batch, seq,
+                        seed=SEED)
+    return [torch.from_numpy(next(loader)["tokens"]) for _ in range(n)]
+
+
+def phase_train_parity(torch, ops) -> None:
+    """13 (a) granite-3-8b reduced, the same weights (seed 0, made on the
+    CPU) on the CPU and on the card, the same Markov batch: the first
+    gradient within TRAIN_GRAD_TOL of each leaf's largest, then three
+    AdamW steps (cosine schedule) whose losses agree to TRAIN_LOSS_RTOL.
+    (b) The guard: a forward under grad through flash_attention,
+    flash_decode or ssd_scan (backend "pallas") raises on the card, and
+    launches nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map, value_and_grad
+    from repro_torch.models.attention import attention
+    from repro_torch.models.model import make_model, make_train_step
+    from repro_torch.models.optim import AdamW, cosine_schedule
+    from repro_torch.models.ssd import mamba2_forward
+
+    cfg = get_config("granite-3-8b").reduced()
+    model = make_model(cfg)
+    cpu = model.init(seed=SEED, device="cpu")
+    tokens = _markov_tokens(torch, cfg.vocab_size, 8, 64, 1)[0]
+    grads, losses = {}, {}
+    for where, dev in (("cpu", "cpu"), ("card", "cuda")):
+        params = tree_map(lambda t: t.to(dev), cpu)
+        batch = {"tokens": tokens.to(dev)}
+        _, grads[where] = value_and_grad(lambda p: model.loss(p, batch),
+                                         params, has_aux=True)
+        opt = AdamW(lr=cosine_schedule(1e-3, 1, 3), weight_decay=0.01)
+        step, state, losses[where] = make_train_step(model, opt), \
+            opt.init(params), []
+        for _ in range(3):
+            params, state, m = step(params, state, batch)
+            losses[where].append(m["loss"].item())
+    gerr = _grad_err(grads["card"], grads["cpu"])
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    log(f"[train] card against CPU ({cfg.name}, 8 x 64 Markov tokens, f32, "
+        f"TF32 off): first gradient's worst leaf error {gerr:.2e} of its "
+        f"largest |g| (gate {TRAIN_GRAD_TOL}); 3 AdamW steps' losses "
+        f"{['%.6f' % x for x in losses['card']]} against "
+        f"{['%.6f' % x for x in losses['cpu']]}, worst relative {lerr:.2e} "
+        f"(gate {TRAIN_LOSS_RTOL})")
+    if gerr > TRAIN_GRAD_TOL or lerr > TRAIN_LOSS_RTOL:
+        raise AssertionError("training on the card disagrees with the CPU")
+
+    # (b) the guard, on the card
+    card = tree_map(lambda t: t.cuda(), cpu)
+    x = torch.randn(2, 16, cfg.d_model, device="cuda")
+    scfg = get_config("mamba2-1.3b").reduced()
+    smodel = make_model(scfg)
+    sparams = smodel.init(seed=SEED, device="cuda")["layers"][0]["mamba"]
+    q = torch.randn(2, cfg.num_kv_heads, 2, cfg.resolved_head_dim,
+                    device="cuda")
+    kv = torch.randn(2, 16, cfg.num_kv_heads, cfg.resolved_head_dim,
+                     device="cuda")
+    pos = torch.full((2,), 15, dtype=torch.int32, device="cuda")
+    cases = {
+        "flash_attention": (lambda p: attention(
+            p["layers"][0]["attn"], x, model.dims, rope_theta=1e4,
+            backend="pallas").sum(), card),
+        "ssd_scan": (lambda p: mamba2_forward(
+            p, x, scfg, attn_backend="pallas").sum(), sparams),
+        "flash_decode": (lambda t: ops.flash_decode(t, kv, kv, pos).sum(),
+                         q),
+    }
+    before = dict(ops.LAUNCHES)
+    for name, (fn, params) in cases.items():
+        try:
+            value_and_grad(fn, params)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran under grad on the card")
+    if ops.LAUNCHES != before:
+        raise AssertionError(f"the guard launched kernels: {ops.LAUNCHES}")
+    log("[train] guard: flash_attention, ssd_scan and flash_decode under "
+        "grad on the card raise 'no backward' and launch nothing")
+
+
+def _step_busy_ms(torch, fn) -> tuple:
+    """(device busy ms of one call of ``fn``, how it was read): the sum of
+    the kernels' device times in a torch.profiler trace -- the kernel
+    events' own, or where the trace lists none, the device time that the
+    CPU ops launched themselves (a kernel event also counts under its
+    launching op, so summing both counts every kernel twice) -- or
+    (None, ...) when the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA)
+    launched = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CPU)
+    if kernels > 0:
+        return kernels / 1e3, "kernel events"
+    if launched > 0:
+        return launched / 1e3, "device time under the CPU ops"
+    return None, "no device time in the trace"
+
+
+def _timed_step(torch, fn) -> tuple:
+    """(result, host ms, device ms between CUDA events around the call) of
+    one call of ``fn``, which returns a train step's (params, state,
+    metrics) or an update's (params, state, stats): the host clock runs to
+    the readback of the step's loss (the CLI's read) or, for an update,
+    to the end of its work."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    if "loss" in out[2]:
+        out[2]["loss"].item()
+    else:
+        torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    return out, host, e0.elapsed_time(e1)
+
+
+def phase_train_full(torch, ops, smi) -> dict:
+    """13 (c) granite-3-8b at full width, depth TRAIN_DEPTH, f32 params and
+    moments, TRAIN_B x TRAIN_S Markov tokens: remat="full" against "none"
+    on one batch (loss and gradients within REMAT_RTOL, lower peak
+    memory), grad_accum=2 against 1 (params within ACCUM_TOL), then
+    TRAIN_STEPS steps (the loss must fall), counted (no kernel launches),
+    with tok/s, host against device ms, idle share, the optimizer's share,
+    peak memory and f32 MFU. (d) mamba2-1.3b at full width, its depth cut,
+    a few steps. Returns the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves, value_and_grad
+    from repro_torch.models.model import make_model, make_train_step
+    from repro_torch.models.optim import AdamW, cosine_schedule
+
+    out = {}
+    for name, depth in TRAIN_DEPTH.items():
+        cfg = dataclasses.replace(get_config(name), num_layers=depth)
+        model = make_model(cfg)
+        steps = TRAIN_STEPS[name]
+        t0 = time.perf_counter()
+        params = model.init(seed=SEED, dtype=torch.float32, device="cuda")
+        n_params = sum(p.numel() for p in leaves(params))
+        toks = [t.cuda() for t in _markov_tokens(
+            torch, cfg.vocab_size, TRAIN_B, TRAIN_S, steps)]
+        opt = AdamW(lr=cosine_schedule(3e-4, 2, steps), weight_decay=0.01)
+        state = opt.init(params)
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        log(f"[train] {name}: {_describe(cfg)} (depth cut from "
+            f"{get_config(name).num_layers}), {n_params / 1e9:.3f} B params "
+            f"f32, AdamW f32 moments; B {TRAIN_B} x S {TRAIN_S} Markov "
+            f"tokens; built in {time.perf_counter() - t0:.1f}s")
+        b0 = {"tokens": toks[0]}
+        if name == "granite-3-8b":
+            peaks, res = {}, {}
+            for remat in ("none", "full"):
+                m = make_model(cfg, remat=remat)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                (loss, _), g = value_and_grad(lambda p: m.loss(p, b0),
+                                              params, has_aux=True)
+                torch.cuda.synchronize()
+                # above what was held before: the other run's gradient too
+                peaks[remat] = (torch.cuda.max_memory_allocated()
+                                - base) / 1e9
+                res[remat] = (loss.item(), g)
+                del g
+            rl = abs(res["full"][0] - res["none"][0]) / abs(res["none"][0])
+            rg = _grad_err(res["full"][1], res["none"][1])
+            del res
+            _free(torch)
+            log(f"[train] remat full against none: loss rel {rl:.2e}, "
+                f"gradients {rg:.2e} of each leaf's largest (gate "
+                f"{REMAT_RTOL}); the gradient's peak memory above the params "
+                f"{peaks['full']:.2f} GB against {peaks['none']:.2f}")
+            if rl > REMAT_RTOL or rg > REMAT_RTOL \
+                    or not peaks["full"] < peaks["none"]:
+                raise AssertionError("remat='full' differs from 'none' or "
+                                     "saves no memory")
+            p1, _, _ = step(params, state, b0)
+            p2, _, _ = make_train_step(model, opt, grad_accum=2)(
+                params, state, b0)
+            worst = 0.0
+            for a, b in zip(leaves(p2), leaves(p1)):
+                over = (a - b).abs() - ACCUM_TOL["rtol"] * b.abs()
+                worst = max(worst, over.max().item())
+            del p1, p2
+            _free(torch)
+            log(f"[train] grad_accum=2 against 1, one update: worst "
+                f"|diff| - rtol x |p| {worst:.2e} (atol {ACCUM_TOL['atol']}, "
+                f"rtol {ACCUM_TOL['rtol']})")
+            if worst > ACCUM_TOL["atol"]:
+                raise AssertionError("grad_accum=2 differs from 1")
+        ops.reset_launches()
+        losses, host, span, peaks, held = [], [], [], [], []
+        for tok in toks:
+            torch.cuda.reset_peak_memory_stats()
+            (params, state, m), h, d = _timed_step(
+                torch, lambda: step(params, state, {"tokens": tok}))
+            losses.append(m["loss"].item())
+            host.append(h)
+            span.append(d)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            held.append(torch.cuda.memory_allocated() / 1e9)
+        peak = max(peaks)
+        launched = dict(ops.LAUNCHES)
+        if any(launched.values()):
+            raise AssertionError(f"training launched kernels: {launched}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: losses {losses} do not fall")
+        step_ms = statistics.median(host[1:])
+        tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+        row = dict(first=losses[0], last=losses[-1], step_ms=step_ms,
+                   span_ms=statistics.median(span[1:]), tok_s=tok_s,
+                   peak_gb=peak, n_params=n_params)
+        line = (f"[train] {name}: {steps} steps, loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}; step host {step_ms:.1f} ms (median of "
+                f"{steps - 1}), CUDA-event span {row['span_ms']:.1f} ms; "
+                f"{tok_s:,.0f} tok/s; launches of the kernels 0; peak "
+                f"{peak:.2f} GB (a step's peak {peaks[0]:.2f} first, "
+                f"{min(peaks[1:]):.2f}-{max(peaks[1:]):.2f} later; held "
+                f"between steps {min(held):.2f}-{max(held):.2f} GB)")
+        if name == "granite-3-8b":
+            b = {"tokens": toks[-1]}
+            busy, how = _step_busy_ms(torch, lambda: step(params, state, b))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            (_, _), g = value_and_grad(lambda p: model.loss(p, b), params,
+                                       has_aux=True)
+            torch.cuda.synchronize()
+            grad_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            upd_ms = []
+            for _ in range(3):
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                upd_ms.append(_timed_step(
+                    torch, lambda: opt.update(g, state, params))[2])
+                upd_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            del g
+            upd_ms = statistics.median(upd_ms)
+            flops = 6 * n_params * TRAIN_B * TRAIN_S
+            row.update(busy_ms=busy, update_ms=upd_ms, grad_peak_gb=grad_peak,
+                       update_peak_gb=upd_peak,
+                       mfu=flops / (step_ms / 1e3) / F32_FLOPS_PER_S)
+            line += (f" (reckoned: params and two moments "
+                     f"{12 * n_params / 1e9:.1f} GB; the gradient reached "
+                     f"{grad_peak:.2f} GB above them (its tree "
+                     f"{4 * n_params / 1e9:.1f}, then activations), the "
+                     f"update {upd_peak:.2f} GB above them and the "
+                     f"gradient (new params and moments "
+                     f"{12 * n_params / 1e9:.1f}, then temporaries)); device "
+                     f"busy "
+                     + (f"{busy:.1f} ms ({how}), idle share "
+                        f"{1 - busy / row['span_ms']:.3f} of the event span"
+                        if busy else f"not measured ({how})")
+                     + f"; AdamW update {upd_ms:.1f} ms device span "
+                     f"({upd_ms / step_ms:.1%} of the step); "
+                     f"{flops / 1e12:.1f} TFLOP a step (6 x params x "
+                     f"tokens): f32 MFU {row['mfu']:.3f} of "
+                     f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {smi}")
+        log(line)
+        out[name] = row
+        del params, state, step, toks
+        _free(torch)
+    return out
+
+
+def _run_cli(argv) -> tuple:
+    """``python -m repro_torch.launch.train`` in this process: (its
+    stdout, wall seconds, the --out JSON)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = Path(tmp) / "r.json"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train.main(argv + ["--out", str(res)])
+        wall = time.perf_counter() - t0
+        return buf.getvalue(), wall, json.loads(res.read_text())
+
+
+def phase_train_cli(torch, ops, smi) -> dict:
+    """13 (e) the training CLI at the reference's defaults (granite-3-8b at the
+    100m scale, 300 steps of 16 x 256) with checkpoints: the final loss
+    below 0.75 x the first, reported beside the unigram entropy; rerun to
+    320 steps, it resumes from step 300. Then each other family at the
+    20m scale for 20 steps: losses finite and falling."""
+    import shutil
+    import tempfile
+
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_")
+    out = {}
+    try:
+        argv = CLI_100M + ["--steps", str(CLI_STEPS), "--ckpt-dir", ckpt]
+        ops.reset_launches()
+        text, wall, r = _run_cli(argv)
+        last = [ln for ln in text.splitlines() if ln.startswith("[train]")]
+        for ln in last[:2] + last[-2:]:
+            log(f"  {ln}")
+        first, final, uni = r["losses"][0], r["final"], r["unigram_entropy"]
+        tok_s = CLI_STEPS * 16 * 256 / wall
+        log(f"[train] python -m repro_torch.launch.train {' '.join(argv[:-2])}"
+            f": {wall:.1f}s ({tok_s:,.0f} tok/s over the run, checkpoints "
+            f"included); final {final:.4f} against 0.75 x first "
+            f"{0.75 * first:.4f}; unigram entropy {uni:.3f}: the final loss "
+            f"is {'below' if final < uni else 'NOT below'} it (the "
+            f"reference's docstring claims 'well below'; checked, not "
+            f"gated); {smi}")
+        if not final < 0.75 * first:
+            raise AssertionError("the 100m run's loss did not fall to 0.75x")
+        text2, wall2, r2 = _run_cli(CLI_100M + [
+            "--steps", str(CLI_RESUME), "--ckpt-dir", ckpt])
+        said = f"resumed from step {CLI_STEPS}"
+        if said not in text2 or len(r2["losses"]) != CLI_RESUME - CLI_STEPS:
+            raise AssertionError(f"no resume from step {CLI_STEPS}:\n{text2}")
+        log(f"[train] rerun to {CLI_RESUME} steps: '{said}', "
+            f"{CLI_RESUME - CLI_STEPS} steps, {wall2:.1f}s; final "
+            f"{r2['final']:.4f}")
+        out["100m"] = dict(first=first, final=final, unigram=uni,
+                           wall=wall, tok_s=tok_s)
+        for arch in CLI_ARCHS:
+            _, wall, r = _run_cli(["--arch", arch, "--scale", "20m",
+                                   "--steps", "20"])
+            ls = r["losses"]
+            log(f"[train] {arch} 20m: 20 steps, loss {ls[0]:.4f} -> final "
+                f"{r['final']:.4f} (mean of the last 10), {wall:.1f}s")
+            if not all(map(math.isfinite, ls)) or not r["final"] < ls[0]:
+                raise AssertionError(f"{arch}: losses {ls} do not fall")
+            out[arch] = dict(first=ls[0], final=r["final"], wall=wall)
+        if any(ops.LAUNCHES.values()):
+            raise AssertionError(f"the training CLI launched kernels: "
+                                 f"{dict(ops.LAUNCHES)}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return out
+
+
+def phase_train(torch, ops, smi) -> dict:
+    """Phase 13: model training on the card."""
+    t0 = time.perf_counter()
+    phase_train_parity(torch, ops)
+    _free(torch)
+    out = phase_train_full(torch, ops, smi)
+    out["cli"] = phase_train_cli(torch, ops, smi)
+    _free(torch)
+    log(f"[train] phase 13: {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3645,6 +4076,8 @@ def main() -> int:
     log(f"[sim] phase 11: {time.perf_counter() - t_sim:.1f}s")
     _free(torch)
     extras_rows(rows, phase_families(torch, F, ops, ref, smi, errs))
+    _free(torch)
+    phase_train(torch, ops, smi)
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

@@ -19,6 +19,9 @@ layer the same way (LayerNorm ``scale``/``bias`` and the decoder's
 ``cross``/``cross_norm`` included), beside ``embed``, ``dec_pos``,
 ``enc_final_norm`` and ``dec_final_norm``.
 
+A tree with the params' structure maps the same way: a gradient tree, and
+the AdamW moments ``mu`` / ``nu`` of ``adamw_state_from_jax``.
+
 The control plane's parameters carry across the same way: ``rl_from_jax``
 maps the reference's DDPG state (actor, critic and their targets: the GCN's
 ``w[i]``/``b[i]`` lists and the MLP head's ``w1, b1, w2, b2``) and
@@ -99,6 +102,17 @@ def params_from_jax(tree: dict, device="cuda") -> dict:
                          "'enc_layers' / 'dec_layers'; got "
                          f"{sorted(tree)}")
     return out
+
+
+def adamw_state_from_jax(state: dict, device="cuda") -> dict:
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy leaves)
+    as ``models.optim.AdamW``'s: the moments split into layers as
+    ``params_from_jax`` splits the params (in their own dtype, bf16
+    included), ``step`` an int32 scalar tensor."""
+    dev = resolve_device(device)
+    return {"mu": params_from_jax(state["mu"], dev),
+            "nu": params_from_jax(state["nu"], dev),
+            "step": _tensor(np.asarray(state["step"], np.int32), dev)}
 
 
 def rl_from_jax(state, device="cuda"):

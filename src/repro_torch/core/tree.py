@@ -27,22 +27,33 @@ def leaves(tree) -> list:
 
 def unflatten(tree, new_leaves: list):
     """``tree``'s structure holding ``new_leaves`` (in ``leaves`` order)."""
-    it = iter(new_leaves)
-
-    def fill(t):
-        if isinstance(t, dict):
-            return {k: fill(t[k]) for k in sorted(t)}
-        if isinstance(t, list):
-            return [fill(v) for v in t]
-        return next(it)
-    return fill(tree)
+    return _fill(tree, iter(new_leaves))
 
 
-def value_and_grad(loss_fn, params):
+def _fill(t, it):
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle through its closure, which kept the iterator, and so
+    # every leaf (a whole gradient tree), alive until the garbage
+    # collector's next full pass
+    if isinstance(t, dict):
+        return {k: _fill(t[k], it) for k in sorted(t)}
+    if isinstance(t, list):
+        return [_fill(v, it) for v in t]
+    return next(it)
+
+
+def value_and_grad(loss_fn, params, has_aux: bool = False):
     """(loss, gradient tree) of the scalar ``loss_fn(params)``, as
-    ``jax.value_and_grad``; neither is read back to the host."""
+    ``jax.value_and_grad``; neither is read back to the host. With
+    ``has_aux``, ``loss_fn`` returns (loss, aux) and the result is
+    ((loss, aux), gradient tree), aux's tensors detached. Every leaf must
+    reach the loss (autograd raises for one that does not)."""
     ls = [p.detach().requires_grad_() for p in leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(unflatten(params, ls))
+        out = loss_fn(unflatten(params, ls))
+        loss = out[0] if has_aux else out
         grads = torch.autograd.grad(loss, ls)
-    return loss.detach(), unflatten(params, list(grads))
+    grads = unflatten(params, list(grads))
+    if has_aux:
+        return (loss.detach(), tree_map(torch.Tensor.detach, out[1])), grads
+    return loss.detach(), grads

@@ -1,1 +1,1 @@
-"""Synthetic serving requests."""
+"""Synthetic data: the training corpus and the serving requests."""

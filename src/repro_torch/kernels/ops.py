@@ -11,6 +11,14 @@ tensor either reaches the kernel or raises.
 ``LAUNCHES`` counts kernel launches (plain integers, one per kernel); only
 a launch of the CUDA kernel adds to it, so a run can show that its path
 went through the kernels.
+
+``flash_decode``, ``flash_attention`` and ``ssd_scan`` have no backward:
+the CUDA kernel writes its output through ``ctypes``, outside autograd.
+Under grad, with an input that requires grad, each raises on either
+device (on the CPU its plain version would differentiate and hide what
+the card would drop); training goes through the plain paths
+(``backend="einsum"``). ``gcn_layer`` has its backward (``gcn_layer_bwd``,
+through ``core.gcn.GCNLayer``).
 """
 from __future__ import annotations
 
@@ -44,6 +52,16 @@ def _on_cuda(name: str, *tensors) -> bool:
     return True
 
 
+def _no_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel that has no
+    backward (see the module docstring)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: its kernel writes its output outside "
+            "autograd, so the inputs' gradient would be lost; training "
+            "goes through the plain path (backend='einsum')")
+
+
 def _check_dtype(name, dtypes, *tensors):
     dt = tensors[0].dtype
     if dt not in dtypes or any(t.dtype != dt for t in tensors):
@@ -67,6 +85,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if quant and (k_scale is None or v_scale is None):
         raise ValueError("flash_decode: an int8 cache needs k_scale and "
                          "v_scale")
+    _no_grad("flash_decode", q, k_cache, v_cache, *scales)
     if not _on_cuda("flash_decode", q, k_cache, v_cache, pos, *scales):
         return ref.flash_decode_ref(q, k_cache, v_cache, pos,
                                     k_scale=k_scale, v_scale=v_scale)
@@ -141,6 +160,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row b). Any strides with a contiguous last dim; S need not be a
     multiple of any tile. Returns (B, S, G, qpg, hd)."""
     extra = tuple(t for t in (q_offset, kv_rows) if t is not None)
+    _no_grad("flash_attention", q, k, v)
     if not _on_cuda("flash_attention", q, k, v, *extra):
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        q_offset=q_offset, kv_rows=kv_rows)
@@ -344,6 +364,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"ssd_scan: T {T} is not a multiple of chunk "
                          f"{chunk}")
     inits = () if init_state is None else (init_state,)
+    _no_grad("ssd_scan", x, a, Bm, Cm, *inits)
     if not _on_cuda("ssd_scan", x, a, Bm, Cm, *inits):
         return ref.ssd_scan_ref(x, a, Bm, Cm, chunk, init_state=init_state)
     for t in (x, a, Bm, Cm, *inits):

@@ -1,5 +1,6 @@
 """Whisper-style encoder-decoder, the audio family (the port of
-``repro.models.encdec``'s serve path).
+``repro.models.encdec``: the training forward ``encdec_forward`` and the
+serve path).
 
 The conv/mel frontend is a stub, as in the reference: a request carries
 precomputed frame embeddings (B, encoder_seq_len, d_model) as its
@@ -26,7 +27,8 @@ keys; a decode step's self-attention through ``ops.flash_decode`` at each
 row's ``pos`` and its cross-attention through ``ops.flash_decode`` over the
 cross cache with every row at position Le - 1, which is the reference's
 dense softmax over all Le keys. ``"einsum"`` keeps the reference's dense
-paths.
+paths; the training forward takes it (the kernels have no backward), with
+``remat`` (``lm.remat_policy``) over encoder and decoder layers.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
 from repro_torch.models.layers import layer_norm, sinusoidal_positions_on
-from repro_torch.models.lm import init_mlp, mlp_apply
+from repro_torch.models.lm import init_mlp, mlp_apply, remat_policy
 
 
 def _ln_init(d: int, device) -> dict:
@@ -85,19 +87,59 @@ def _ln(x, p, eps):
     return layer_norm(x, p["scale"], p["bias"], eps)
 
 
+def _enc_layer(lp, h, cfg, dims, attn_backend):
+    x = _ln(h, lp["attn_norm"], cfg.norm_eps)
+    h = h + attn.attention(lp["attn"], x, dims, causal=False,
+                           backend=attn_backend)
+    x = _ln(h, lp["ffn_norm"], cfg.norm_eps)
+    return h + mlp_apply(lp["mlp"], x, cfg.activation)
+
+
 def encode(params, frame_embeds, cfg: ArchConfig, dims: PaddedDims, *,
-           attn_backend: str = "pallas"):
+           attn_backend: str = "pallas", remat: str = "none"):
     """The encoder over ``frame_embeds`` (B, Le, d): (B, Le, d)."""
+    run = remat_policy(remat)
     Le = frame_embeds.shape[1]
     pos = sinusoidal_positions_on(Le, cfg.d_model, frame_embeds.device)
     h = frame_embeds + pos.to(frame_embeds.dtype)[None]
     for lp in params["enc_layers"]:
-        x = _ln(h, lp["attn_norm"], cfg.norm_eps)
-        h = h + attn.attention(lp["attn"], x, dims, causal=False,
-                               backend=attn_backend)
-        x = _ln(h, lp["ffn_norm"], cfg.norm_eps)
-        h = h + mlp_apply(lp["mlp"], x, cfg.activation)
+        h = run(_enc_layer, lp, h, cfg, dims, attn_backend)
     return _ln(h, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _dec_layer(lp, h, enc_out, cfg, dims):
+    """One decoder layer over a whole sequence (teacher forcing): causal
+    self-attention, cross-attention over ``enc_out``, the MLP; einsum."""
+    x = _ln(h, lp["attn_norm"], cfg.norm_eps)
+    h = h + attn.attention(lp["attn"], x, dims, causal=True,
+                           backend="einsum")
+    x = _ln(h, lp["cross_norm"], cfg.norm_eps)
+    h = h + attn.attention(lp["cross"], x, dims, causal=False, kv_x=enc_out,
+                           backend="einsum")
+    x = _ln(h, lp["ffn_norm"], cfg.norm_eps)
+    return h + mlp_apply(lp["mlp"], x, cfg.activation)
+
+
+def _decoder_stack(params, h, enc_out, cfg, dims, *, remat: str = "none"):
+    run = remat_policy(remat)
+    for lp in params["dec_layers"]:
+        h = run(_dec_layer, lp, h, enc_out, cfg, dims)
+    return _ln(h, params["dec_final_norm"], cfg.norm_eps)
+
+
+def encdec_forward(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
+                   remat: str = "none", return_features: bool = False):
+    """Training forward (teacher forcing) of ``batch["frame_embeds"]``
+    (B, Le, d) and ``batch["tokens"]`` (B, S): (logits (B, S, V), aux = 0),
+    or (features (B, S, d), 0) with ``return_features``."""
+    enc_out = encode(params, batch["frame_embeds"], cfg, dims,
+                     attn_backend="einsum", remat=remat)
+    toks = batch["tokens"]
+    h = _decoder_in(params, toks, torch.arange(toks.shape[1],
+                                               device=toks.device))
+    h = _decoder_stack(params, h, enc_out, cfg, dims, remat=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return (h if return_features else h @ params["embed"].T), aux
 
 
 # ------------------------------------------------------------------ serving

@@ -95,3 +95,26 @@ def sinusoidal_positions_on(n_pos: int, d_model: int,
     """``sinusoidal_positions`` as an f32 tensor on ``device``, copied once
     per (shape, device), as ``_rope_freqs_on`` is."""
     return torch.from_numpy(sinusoidal_positions(n_pos, d_model)).to(device)
+
+
+
+def token_nll(logits, targets, vocab_logical: int):
+    """Per-position NLL (...) in f32 of ``logits`` (..., V_phys) at
+    ``targets`` (...); padded vocab columns (past ``vocab_logical``) are
+    set to -1e9, as the reference does."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab_logical:
+        logits = torch.cat([logits[..., :vocab_logical], torch.full_like(
+            logits[..., vocab_logical:], -1e9)], dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cross_entropy(logits, targets, vocab_logical: int, mask=None):
+    """Mean CE over non-masked positions (``mask`` (...) float or bool);
+    padded vocab columns are excluded."""
+    nll = token_nll(logits, targets, vocab_logical)
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,5 +1,6 @@
 """Decoder-only LM, the dense, moe and vlm families (the port of
-``repro.models.lm``'s serve path).
+``repro.models.lm``): the training forward ``lm_forward`` and the serve
+path.
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless embeddings are tied, and ``layers``, a list with
@@ -24,10 +25,20 @@ each step). An int8 prefill runs in f32 and quantizes the filled cache
 once at the end; a decode quantizes each new token on write. A chunked
 prefill (``lm_prefill_chunk``) continues a float cache one chunk at a
 time.
+
+The training forward attends through the einsum path: the attention
+kernels have no backward (``kernels.ops``), and neither has the
+reference's Pallas path. ``remat`` (``remat_policy``) recomputes each
+layer's activations in the backward: ``"full"`` keeps only its input,
+``"dots"`` also the outputs of its 2-D matmuls (the counterpart of the
+reference's ``dots_with_no_batch_dims_saveable``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -43,6 +54,35 @@ def init_mlp(gen, d_model, d_ff, activation, dtype) -> dict:
     if activation == "swiglu":
         p["w_up"] = he_init(gen, (d_model, d_ff), dtype, d_model)
     return p
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, *args, **kwargs):
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def remat_policy(name: str):
+    """``apply(fn, *args)``, which calls ``fn(*args)`` with the activation
+    recomputation ``name`` names: ``"none"`` (keep them), ``"full"``
+    (recompute all in the backward) or ``"dots"`` (keep the 2-D matmuls'
+    outputs, recompute the rest). Values are the same under each; only the
+    memory differs. Unknown names raise ``ValueError``."""
+    if name == "none":
+        return lambda fn, *args: fn(*args)
+    if name == "full":
+        return _checkpointed
+    if name == "dots":
+        return functools.partial(
+            _checkpointed, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {name!r}: none, full or dots")
 
 
 def mlp_apply(p, x, activation):
@@ -112,15 +152,46 @@ def embed_inputs(params, cfg, batch):
 
 def _ffn_sublayer(lp, h, cfg):
     """The FFN half of a block: the dense MLP, or on an MoE layer the
-    routed experts (serving drops their aux loss)."""
+    routed experts. Returns (h, aux): the experts' Switch load-balance
+    loss, None on a dense layer (serving drops it)."""
     x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
     if "moe" in lp:
-        y, _ = moe_apply(lp["moe"], x, num_experts=cfg.num_experts,
-                         top_k=cfg.num_experts_per_tok,
-                         capacity_factor=cfg.capacity_factor,
-                         activation=cfg.activation)
-        return h + y
-    return h + mlp_apply(lp["mlp"], x, cfg.activation)
+        y, aux = moe_apply(lp["moe"], x, num_experts=cfg.num_experts,
+                           top_k=cfg.num_experts_per_tok,
+                           capacity_factor=cfg.capacity_factor,
+                           activation=cfg.activation)
+        return h + y, aux
+    return h + mlp_apply(lp["mlp"], x, cfg.activation), None
+
+
+def train_block(lp, h, cfg, dims, positions):
+    """One attention + FFN block over a whole sequence, einsum attention
+    (a dense or MoE layer, or the hybrid family's shared block). Returns
+    (h, aux or None)."""
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    h = h + attn.attention(lp["attn"], x, dims, positions=positions,
+                           rope_theta=cfg.rope_theta, causal=True,
+                           backend="einsum")
+    return _ffn_sublayer(lp, h, cfg)
+
+
+def lm_forward(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
+               remat: str = "none", return_features: bool = False):
+    """Full-sequence training forward. Returns (logits (B, S_total, V),
+    aux) -- or (features (B, S_total, d), aux) with ``return_features``
+    (the chunked CE applies the head itself, so the (T, V) logits are
+    never held whole). ``aux`` (f32 scalar) sums the Switch loss of every
+    MoE layer; a vlm batch's patch prefix counts in S_total."""
+    run = remat_policy(remat)
+    h, _ = embed_inputs(params, cfg, batch)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lp in params["layers"]:
+        h, a = run(train_block, lp, h, cfg, dims, positions)
+        if a is not None:
+            aux = aux + a
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return (h if return_features else _logits(params, h)), aux
 
 
 def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend):
@@ -131,7 +202,7 @@ def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend):
     h = h + attn.prefill_attention(lp["attn"], x, dims, k_cache, v_cache,
                                    rope_theta=cfg.rope_theta,
                                    backend=attn_backend)
-    return _ffn_sublayer(lp, h, cfg)
+    return _ffn_sublayer(lp, h, cfg)[0]
 
 
 def block_chunk(lp, h, cfg, dims, k_cache, v_cache, positions, lengths,
@@ -144,7 +215,7 @@ def block_chunk(lp, h, cfg, dims, k_cache, v_cache, positions, lengths,
                                          v_cache, positions, lengths,
                                          rope_theta=cfg.rope_theta,
                                          backend=attn_backend, rows=rows)
-    return _ffn_sublayer(lp, h, cfg)
+    return _ffn_sublayer(lp, h, cfg)[0]
 
 
 def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
@@ -166,7 +237,7 @@ def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
                                write_rows)
         y = attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
                                backend=attn_backend)
-    return _ffn_sublayer(lp, h + y, cfg)
+    return _ffn_sublayer(lp, h + y, cfg)[0]
 
 
 def _logits(params, h):

@@ -1,8 +1,9 @@
 """Model facade: one API over the ported architecture families (the port of
-``repro.models.model``'s serving half).
+``repro.models.model``).
 
     model = make_model(get_config("granite-3-8b"))
     params = model.init(seed=0, dtype=torch.bfloat16, device="cuda")
+    loss, metrics = model.loss(params, batch)
     logits, state, pos = model.prefill(params, batch, cache_len=1024)
     logits, state = model.decode(params, state, tokens, pos)
     logits, state, pos = model.prefill_chunk(params, state, tokens,
@@ -17,6 +18,12 @@ taken by the attention-LM families (dense, moe, vlm) only, and chunked
 prefill is refused for moe (expert capacity would scale with the chunk,
 not the prompt) and for vlm and audio (their requests carry per-request
 extras and stay on exact-length single admits), as in the reference.
+
+Training: ``forward`` is the full-sequence forward (einsum attention,
+``ssd_chunked``; the kernels have no backward), ``loss`` the next-token
+CE through a chunked head, and ``make_train_step`` one optimizer step
+over a batch, with gradient accumulation; ``Model.remat`` picks the
+activation recomputation (``lm.remat_policy``).
 """
 from __future__ import annotations
 
@@ -24,27 +31,33 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tree import tree_map, value_and_grad
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, lm, ssm_lm
 from repro_torch.models.dims import PaddedDims, padded_dims
+from repro_torch.models.layers import token_nll
 
 
 class _Serves(NamedTuple):
-    """The module that serves a family and its four entry points."""
+    """The module that serves a family and its five entry points."""
     module: object
     init: Callable
     init_state: Callable
     prefill: Callable
     decode: Callable
+    forward: Callable
 
 
-_LM = _Serves(lm, lm.init_lm, lm.lm_init_cache, lm.lm_prefill, lm.lm_decode)
+_LM = _Serves(lm, lm.init_lm, lm.lm_init_cache, lm.lm_prefill, lm.lm_decode,
+              lm.lm_forward)
 _SSM = _Serves(ssm_lm, ssm_lm.init_ssm_lm, ssm_lm.ssm_init_state,
-               ssm_lm.ssm_prefill, ssm_lm.ssm_decode)
+               ssm_lm.ssm_prefill, ssm_lm.ssm_decode, ssm_lm.ssm_forward)
 _ENCDEC = _Serves(encdec, encdec.init_encdec, encdec.encdec_init_state,
-                  encdec.encdec_prefill, encdec.encdec_decode)
+                  encdec.encdec_prefill, encdec.encdec_decode,
+                  encdec.encdec_forward)
 SERVES = {"dense": _LM, "moe": _LM, "ssm": _SSM, "hybrid": _SSM,
           "vlm": _LM, "audio": _ENCDEC}
 PORTED_FAMILIES = tuple(SERVES)
@@ -56,15 +69,23 @@ SEQ_LEAVES = ("k", "v", "attn_k", "attn_v", "k_q", "v_q", "k_s", "v_s",
               "self_k", "self_v")
 
 
+def _ce_sum(h, targets, head, vocab: int):
+    """Sum of the next-token NLL of one chunk of features ``h`` (B, C, d)
+    through ``head`` (d, V)."""
+    return token_nll(h @ head, targets, vocab).sum()
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
     dims: PaddedDims
+    remat: str = "none"
 
     def __post_init__(self):
         if self.cfg.family not in PORTED_FAMILIES:
             raise ValueError(f"family {self.cfg.family!r} "
                              f"({self.cfg.name}) is not yet ported")
+        lm.remat_policy(self.remat)         # raises on an unknown name
 
     @property
     def _serves(self) -> _Serves:
@@ -78,6 +99,52 @@ class Model:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return self._serves.init(gen, self.cfg, self.dims, dtype)
 
+    # ------------------------------------------------------------ training
+    def forward(self, params, batch, return_features: bool = False):
+        """The full-sequence forward: (logits, aux), or (features, aux)
+        with ``return_features``. A vlm batch carries ``patch_embeds``, an
+        audio batch ``frame_embeds``."""
+        return self._serves.forward(params, batch, self.cfg, self.dims,
+                                    remat=self.remat,
+                                    return_features=return_features)
+
+    def _head(self, params):
+        head = params.get("lm_head")
+        return head if head is not None else params["embed"].T
+
+    def loss(self, params, batch, loss_chunk: int = 2048):
+        """Next-token CE through a sequence-chunked head and softmax, plus
+        0.01 x the MoE aux loss: (total, {"ce", "aux"}). A vlm model
+        predicts its tokens from the positions P - 1 .. P + S - 2 (the
+        last patch predicts the first token); every other family predicts
+        tokens 1 .. S - 1."""
+        feats, aux = self.forward(params, batch, return_features=True)
+        toks = batch["tokens"]
+        if self.cfg.family == "vlm":
+            P = self.cfg.num_patches
+            pred_h, targets = feats[:, P - 1:P + toks.shape[1] - 1], toks
+        else:
+            pred_h, targets = feats[:, :-1], toks[:, 1:]
+        ce = self._chunked_ce(params, pred_h, targets, loss_chunk)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def _chunked_ce(self, params, pred_h, targets, loss_chunk: int):
+        """Mean NLL over the (B, S) positions, ``loss_chunk`` positions at
+        a time, each chunk's head and softmax recomputed in the backward:
+        the (B, S, V) logits are never held whole. The reference pads S to
+        a multiple of the chunk and masks; summing the chunks without
+        padding is the same value."""
+        head = self._head(params)
+        B, S = targets.shape
+        total = torch.zeros((), dtype=torch.float32, device=pred_h.device)
+        for c0 in range(0, S, loss_chunk):
+            c = slice(c0, c0 + loss_chunk)
+            total = total + ckpt.checkpoint(
+                _ce_sum, pred_h[:, c], targets[:, c], head,
+                self.cfg.vocab_size, use_reentrant=False)
+        return total / max(B * S, 1)
+
+    # ------------------------------------------------------------- serving
     def init_serve_state(self, batch: int, cache_len: int,
                          cache_dtype=torch.bfloat16, device="cuda"):
         """``cache_dtype`` may be the string "int8" for dense, moe and vlm:
@@ -133,5 +200,64 @@ class Model:
                                    write_rows=write_rows)
 
 
-def make_model(cfg: ArchConfig, tp: int = 1) -> Model:
-    return Model(cfg, padded_dims(cfg, tp))
+def make_model(cfg: ArchConfig, tp: int = 1, remat: str = "none") -> Model:
+    return Model(cfg, padded_dims(cfg, tp), remat)
+
+
+def make_train_step(model: Model, optimizer, *, grad_accum: int = 1,
+                    loss_chunk: int = 2048, accum_dtype=torch.float32):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss's gradient by autograd over the parameter tree,
+    then one ``optimizer.update``. Metrics: ``loss``, ``ce``, ``aux``,
+    ``grad_norm``, ``lr`` (tensors; nothing is read back to the host).
+
+    ``grad_accum > 1`` splits the batch on axis 0 into that many
+    microbatches, adds their gradients in ``accum_dtype`` and divides:
+    one update over the whole batch, with one microbatch's activations
+    held at a time. ``loss`` is then the microbatches' mean; ``ce`` and
+    ``aux`` are the last microbatch's, as in the reference."""
+    # torch.utils.checkpoint imports torch._dynamo at its first call, and
+    # that import keeps a traceback whose frames reach back through the
+    # caller's, holding a step's params and state for good: import it here
+    import torch._dynamo  # noqa: F401
+
+    def grads_of(params, batch):
+        return value_and_grad(
+            lambda p: model.loss(p, batch, loss_chunk=loss_chunk), params,
+            has_aux=True)
+
+    def train_step(params, opt_state, batch):
+        if grad_accum <= 1:
+            (loss, metrics), grads = grads_of(params, batch)
+        else:
+            micro = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=accum_dtype, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=micro["tokens"].device)
+            for i in range(grad_accum):
+                (l, metrics), g = grads_of(
+                    params, {k: v[i] for k, v in micro.items()})
+                grads = tree_map(lambda a, b: a + b.to(accum_dtype), grads,
+                                 g)
+                loss = loss + l
+            grads = tree_map(lambda g: g / grad_accum, grads)
+            loss = loss / grad_accum
+        params, opt_state, stats = optimizer.update(grads, opt_state, params)
+        return params, opt_state, dict(metrics, loss=loss, **stats)
+    return train_step
+
+
+def make_decode_step(model: Model):
+    """``serve_step(params, state, tokens, pos) -> (logits, state)``."""
+    def serve_step(params, state, tokens, pos):
+        return model.decode(params, state, tokens, pos)
+    return serve_step
+
+
+def make_prefill_step(model: Model, cache_len: int):
+    """``prefill_step(params, batch) -> (logits, state, pos)``."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, cache_len=cache_len)
+    return prefill_step

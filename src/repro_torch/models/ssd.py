@@ -62,12 +62,18 @@ def init_mamba2(gen: torch.Generator, d_model: int, d_inner: int,
 # ----------------------------------------------------------------- core math
 def segsum_exp(a):
     """a: (..., Q) log decays -> L (..., Q, Q) with L[q, k] =
-    exp(sum_{k+1..q} a), lower-triangular (diagonal 1)."""
+    exp(sum_{k+1..q} a), lower-triangular (diagonal 1).
+
+    The upper triangle is masked before the exp, not after it as in the
+    reference: there diff = -(decay over k..q) > 0 overflows exp to inf
+    once a chunk's decay passes ~88 (mamba2's chunk of 256 does), and the
+    backward of where(tri, inf, 0) is 0 x inf = NaN in every gradient.
+    The values are the same (exp(-inf) = 0)."""
     a_cum = torch.cumsum(a, dim=-1)
     diff = a_cum[..., :, None] - a_cum[..., None, :]
     Q = a.shape[-1]
     tri = torch.ones(Q, Q, dtype=torch.bool, device=a.device).tril()
-    return torch.where(tri, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(tri, diff, float("-inf")))
 
 
 def _per_head(t, rep: int, dim: int):

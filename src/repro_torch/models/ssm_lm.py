@@ -1,7 +1,7 @@
 """Mamba-2 LM (ssm family) and the Zamba-2-style hybrid (a Mamba-2 backbone
 with one shared attention block invoked every ``attn_every`` layers, each
-invocation with its own KV cache): the port of ``repro.models.ssm_lm``'s
-serving half.
+invocation with its own KV cache): the port of ``repro.models.ssm_lm``,
+its training forward ``ssm_forward`` and its serving half.
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head`` unless
 embeddings are tied, ``layers`` (a list of ``{"norm", "mamba"}`` dicts; the
@@ -17,7 +17,9 @@ jit buffer donation: at full width mamba2's SSM state is ~100 MB per row).
 Decode is O(1) in context for the mamba layers. A chunked prefill
 (``ssm_prefill_chunk``) continues the carried SSM and conv state and the
 hybrid's KV caches one chunk at a time. The int8 KV codec is refused: this
-family keeps SSM and conv state in float.
+family keeps SSM and conv state in float. The training forward scans
+through ``ssd_chunked`` and attends through einsum (the kernels have no
+backward).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from repro_torch.models.dims import PaddedDims
 from repro_torch.models.layers import he_init, rms_norm
 from repro_torch.models.lm import (block_chunk, block_decode, block_prefill,
                                    chunk_logits, chunk_positions, init_mlp,
-                                   last_logits, _logits)
+                                   last_logits, remat_policy, train_block,
+                                   _logits)
 from repro_torch.models.ssd import (init_mamba2, mamba2_decode,
                                     mamba2_forward, mamba2_init_state)
 
@@ -77,6 +80,34 @@ def init_ssm_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
                             dtype),
         }
     return params
+
+
+def _train_layer(lp, shared, h, cfg, dims, positions):
+    """Layer ``lp`` over a whole sequence, after the hybrid's shared block
+    when ``shared`` is given (einsum attention, ``ssd_chunked``)."""
+    if shared is not None:
+        h, _ = train_block(shared, h, cfg, dims, positions)
+    return h + mamba2_forward(lp["mamba"],
+                              rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
+                              attn_backend="einsum")
+
+
+def ssm_forward(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
+                remat: str = "none", return_features: bool = False):
+    """Full-sequence training forward: (logits (B, S, V), aux = 0), or
+    (features (B, S, d), 0) with ``return_features``. The hybrid's shared
+    block runs before layer i when i % attn_every == 0; under ``remat``
+    it is recomputed with its layer."""
+    run = remat_policy(remat)
+    h = params["embed"][batch["tokens"]]
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    for li, lp in enumerate(params["layers"]):
+        shared = params["shared_attn"] \
+            if _invocation(cfg, li) is not None else None
+        h = run(_train_layer, lp, shared, h, cfg, dims, positions)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return (h if return_features else _logits(params, h)), aux
 
 
 def ssm_init_state(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
