@@ -213,6 +213,30 @@ the script exits non-zero:
      first, reported beside the unigram entropy; rerun to 320 steps, it
      resumes from step 300; then the other families at 20m, 20 steps
      each, losses finite and falling.
+ 14. fleets of vlm and audio replicas, and fleet-mesh serving. (a) runs
+     inside phase 12, on its bf16 models and requests: the 16 requests
+     with extras through an ``ElasticClusterFrontend`` of 2 nodes, one
+     replica each (fleet batching and the async tick), ticked until
+     drained, counted -- flash_attention per exact-length admit as in
+     phase 12, flash_decode 24 (internvl2-2b) or 12 (whisper-base) per
+     fleet decode dispatch -- every request finished, the ledger
+     balanced, the async tick's sync contract kept, no host sync in the
+     engine but the admits' own; the fleet decode dispatch's host and
+     device ms and idle share printed beside phase 12's standalone step;
+     at 2 layers in f32 the fleet's streams and clocks equal
+     ``fleet_batch=False``'s. (b) runs inside granite-3-8b's phases:
+     phase 6's control loop over an explicit 2-shard fleet mesh on cuda:0
+     (``launch.mesh.make_mesh`` with the device listed twice), counted and
+     sync-checked as phase 6, its dispatch and sync counts, per tick too,
+     equal to the unsharded run's, every slab cap divisible by 2, the
+     launches those of the shards' own runs (a masked sub-step round runs
+     only on the shards holding a stepping row), bf16 streams that differ
+     counted; at 2 layers in f32 its digest equal to phase 8's fleet run;
+     the CLI with ``--devices 1`` on the card, and ``--devices 2`` raising
+     on a one-card machine. (c) ``distributed.seq_kv.
+     seq_sharded_flash_decode`` on a (1, 2) mesh over cuda:0 at granite's
+     heads (32 q / 8 kv, hd 128), S 4,096, pos 0, 100, 2,047 and 4,095,
+     in f32 within 2e-5 of flash_decode's plain version.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
@@ -220,7 +244,8 @@ gcn_layer, mamba2's for ssd_scan; gcn_layer_bwd's from the experiment of
 phase 11, where gcn_layer's are given too, with its times at the DDPG
 update's shapes under ``update``; the attention kernels' ``moe`` entries
 give their times at the MoE heads and their launches on the MoE paths,
-their ``vlm`` and ``audio`` entries those of phase 12); the last line is
+their ``vlm`` and ``audio`` entries those of phase 12, their ``fleet``
+and ``mesh`` entries those of phase 14); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -874,9 +899,11 @@ def _digest(fe) -> list:
                   for r in fe.finished)
 
 
-def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
+def phase_control(torch, ops, cfg, model, params, plan_times=False,
+                  mesh=None) -> dict:
     """The main path, counted: the control loop at full width, its decode
-    dispatches replaying captured CUDA graphs."""
+    dispatches replaying captured CUDA graphs; with ``mesh``, every fleet
+    group's slab split over its shards (phase 14(b))."""
     from repro_torch.launch import serve
 
     from repro_torch.serving.elastic import async_tick_violations
@@ -887,19 +914,10 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
     # every operation that synchronises the host with the card is flagged
     # (torch's sync debug mode): the async tick may have none in the engine,
     # only the plane's fetches of its own stream's results
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = serve.run_control_loop(args, cfg, model, params,
-                                         cache_dtype=torch.bfloat16)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    out, flagged = _sync_checked(torch, lambda: serve.run_control_loop(
+        args, cfg, model, params, cache_dtype=torch.bfloat16, mesh=mesh))
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    flagged = collections.Counter(
-        f"{_where(w.filename)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
     fe, plane, ticks = out["fe"], out["plane"], out["ticks"]
     # exact-length admits (the moe family) fetch their first token eagerly,
     # as the reference's do: allowed only in a run that made them
@@ -942,10 +960,14 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
         raise AssertionError(f"ledger {led.balance()}")
     if fe.replicas_spawned <= args.nodes * args.replicas:
         raise AssertionError("GPSO never scaled up")
-    _check_launches(cfg, launches, prefill, decode, len(ticks))
-    _graph_report(torch, cfg, fe)
-    _fleet_step_times(torch, model, params, fe.peak_slab_rows(),
-                      args.max_seq)
+    # the launches follow from the dispatches as the shards ran them (the
+    # dispatches themselves when unsharded)
+    shard_runs = fe.shard_dispatches()
+    _check_launches(cfg, launches, *shard_runs, len(ticks))
+    if mesh is None:
+        _graph_report(torch, cfg, fe)
+        _fleet_step_times(torch, model, params, fe.peak_slab_rows(),
+                          args.max_seq)
     # the async tick's sync contract, tick by tick: each sync consumes one
     # fleet dispatch's results (the pool has two max_batch groups, and speed
     # 1.4 replicas take a second sub-step round on some ticks, so a tick may
@@ -964,10 +986,15 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False) -> dict:
     return {"launches": launches, "digest": _digest(fe),
             "rows": fe.peak_slab_rows(), "shapes": fe.prefill_shapes(),
             "balance_ms": hs["balance"], "syncs": syncs,
-            "tok_s": toks / out["wall"], "tick_ms": tick_ms}
+            "tok_s": toks / out["wall"], "tick_ms": tick_ms,
+            "decode": decode, "prefill": prefill, "shard_runs": shard_runs,
+            "per_tick": [(t["decode_dispatches"], t["prefill_dispatches"],
+                          t["syncs"]) for t in ticks],
+            "caps": sorted(g.cap for g in fe._fleets.values()),
+            "wall": out["wall"]}
 
 
-def _graph_report(torch, cfg, fe) -> None:
+def _graph_report(torch, cfg, fe) -> dict:
     """The fleet groups' decode graphs after a control loop: captures,
     recaptures after a slab growth, replays and the graphs' pool memory;
     then the largest group's full dispatch through the engine's own path
@@ -983,7 +1010,8 @@ def _graph_report(torch, cfg, fe) -> None:
 
     def dispatch():
         return g.graphs.run((False, 1),
-                            lambda: g._micro_steps(1, masked=False))
+                            lambda: g._micro_steps(g.parts[0], 1,
+                                                   masked=False))
 
     dispatch()
     torch.cuda.synchronize()
@@ -995,7 +1023,7 @@ def _graph_report(torch, cfg, fe) -> None:
         a.record()
         outs = dispatch()
         b.record()
-        pend = _Pending("decode", outs, [])
+        pend = _Pending("decode", [((), outs)], [])
         t1 = time.perf_counter()
         _timed_wait(g, [pend])
         t2 = time.perf_counter()
@@ -1009,6 +1037,8 @@ def _graph_report(torch, cfg, fe) -> None:
         f"{statistics.median(enq[1:]):.3f} ms to enqueue, {host:.2f} ms to "
         f"the results, device busy {device:.2f} ms (CUDA events, medians "
         f"of 10): idle share {1 - device / host:.3f}")
+    return {"rows": g.cap * g.max_batch, "host_ms": host,
+            "device_ms": device, "idle": 1 - device / host}
 
 
 def phase_balance_ab(torch, ops, cfg, model, params, control) -> None:
@@ -1644,10 +1674,10 @@ def _fleet_step_times(torch, model, params, rows: int, max_seq: int,
 
 
 # ------------------------------------------------------------------ phase 8
-def phase_oracles(torch, cfg, model, params, control, small):
+def phase_oracles(torch, cfg, model, params, control, small) -> list:
     """Async against eager in bf16; at full width cut to 2 layers in f32,
     the fleet path against per-replica decode and the kernel path against
-    the einsum path."""
+    the einsum path. Returns the f32 fleet kernel run's digest."""
     from repro_torch.launch import serve
 
     out = serve.run_control_loop(_control_args(serve, "--no-async"), cfg,
@@ -1683,6 +1713,7 @@ def phase_oracles(torch, cfg, model, params, control, small):
             raise AssertionError(f"the {name} control loop differs from the "
                                  "fleet kernel run")
     torch.cuda.empty_cache()
+    return runs["fleet"][0]
 
 
 def phase_fleet_write(torch, small):
@@ -2383,7 +2414,9 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
     rows = phase_times(torch, F, ops, ref, cfg, reps, workload, shapes,
                        control) if cfg.name == SERVED[0] else {}
     phase_step_times(torch, cfg, model, params, reps, workload)
-    phase_oracles(torch, cfg, model, params, control, small)
+    oracle = phase_oracles(torch, cfg, model, params, control, small)
+    mesh = phase_mesh(torch, ops, ref, cfg, model, params, control, small,
+                      oracle) if cfg.name == SERVED[0] else None
     del reps
     _free(torch)
     chunk = phase_chunk(torch, ops, cfg, model, params, workload, small) \
@@ -2392,7 +2425,8 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
                       control) if cfg.name == SERVED[0] else None
     return {"launches": control["launches"], "rows": rows,
             "drain_shapes": shapes, "control_shapes": control["shapes"],
-            "slab_rows": control["rows"], "chunk": chunk, "int8": int8}
+            "slab_rows": control["rows"], "chunk": chunk, "int8": int8,
+            "mesh": mesh}
 
 
 def _largest(shapes, kind):
@@ -3533,10 +3567,15 @@ def serve_extras(torch, F, ops, ref, cfg, smi) -> dict:
         torch, ops, cfg, model, params, workload, extras, run["max_seq"])
     rows = phase_extras_times(torch, F, ops, ref, cfg, model, params, eng,
                               workload, extras, run["max_seq"], step, smi)
-    del eng, params
+    del eng
+    _free(torch)
+    fleet = phase_fleet_extras(torch, ops, cfg, model, params, workload,
+                               extras, run["max_seq"], step, smi)
+    del params
     _free(torch)
     phase_extras_paths(torch, cfg, workload, extras)
-    return {"launches": launches, "rows": rows, "tok_s": tok_s}
+    return {"launches": launches, "rows": rows, "tok_s": tok_s,
+            "fleet": fleet}
 
 
 def phase_families(torch, F, ops, ref, smi, errs) -> dict:
@@ -3573,6 +3612,282 @@ def extras_rows(rows: dict, runs: dict) -> None:
                 launches_of=f"{name}'s drain of {N_REQUESTS} requests with "
                             "extras, one replica",
                 **first, shapes=shapes)
+
+
+# --------------------------------------------------------------- phase 14
+# fleets of vlm and audio replicas, and fleet-mesh serving. (a) runs inside
+# phase 12's model lifetime (``serve_extras``), (b) and (c) inside
+# granite-3-8b's (``serve_arch``)
+FLEET_NODES = 2        # (a): the elastic frontend's nodes, one replica each
+MESH_SHARDS = 2        # (b): shards of the fleet mesh, both on cuda:0
+SEQ_KV = dict(B=2, G=8, qpg=4, hd=128, S=4096)   # (c): granite's heads
+SEQ_KV_POS = (0, 100, 2047, 4095)
+
+
+def _sync_checked(torch, fn):
+    """``fn()`` under torch's sync debug mode: (its result, the count of
+    synchronising operations by ``file:line``)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{_where(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def _elastic_fleet(torch, model, params, workload, extras, max_seq, dtype,
+                   fleet_batch=True):
+    """The workload's requests with their extras through an elastic
+    frontend of ``FLEET_NODES`` nodes, one replica each (fleet batching and
+    the async tick, its defaults), ticked until drained: (frontend, the
+    per-tick metrics)."""
+    from repro_torch.serving.elastic import ElasticClusterFrontend
+    from repro_torch.serving.engine import ReplicaEngine, Request
+
+    def make(rid):
+        return ReplicaEngine(model, params, max_batch=MAX_BATCH,
+                             max_seq=max_seq, rid=rid, cache_dtype=dtype,
+                             device="cuda")
+
+    fe = ElasticClusterFrontend(make, FLEET_NODES, initial_replicas=1,
+                                seed=SEED, fleet_batch=fleet_batch)
+    for w, ex in zip(workload, extras):
+        req = Request(w["rid"], w["prompt"],
+                      max_new_tokens=w["max_new_tokens"])
+        req.extras = ex
+        fe.submit(req)
+    ticks = []
+    while fe.pending or any(n.unfinished() for n in fe.nodes):
+        ticks.append(fe.tick(0.0))
+        if len(ticks) > 10_000:
+            raise AssertionError("the fleet did not drain")
+    return fe, ticks
+
+
+def phase_fleet_extras(torch, ops, cfg, model, params, workload, extras,
+                       max_seq, step, smi) -> dict:
+    """Phase 14(a): phase 12's requests with their extras through a fleet
+    of ``cfg``'s replicas (bf16, full width and depth) under the elastic
+    frontend, counted: flash_attention per exact-length admit and
+    flash_decode per fleet decode dispatch as ``_per_dispatch`` says,
+    every request finished, the ledger balanced, the async tick's sync
+    contract kept and no host sync in the engine but the admits' own; the
+    fleet decode dispatch's host / device ms and idle share beside phase
+    12's standalone step. Then at 2 layers in f32 the fleet's streams
+    against ``fleet_batch=False``'s."""
+    from repro_torch.models.model import make_model
+    from repro_torch.serving.elastic import async_tick_violations
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    (fe, ticks), flagged = _sync_checked(torch, lambda: _elastic_fleet(
+        torch, model, params, workload, extras, max_seq, torch.bfloat16))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    admits = _admit_fetch_lines()
+    hidden = {k: n for k, n in flagged.items()
+              if k.startswith("src/repro_torch/") and k not in admits}
+    if hidden:
+        raise AssertionError(f"{cfg.name} fleet: host syncs besides the "
+                             f"exact-length admits': {hidden}")
+    prefill, decode = fe.shard_dispatches()
+    _check_launches(cfg, launches, prefill, decode)
+    led = fe.ledger
+    if not (led.balanced() and len(fe.finished) == len(workload)
+            and all(r.done and r.output for r in fe.finished)):
+        raise AssertionError(f"{cfg.name} fleet: ledger {led.balance()}, "
+                             f"{len(fe.finished)}/{len(workload)} finished")
+    broken = async_tick_violations(ticks)
+    if broken:
+        raise AssertionError(f"{cfg.name} fleet: async tick sync contract: "
+                             f"{broken}")
+    toks = sum(len(r.output) for r in fe.finished)
+    log(f"[fleet] {cfg.name} bf16, {FLEET_NODES} nodes x 1 replica of "
+        f"{MAX_BATCH} slots, one fleet group: launches {launches}; fleet "
+        f"decode dispatches {fe.decode_dispatches()}, admissions {prefill} "
+        f"(exact-length singles), syncs {fe.sync_count()} (the admits' own "
+        f"{sum(t['replica_syncs'] for t in ticks)}), flagged "
+        f"{dict(flagged)}; {len(fe.finished)} requests, {toks} tokens in "
+        f"{wall:.2f}s: {toks / wall:.1f} tok/s; {len(ticks)} ticks, async "
+        f"contract kept")
+    rep = _graph_report(torch, cfg, fe)
+    log(f"[fleet] {cfg.name} bf16, {smi}: fleet decode dispatch "
+        f"({rep['rows']} slab rows) host {rep['host_ms']:.2f} ms, device "
+        f"{rep['device_ms']:.2f} ms, idle share {rep['idle']:.3f}; phase "
+        f"12's standalone step ({MAX_BATCH} slots): host "
+        f"{step['host_ms']:.2f} ms, device {step['device_ms']:.2f} ms, idle "
+        f"share {step['idle']:.3f}")
+    del fe
+    _free(torch)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model2 = make_model(cfg2)
+    params2 = model2.init(seed=SEED, dtype=torch.float32, device="cuda")
+    digests = {}
+    for fb in (True, False):
+        fe2, _ = _elastic_fleet(torch, model2, params2, workload, extras,
+                                max_seq, torch.float32, fleet_batch=fb)
+        digests[fb] = (_digest(fe2), fe2.decode_dispatches())
+        del fe2
+    del params2
+    _free(torch)
+    same = digests[True][0] == digests[False][0]
+    log(f"[fleet] {cfg.name} f32 full width, 2 layers: the fleet's "
+        f"{len(digests[True][0])} streams and clocks equal "
+        f"fleet_batch=False's: {same} (fleet decode dispatches "
+        f"{digests[True][1]} against {digests[False][1]})")
+    if not same or digests[True][1] == 0:
+        raise AssertionError(f"{cfg.name}: the f32 fleet differs from "
+                             "per-replica decode")
+    return {"launches": launches, "decode": decode, "prefill": prefill,
+            "tok_s": toks / wall, "dispatch": rep, "step": step}
+
+
+def _two_shards():
+    """An explicit fleet mesh of ``MESH_SHARDS`` shards, all on cuda:0 (the
+    one card: a mesh repeats a device only when given the list)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((MESH_SHARDS,), ("fleet",),
+                     devices=["cuda:0"] * MESH_SHARDS)
+
+
+def phase_mesh(torch, ops, ref, cfg, model, params, control, small,
+               oracle) -> dict:
+    """Phase 14(b) and (c). The control loop of phase 6 over an explicit
+    2-shard fleet mesh on cuda:0, counted and sync-checked as phase 6:
+    its dispatch and sync counts (per tick too) equal the unsharded
+    run's, every slab's capacity divides over the shards, and the launches
+    follow from the shards' own runs (a masked sub-step round runs only
+    on the shards holding a stepping row); bf16 streams that differ from
+    the unsharded run's are counted (cuBLAS's bf16 products are not
+    batch-invariant). At 2 layers in f32 the digest equals the unsharded
+    loop's (phase 8's). The CLI with ``--devices 1`` on the card; with
+    ``--devices 2`` on a one-card machine it raises. Then (c)."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    mesh = _two_shards()
+    sharded = phase_control(torch, ops, cfg, model, params, mesh=mesh)
+    diff = {k: (sharded[k], control[k]) for k in
+            ("per_tick", "decode", "prefill", "syncs")
+            if sharded[k] != control[k]}
+    runs = sharded["shard_runs"]
+    ratio = {k: sharded["launches"][k] / control["launches"][k]
+             for k in ("flash_decode", "flash_attention")}
+    log(f"[mesh] {cfg.name} bf16 over {MESH_SHARDS} shards on cuda:0: "
+        f"decode dispatches {sharded['decode']}, admissions "
+        f"{sharded['prefill']}, syncs {sharded['syncs']} (unsharded "
+        f"{control['decode']}, {control['prefill']}, {control['syncs']}); "
+        f"the shards' runs: admissions {runs[0]}, decode steps {runs[1]}; "
+        f"launches {sharded['launches']} = {ratio['flash_decode']:.3f}x "
+        f"(flash_decode) and {ratio['flash_attention']:.3f}x "
+        f"(flash_attention) the unsharded run's; live slab caps "
+        f"{sharded['caps']}; streams differing from the unsharded run's "
+        f"{_differing(sharded['digest'], control['digest'])}/"
+        f"{len(control['digest'])} (bf16); {sharded['tok_s']:.1f} tok/s "
+        f"against {control['tok_s']:.1f}")
+    if diff:
+        raise AssertionError(f"sharded counts differ: {diff}")
+    if any(c % MESH_SHARDS for c in sharded["caps"]) or \
+            sharded["rows"] % MESH_SHARDS:
+        raise AssertionError(f"slab caps {sharded['caps']} do not divide")
+    if not runs[1] > sharded["decode"]:
+        raise AssertionError("no decode ran on both shards")
+
+    cfg2, model2, params2 = small
+    out = serve.run_control_loop(_control_args(serve), cfg2, model2,
+                                 params2, cache_dtype=torch.float32,
+                                 mesh=mesh)
+    same = _digest(out["fe"]) == oracle
+    log(f"[mesh] f32 full width, 2 layers, {MESH_SHARDS} shards: digest "
+        f"equal to the unsharded loop's: {same}")
+    if not same:
+        raise AssertionError("the sharded f32 control loop differs")
+    del out
+    _free(torch)
+
+    cli = ["--policy", "ours", "--autoscale", "gpso", "--ticks", "10",
+           "--device", "cuda"]
+    res = serve.main(cli + ["--devices", "1"])
+    shards = {g.shards for g in res["fe"]._fleets.values()}
+    if not (res["fe"].ledger.balanced() and shards == {1}):
+        raise AssertionError(f"--devices 1: shards {shards}, ledger "
+                             f"{res['fe'].ledger.balance()}")
+    del res
+    if torch.cuda.device_count() < 2:
+        try:
+            serve.main(cli + ["--devices", "2"])
+        except RuntimeError as e:
+            log(f"[mesh] --devices 2 on {torch.cuda.device_count()} card: "
+                f"raises {e}")
+        else:
+            raise AssertionError("--devices 2 ran on one card")
+    err = phase_seq_kv(torch, ref)
+    log(f"[mesh] phase 14(b, c): {time.perf_counter() - t0:.1f}s")
+    return {"launches": sharded["launches"], "shard_runs": runs,
+            "decode": sharded["decode"], "prefill": sharded["prefill"],
+            "ratio": ratio, "seq_kv_err": err,
+            "unsharded": control["launches"]}
+
+
+def phase_seq_kv(torch, ref) -> float:
+    """Phase 14(c): ``seq_sharded_flash_decode`` on a (data 1, model 2)
+    mesh over cuda:0 at granite's heads (32 q / 8 kv, hd 128), S 4,096,
+    at each of ``SEQ_KV_POS``, in f32 against flash_decode's plain
+    version (2e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.seq_kv import (seq_kv_cache_bytes,
+                                                seq_sharded_flash_decode)
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+    B, G, qpg, hd, S = (SEQ_KV[k] for k in ("B", "G", "qpg", "hd", "S"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    worst = 0.0
+    for pos in SEQ_KV_POS:
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda")
+                   for shape in ((B, G, qpg, hd), (B, S, G, hd),
+                                 (B, S, G, hd)))
+        got = seq_sharded_flash_decode(mesh, q.reshape(B, G * qpg, hd), k,
+                                       v, pos)
+        want = ref.flash_decode_ref(q, k, v, torch.full(
+            (B,), pos, dtype=torch.int32, device="cuda"))
+        worst = max(worst, _close("seq_sharded_flash_decode", got,
+                                  want.reshape(B, G * qpg, hd), "float32",
+                                  torch))
+    log(f"[mesh] seq_sharded_flash_decode, (data 1, model 2) over cuda:0, "
+        f"B {B}, {G * qpg} q / {G} kv heads, hd {hd}, S {S}, pos "
+        f"{list(SEQ_KV_POS)}: max|err| {worst:.3e} against flash_decode's "
+        f"plain version (f32, atol/rtol {TOLS['float32']['atol']}); "
+        f"granite-3-8b's cache at B 1, S {S}: "
+        f"{seq_kv_cache_bytes(get_config('granite-3-8b'), 1, S) / 2**20:.0f}"
+        f" MiB")
+    return worst
+
+
+def fleet_rows(rows: dict, families: dict, mesh: dict) -> None:
+    """Phase 14's entries in the kernels line: under each attention kernel,
+    ``fleet`` (the vlm and audio fleets' launches) and ``mesh`` (the
+    sharded control loop's, beside the unsharded run's)."""
+    for kernel in ("flash_attention", "flash_decode"):
+        rows[kernel]["fleet"] = {
+            name: dict(launches=run["fleet"]["launches"][kernel],
+                       launches_of=f"{name}'s elastic fleet of "
+                                   f"{FLEET_NODES} replicas, {N_REQUESTS} "
+                                   "requests with extras")
+            for name, run in families.items()}
+        rows[kernel]["mesh"] = dict(
+            launches=mesh["launches"][kernel],
+            unsharded_launches=mesh["unsharded"][kernel],
+            launches_of=f"granite-3-8b's control loop over {MESH_SHARDS} "
+                        "shards on cuda:0")
 
 
 
@@ -4075,7 +4390,9 @@ def main() -> int:
         launches=exp["launches"]["gcn_layer"], launches_of=of)
     log(f"[sim] phase 11: {time.perf_counter() - t_sim:.1f}s")
     _free(torch)
-    extras_rows(rows, phase_families(torch, F, ops, ref, smi, errs))
+    families = phase_families(torch, F, ops, ref, smi, errs)
+    extras_rows(rows, families)
+    fleet_rows(rows, families, served["granite-3-8b"]["mesh"])
     _free(torch)
     phase_train(torch, ops, smi)
     log(f"[done] peak device memory "

@@ -52,8 +52,18 @@ reference's name for its kernel path, which is Pallas there -- and
 ``einsum`` through the reference's dense path.
 TF32 is off for every f32 product.
 
-Not yet ported, and raising when asked for: ``--devices`` and
-``--mesh``.
+Device scaling: ``--devices N`` splits every fleet group's slab rows over
+an N-way ``('fleet',)`` mesh (``launch.mesh``): shard d on ``cuda:d``, and
+fewer than N cards is an error (never N shards on fewer cards). With
+``--device cpu`` the N shards are virtual, all on the CPU, as the
+reference's virtual host devices are; streams, clocks and dispatch/sync
+counts equal the unsharded run's. ``--mesh '4:fleet'`` passes an explicit
+mesh spec over the visible devices instead. Both apply to the control
+loop; drain mode notes that and runs its standalone replicas.
+
+The CLI refuses the vlm and audio families, as the reference's CLI fails
+on them (their requests carry extras its workload does not make); both
+serve through the engine API, standalone or as a fleet.
 """
 from __future__ import annotations
 
@@ -90,10 +100,8 @@ _EXTRAS = {"vlm": "patch_embeds", "audio": "frame_embeds"}
 
 
 def unported(args) -> str:
-    """The first flag of ``args`` that asks for a path not yet ported, or
-    an empty string."""
-    if args.devices > 0 or bool(args.mesh):
-        return "--devices/--mesh"
+    """The first flag of ``args`` that asks for a path the CLI does not
+    serve, or an empty string."""
     from repro_torch.configs import REGISTRY
 
     cfg = REGISTRY.get(args.arch)   # callers may pass a reduced config's name
@@ -124,14 +132,16 @@ def cluster_config(args):
 
 
 def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
-                     rl=None, scaler_key=None) -> dict:
+                     rl=None, scaler_key=None, mesh=None) -> dict:
     """The control loop of ``repro.launch.serve`` over ``model``/
     ``params``: ``--ticks`` ticks of the plane (under ``--hierarchy``, of
     the ``PlaneSupervisor``) over the trace or the closed-loop clients,
     then drain, on one elastic cell or a federation of ``--cells``. ``rl``
     (an ``RLBalancer``) and ``scaler_key`` (a GPSO key, see ``core.gpso``)
     replace the ones drawn from ``--seed`` (the tests pass the
-    reference's). Prints the reference's report lines plus the plane's;
+    reference's); ``mesh`` (a ``launch.mesh.Mesh`` with a ``fleet`` axis)
+    splits every fleet group's slab over its shards. Prints the
+    reference's report lines plus the plane's;
     returns {"fe", "plane", "pool", "sup", "ticks" (per tick: replicas,
     fractions, dispatch and sync counts, the async tick's sync accounting,
     host seconds), "wall"}."""
@@ -190,7 +200,7 @@ def run_control_loop(args, cfg, model, params, cache_dtype=torch.float32,
             fleet_batch=not args.no_fleet,
             fleet_prefill=not args.no_fleet_prefill,
             async_tick=not args.no_async, decode_block=args.decode_block,
-            tiers=tiers, preempt_notice=args.preempt_notice,
+            tiers=tiers, mesh=mesh, preempt_notice=args.preempt_notice,
             chaos=cell_chaos)
 
     if multi:
@@ -574,10 +584,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "mode; default: single tier, identical to the "
                          "untiered scheduler)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard fleet slabs over N devices (not yet "
-                         "ported; 0 = unsharded)")
+                    help="shard fleet slabs over an N-way ('fleet',) mesh: "
+                         "cuda:0..N-1 (fewer cards is an error), or N "
+                         "virtual shards with --device cpu (0 = unsharded)")
     ap.add_argument("--mesh", default="",
-                    help="explicit serving mesh spec (not yet ported)")
+                    help="explicit serving mesh spec 'SHAPE:AXES' (e.g. "
+                         "'4:fleet') over the visible devices; must "
+                         "include a 'fleet' axis. Overrides --devices' "
+                         "mesh shape but not its virtual-device setup")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device the replicas and the control "
@@ -586,7 +600,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def serve_mesh(args):
+    """The serving mesh that ``--devices`` / ``--mesh`` ask for, or None.
+    With ``--device cpu`` the ``--devices`` shards are virtual: the host
+    device count is set while the mesh is built and restored after."""
+    if not (args.devices > 0 or args.mesh):
+        return None
+    from repro_torch.launch.mesh import (host_device_count, make_fleet_mesh,
+                                         parse_mesh_spec)
+
+    virtual = args.devices > 0 and torch.device(args.device).type == "cpu"
+    with host_device_count(args.devices if virtual else None):
+        if args.mesh:
+            return parse_mesh_spec(args.mesh, device=args.device)
+        return make_fleet_mesh(args.devices, device=args.device)
+
+
 def main(argv=None):
+    """The CLI: returns ``run_control_loop``'s or ``run_drain_mode``'s
+    result."""
     args = build_parser().parse_args(argv)
     control_mode = (args.policy == "ours"
                     or (args.autoscale or "none") != "none"
@@ -597,6 +629,10 @@ def main(argv=None):
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import make_model
+
+    mesh = serve_mesh(args)
+    if mesh is not None:
+        print(f"[serve] mesh: {mesh.shape} over {mesh.size} device(s)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -609,11 +645,13 @@ def main(argv=None):
     if control_mode:
         if args.autoscale is None:
             args.autoscale = "gpso" if args.policy == "ours" else "none"
-        run_control_loop(args, cfg, model, params)
-        return
+        return run_control_loop(args, cfg, model, params, mesh=mesh)
+    if mesh is not None:
+        print("[serve] note: --devices/--mesh apply to the control-loop "
+              "mode only; drain mode steps replicas without a fleet slab")
     if args.policy == "wrr":
         args.policy = "fractions"
-    run_drain_mode(args, cfg, model, params)
+    return run_drain_mode(args, cfg, model, params)
 
 
 if __name__ == "__main__":

@@ -49,8 +49,13 @@ reference's keys, plus the async tick's sync accounting (``reconciles``,
 ``replica_syncs``, ``last_round_dispatches``, ``in_flight_groups``) that
 ``async_tick_violations`` holds to its contract.
 
-Not yet ported, and raising when asked for: ``mesh=`` (fleet-mesh
-sharding).
+**Fleet-mesh sharding.** Pass ``mesh=`` (a ``launch.mesh.Mesh`` with a
+``fleet`` axis, e.g. ``launch.mesh.make_fleet_mesh``) and every fleet group
+splits its slab rows over the mesh's shards: one logical dispatch and one
+sync a tick as before, each run once a shard on its device, with the same
+streams, clocks and counts as unsharded (``FleetGroup``'s shard
+contract). On the CPU the shards are virtual
+(``launch.mesh.set_host_device_count``).
 """
 from __future__ import annotations
 
@@ -366,10 +371,10 @@ class ElasticClusterFrontend:
                  chaos: Optional[ChaosSchedule] = None,
                  max_queue: Optional[int] = None,
                  ledger: Optional[RequestLedger] = None):
-        if mesh is not None:
-            raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
-                                      "yet ported")
         self.make_replica = make_replica
+        # a serving mesh with a 'fleet' axis: every fleet group splits its
+        # slab rows over the mesh's shards (FleetGroup's shard contract)
+        self.mesh = mesh if fleet_batch else None
         self.num_nodes = num_nodes
         self.tiers = tiers or DEFAULT_TIERS
         self.provisioning_delay = int(provisioning_delay)
@@ -424,8 +429,11 @@ class ElasticClusterFrontend:
         self._tick_sync_wait = 0.0   # seconds blocked on device this tick
         self._retired_dispatches = 0  # dispatch counts of evicted groups
         self._retired_steps = 0      # decode micro-steps of evicted groups
+        self._retired_shard_prefills = 0  # their fleet prefills, a shard each
+        self._retired_shard_steps = 0  # their micro-steps, a shard each
         self._retired_graphs: dict = {}  # graph counts of evicted groups
-        self._retired_prefill_dispatches = 0  # of evicted groups + engines
+        self._retired_group_prefills = 0  # prefill dispatches: evicted groups
+        self._retired_replica_prefills = 0  # and of retired engines
         self._retired_group_syncs = 0    # sync counts of evicted groups
         self._retired_replica_syncs = 0  # and of retired engines
         self._retired_sync_wait = 0.0
@@ -460,7 +468,8 @@ class ElasticClusterFrontend:
                     max_seq=eng.max_seq, cache_dtype=eng.cache_dtype,
                     async_mode=self.async_tick,
                     decode_block=self.decode_block,
-                    attn_backend=eng.attn_backend, device=eng.device)
+                    attn_backend=eng.attn_backend, mesh=self.mesh,
+                    device=eng.device)
             g.add(eng)
         return eng
 
@@ -475,9 +484,11 @@ class ElasticClusterFrontend:
             self._async_stash.extend(g.reconcile(force=True))
             self._retired_dispatches += g.dispatches
             self._retired_steps += g.decode_steps
-            for k, n in g.graphs.stats().items():
+            self._retired_shard_prefills += g.shard_prefills
+            self._retired_shard_steps += g.shard_steps
+            for k, n in g.graph_stats().items():
                 self._retired_graphs[k] = self._retired_graphs.get(k, 0) + n
-            self._retired_prefill_dispatches += g.prefill_dispatches
+            self._retired_group_prefills += g.prefill_dispatches
             self._retired_group_syncs += g.syncs
             self._retired_sync_wait += g.sync_wait
             self._retired_peak_rows = max(self._retired_peak_rows,
@@ -503,12 +514,24 @@ class ElasticClusterFrontend:
         return self._retired_steps + \
             sum(g.decode_steps for g in self._fleets.values())
 
+    def shard_dispatches(self) -> tuple:
+        """``prefill_dispatches()`` and ``decode_steps()`` with each fleet
+        dispatch counted once a shard that ran it under a fleet mesh
+        (equal to them unsharded): a run's kernel launches follow from
+        these."""
+        live = self._fleets.values()
+        return (self.replica_prefill_dispatches()
+                + self._retired_shard_prefills
+                + sum(g.shard_prefills for g in live),
+                self._retired_shard_steps
+                + sum(g.shard_steps for g in live))
+
     def graph_stats(self) -> dict:
         """The fleet groups' decode-graph counts (captures, recaptures
         after slab growth, replays), evicted groups included."""
         out = dict(self._retired_graphs)
         for g in self._fleets.values():
-            for k, n in g.graphs.stats().items():
+            for k, n in g.graph_stats().items():
                 out[k] = out.get(k, 0) + n
         return out
 
@@ -516,10 +539,16 @@ class ElasticClusterFrontend:
         """Total admission dispatches issued: per-engine bucketed /
         exact-length / chunk calls plus the fleet-batched prefill and chunk
         dispatches, including retired engines and evicted groups."""
-        live = sum(e.prefill_dispatches
-                   for n in self.nodes for e in n.live + n.draining)
-        return self._retired_prefill_dispatches + live + \
+        return self.replica_prefill_dispatches() + \
+            self._retired_group_prefills + \
             sum(g.prefill_dispatches for g in self._fleets.values())
+
+    def replica_prefill_dispatches(self) -> int:
+        """The dispatches of ``prefill_dispatches`` that replicas issued
+        themselves (not their fleet group), retired engines included."""
+        return self._retired_replica_prefills + sum(
+            e.prefill_dispatches for n in self.nodes
+            for e in n.live + n.draining)
 
     def sync_count(self) -> int:
         """Total blocking host syncs performed (group reconciles + eager
@@ -928,7 +957,7 @@ class ElasticClusterFrontend:
         pool.remove(eng)
         node.credit.pop(id(eng), None)
         self._leave_fleet(eng, restore=False)   # row dropped, not unstacked
-        self._retired_prefill_dispatches += eng.prefill_dispatches
+        self._retired_replica_prefills += eng.prefill_dispatches
         self._retired_replica_syncs += eng.syncs
         self._retired_sync_wait += eng.sync_wait
 
@@ -1096,7 +1125,7 @@ class ElasticClusterFrontend:
                     node.credit.pop(id(eng), None)
                     # retired-empty: nothing worth unstacking from the slab
                     self._leave_fleet(eng, restore=False)
-                    self._retired_prefill_dispatches += \
+                    self._retired_replica_prefills += \
                         eng.prefill_dispatches
                     self._retired_replica_syncs += eng.syncs
                     self._retired_sync_wait += eng.sync_wait

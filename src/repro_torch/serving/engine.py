@@ -31,8 +31,12 @@ pool holds ``max_seq + num_patches`` positions a row and its ``pos``
 counts the patch prefix, so the retirement at ``pos >= max_seq - 1``
 counts it too -- the reference's rule, kept for parity: a request whose
 prefix and prompt reach ``max_seq - 1`` stops after its first decoded
-token. These families run on standalone replicas only: a ``FleetGroup``
-over them raises, as nothing in the reference drives one.
+token. Both families also serve as a fleet, as under the reference's
+``ElasticClusterFrontend`` defaults: a member's single admit writes its
+rows through ``FleetGroup.write_slot``, a vlm slab row holds ``max_seq +
+num_patches`` positions, an audio row its self cache and the fixed-``Le``
+cross K/V, and the fleet decode runs the cross pass at ``Le - 1`` as the
+standalone decode does.
 
 **SLO tiers.** Each replica's pending queue is a ``TieredQueue``: one FIFO
 per priority class (``workload.trace.TierSet``), drained in weighted-deficit
@@ -142,11 +146,24 @@ its (K, cap, B) results reconcile at the block's end with finish clocks
 ``dispatch_clock + k``, so an admission landing inside the window starts
 decoding at its end (a lag of at most K - 1 ticks).
 
-Not yet ported, and raising when asked for: fleet-mesh sharding
-(``mesh``) and a ``FleetGroup`` of vlm or audio replicas.
+**Fleet-mesh sharding.** A ``FleetGroup`` built with ``mesh=`` (a
+``launch.mesh.Mesh`` with a ``fleet`` axis of N shards) splits its slab
+rows, its async operands and masks over the shards: shard d owns a
+contiguous block of ``cap / N`` fleet rows on its device, with the
+weights copied there once, and capacity grows as ``N * pow2_bucket(ceil(F
+/ N))`` so the rows always divide; pad rows stay inactive. One host loop
+drives every shard (the reference's single controller): a logical decode
+dispatch runs the same decode, or its captured graph, once a shard on
+that shard's device, the fleet prefill and chunk dispatches run on the
+shards that own their rows, and a logical sync gathers the shards'
+results into one host buffer behind one wait. The counters count logical
+dispatches and syncs, so streams, finish clocks and counts equal the
+unsharded group's (``FleetGroup``'s shard contract).
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import itertools
 import time
@@ -156,6 +173,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_map
 from repro_torch.device import host_to_device, resolve_device
 from repro_torch.models.model import SEQ_LEAVES, Model
 from repro_torch.serving.graphs import DecodeGraphs
@@ -293,29 +311,52 @@ def _stage_into(dst, *arrays) -> None:
         d.copy_(src)
 
 
-class _Pending:
-    """A dispatched device result not yet applied on the host. ``host``
-    holds the small outputs: on a card, pinned host tensors whose copy was
-    enqueued right behind the dispatch (before any later replay can
-    overwrite a graph's outputs), with ``ready`` recorded after it; on the
-    CPU, the outputs themselves (the CPU runs eagerly: each dispatch's
-    outputs are new tensors). ``meta`` is the host bookkeeping context
-    captured at dispatch time (engines, slots, requests and the
-    dispatch-time clocks that stamp TTFT/finish)."""
+def _on(device: torch.device):
+    """Make ``device`` current for the block: a CUDA launch goes to the
+    current device's stream. Nothing to do on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
-    def __init__(self, kind: str, arrays, meta: list):
-        self.kind = kind        # "decode" | "block" | "prefill" | "chunk"
+
+class _Pending:
+    """A dispatched device result not yet applied on the host. ``pieces``
+    [(index, outputs)] are the dispatch's small outputs, one piece a shard
+    that ran (one piece unsharded); ``index`` (a tuple of slices) places a
+    piece's outputs in the host arrays of ``like`` [(shape, dtype)], which
+    are zero where no piece lands (default: a lone piece's own shapes,
+    index ``()``). ``host`` holds those arrays: on a card, pinned host
+    tensors whose copies were enqueued right behind the dispatch (before
+    any later replay can overwrite a graph's outputs), with one ``ready``
+    event recorded after them on each piece's device;
+    on the CPU, a lone piece's outputs themselves (the CPU runs eagerly:
+    each dispatch's outputs are new tensors), or a CPU gather. ``meta`` is
+    the host bookkeeping context captured at dispatch time (engines,
+    slots, requests and the dispatch-time clocks that stamp TTFT/finish)."""
+
+    def __init__(self, kind: str, pieces: list, meta: list, like=None):
+        self.kind = kind  # "decode" | "block" | "prefill" | "chunk" | "fetch"
         self.meta = meta
-        self.ready = None
-        if arrays[0].device.type == "cuda":
-            self.host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                         for a in arrays]
-            for h, a in zip(self.host, arrays):
-                h.copy_(a, non_blocking=True)
-            self.ready = torch.cuda.Event()
-            self.ready.record()
-        else:
-            self.host = list(arrays)
+        self.ready = []
+        if like is None:
+            like = [(a.shape, a.dtype) for a in pieces[0][1]]
+        cuda = pieces[0][1][0].device.type == "cuda"
+        lone = len(pieces) == 1 and all(       # one piece covers them whole
+            tuple(a.shape) == tuple(shape)
+            for a, (shape, _) in zip(pieces[0][1], like))
+        if lone and not cuda:
+            self.host = list(pieces[0][1])
+            return
+        alloc = torch.empty if lone else torch.zeros
+        self.host = [alloc(shape, dtype=dt, pin_memory=cuda)
+                     for shape, dt in like]
+        for index, outs in pieces:
+            with _on(outs[0].device):
+                for h, a in zip(self.host, outs):
+                    h[index].copy_(a, non_blocking=cuda)
+                if cuda:
+                    self.ready.append(torch.cuda.Event())
+                    self.ready[-1].record()
 
 
 def _timed_wait(owner, pend: list) -> list:
@@ -323,8 +364,8 @@ def _timed_wait(owner, pend: list) -> list:
     as numpy, accounted on ``owner`` like ``_timed_get`` (one sync)."""
     t0 = time.perf_counter()
     for p in pend:
-        if p.ready is not None:
-            p.ready.synchronize()
+        for ev in p.ready:
+            ev.synchronize()
     out = [[h.numpy() for h in p.host] for p in pend]
     owner.sync_wait += time.perf_counter() - t0
     owner.syncs += 1
@@ -670,6 +711,15 @@ class ReplicaEngine:
 
     def _admit_batch(self, slots: list, reqs: list, finished: list,
                      bucketed: bool):
+        # a fleet member's prefill runs where its rows live (the shard
+        # that owns them, under a mesh)
+        device, params = (self.device, self.params) if self._fleet is None \
+            else self._fleet.placement(self._fleet_row)
+        with _on(device):
+            self._admit_on(device, params, slots, reqs, finished, bucketed)
+
+    def _admit_on(self, device, params, slots: list, reqs: list,
+                  finished: list, bucketed: bool):
         if bucketed:
             # a prompt longer than the KV pool keeps only its last
             # max_seq - 1 tokens (one slot must remain for generation)
@@ -682,26 +732,26 @@ class ReplicaEngine:
             for i, p in enumerate(prompts):
                 toks[i, :len(p)] = p
                 lengths[i] = len(p)
-            toks, lengths = _stage(self.device, toks, lengths)
+            toks, lengths = _stage(device, toks, lengths)
             batch = {"tokens": toks, "lengths": lengths}
             self._shapes.add(("bucketed", kb, sb))
         else:
             req = reqs[0]
             # same overflow guard as the bucketed path
             prompt = req.prompt[-(self.max_seq - 1):]
-            batch = {"tokens": _stage(self.device, [prompt])[0]}
+            batch = {"tokens": _stage(device, [prompt])[0]}
             shape = ("single", 1, len(prompt))
             # per-request extras (a vlm request's patch_embeds, an audio
-            # request's frame_embeds) join the batch on the engine's
+            # request's frame_embeds) join the batch on the prefill's
             # device, in the weights' dtype
             extras = stage_extras(getattr(req, "extras", None) or {},
-                                  self.device, self.params["embed"].dtype)
+                                  device, params["embed"].dtype)
             batch.update(extras)
             self._shapes.add(shape + tuple((name,) + tuple(t.shape)
                                            for name, t in extras.items()))
         sb = batch["tokens"].shape[1]
         logits, small, plen = self.model.prefill(
-            self.params, batch, cache_len=sb, cache_dtype=self.cache_dtype,
+            params, batch, cache_len=sb, cache_dtype=self.cache_dtype,
             attn_backend=self.attn_backend)
         self.prefill_dispatches += 1
         first, plen = _timed_get(self, (torch.argmax(logits, dim=-1), plen))
@@ -1002,6 +1052,24 @@ class ReplicaEngine:
         return finished
 
 
+class _Shard:
+    """One shard of a fleet group's slab: fleet rows [lo, lo + rows) on
+    ``device`` (fleet row lo + i is its local row i; member f's slot s is
+    local slab row (f - lo) * max_batch + s), with the weights there, its
+    part of the slab, of the async decode operands and of the masked
+    dispatch's masks, and its own decode graphs."""
+
+    def __init__(self, device: torch.device, params):
+        self.device = device
+        self.params = params
+        self.lo = 0                 # first fleet row owned
+        self.rows = 0               # fleet rows owned
+        self.slab = None            # {leaf: (L, rows * max_batch, ...)}
+        self.ops = None             # async operands, (rows, max_batch) each
+        self.masks = None           # the masked dispatch's rows / write
+        self.graphs = DecodeGraphs(device)
+
+
 class FleetGroup:
     """The device state of same-shape replicas in one flat slab, advanced
     with one decode dispatch per round (see the module docstring).
@@ -1026,40 +1094,71 @@ class FleetGroup:
     decode dispatch runs through ``graphs`` (a captured CUDA graph on a
     card); ``decode_block=K`` fuses K micro-steps into one on the ticks
     the reference's rules allow (module docstring). ``decode_steps``
-    counts the micro-steps run (K a block). ``mesh`` is not yet
-    ported."""
+    counts the micro-steps run (K a block).
+
+    **Shard contract** (``mesh`` with a ``fleet`` axis of N shards; the
+    reference's, ``src/repro/serving/engine.py`` ``FleetGroup``). The slab
+    rows split over the fleet axis: shard d (``parts[d]``) owns the
+    contiguous fleet rows [d * cap / N, (d + 1) * cap / N) on the d-th
+    device of the fleet axis, with its part of the async operands and
+    masks and its own graphs; the weights are copied
+    once to each distinct device. ``cap = N * pow2_bucket(ceil(F / N))``
+    (``_cap_for``), so the rows always divide; pad rows are inactive and
+    never in ``movers``. A logical dispatch (decode, prefill, chunk) runs
+    once on each shard that holds its rows (a full decode round on every
+    shard), under that shard's device, and counts once in ``dispatches``
+    / ``prefill_dispatches``; its small results gather into one host
+    buffer behind one wait (one ``syncs``). A growth re-partitions the
+    rows (a row may move to another shard) and drops every graph; a
+    backfill on remove may copy a row across devices. Streams and finish
+    clocks equal the unsharded group's. Other mesh axes must have size 1:
+    the port splits no replica's cache. Unsharded, ``parts`` is one shard
+    on ``device``, and ``slab``, ``ops``, ``graphs`` are its."""
 
     def __init__(self, model: Model, params, *, max_batch: int, max_seq: int,
                  cache_dtype=torch.float32, async_mode: bool = False,
                  decode_block: int = 1, attn_backend: str = "pallas",
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
-                                      "yet ported")
-        if model.cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"a fleet of {model.cfg.family} replicas is not yet ported "
-                "(the reference drives none either): serve these families "
-                "through standalone ReplicaEngines and requests with extras")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            devices = [self.device]
+        else:
+            if "fleet" not in mesh.axis_names:
+                raise ValueError(f"FleetGroup mesh needs a 'fleet' axis, "
+                                 f"got {mesh.axis_names}")
+            wide = {a: n for a, n in mesh.shape.items()
+                    if a != "fleet" and n > 1}
+            if wide:
+                raise ValueError(
+                    f"the fleet slab splits over the 'fleet' axis only; "
+                    f"mesh axes {wide} would split each replica's cache")
+            devices = [resolve_device(d) for d in mesh.axis_devices("fleet")]
         self.model = model
         self.params = params
+        copies = {params["embed"].device: params}
+        for d in devices:
+            if d not in copies:        # the weights, once a device
+                copies[d] = tree_map(lambda t, d=d: t.to(d), params)
+        self.shards = len(devices)
+        self.parts = [_Shard(d, copies[d]) for d in devices]
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
         self.attn_backend = attn_backend
         self.members: list = []     # ReplicaEngine; fleet row == list index
-        self.cap = 0                # allocated fleet rows (power of two)
-        self.slab = None            # {"k", "v"}: (L, cap * max_batch, ...)
+        self.cap = 0                # allocated fleet rows
         self.peak_rows = 0          # most slab rows ever allocated
         self.dispatches = 0         # fleet decode dispatches issued
         self.prefill_dispatches = 0  # fleet admission dispatches issued
         self.async_mode = bool(async_mode)
         self.decode_block = max(1, int(decode_block))
         self.decode_steps = 0       # decode micro-steps run (K a block)
-        self.ops = None             # device decode operands (async mode)
-        self._masks = None          # the masked dispatch's (async mode)
-        self.graphs = DecodeGraphs(self.device)   # the async decode's
+        # the shards' own runs behind those counts (equal to them
+        # unsharded): each shard's decode micro-steps and admission
+        # dispatches, so a run's kernel launches follow from them
+        self.shard_steps = 0
+        self.shard_prefills = 0
         self.pending: list = []     # _Pending device results, unapplied
         self._stash: list = []      # finishes from forced flushes (churn)
         self._admitted = False      # a single admit landed this tick
@@ -1072,9 +1171,117 @@ class FleetGroup:
     def __len__(self) -> int:
         return len(self.members)
 
+    # ------------------------------------------------------------ sharding
+    def _one(self) -> _Shard:
+        if self.shards != 1:
+            raise AttributeError("a sharded group keeps its slab, operands, "
+                                 "masks and graphs per shard (parts)")
+        return self.parts[0]
+
+    @property
+    def slab(self):
+        """The unsharded group's slab, {leaf: (L, cap * max_batch, ...)}."""
+        return self._one().slab
+
+    @property
+    def ops(self):
+        """The unsharded group's async decode operands, (cap, B) each."""
+        return self._one().ops
+
+    @property
+    def _masks(self):
+        return self._one().masks
+
+    @property
+    def graphs(self) -> DecodeGraphs:
+        return self._one().graphs
+
+    def graph_stats(self) -> dict:
+        """Decode-graph counts summed over the shards."""
+        out: dict = {}
+        for p in self.parts:
+            for k, n in p.graphs.stats().items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def _cap_for(self, rows: int) -> int:
+        """Slab capacity for ``rows`` members: the next power of two, or,
+        sharded, N times the next power of two of ceil(rows / N), so the
+        fleet rows always divide over the shards."""
+        if self.shards == 1:
+            return pow2_bucket(rows)
+        return self.shards * pow2_bucket(-(-rows // self.shards))
+
     def _rows(self, f: int) -> slice:
-        """Slab rows of fleet row ``f``."""
+        """Slab rows of fleet row ``f`` (logical; unsharded, the slab's)."""
         return slice(f * self.max_batch, (f + 1) * self.max_batch)
+
+    def _where(self, f: int) -> tuple:
+        """(the shard owning fleet row ``f``, its local fleet row)."""
+        p = self.parts[f // (self.cap // self.shards)]
+        return p, f - p.lo
+
+    def placement(self, f: int) -> tuple:
+        """(device, weights) of the shard owning fleet row ``f``: where a
+        member's own prefill runs (its rows' state is written there)."""
+        p = self._where(f)[0]
+        return p.device, p.params
+
+    def _by_shard(self, rows) -> list:
+        """[(shard, [indices into ``rows``])] for the shards owning the
+        fleet rows ``rows``, in shard order."""
+        per = self.cap // self.shards
+        out: dict = {}
+        for i, f in enumerate(rows):
+            out.setdefault(f // per, []).append(i)
+        return [(self.parts[d], out[d]) for d in sorted(out)]
+
+    def _copy_rows(self, dst: _Shard, di: int, src: _Shard, si: int,
+                   n: int):
+        """Fleet rows [si, si + n) of shard ``src`` into rows [di, di + n)
+        of shard ``dst`` (slab and operands; any two devices)."""
+        B = self.max_batch
+        for name, s in dst.slab.items():
+            s[:, di * B:(di + n) * B].copy_(
+                src.slab[name][:, si * B:(si + n) * B])
+        if dst.ops is not None:
+            for name, o in dst.ops.items():
+                o[di:di + n].copy_(src.ops[name][si:si + n])
+
+    def _grow(self, cap: int, like: dict):
+        """Reallocate every shard for ``cap`` fleet rows and copy the live
+        rows over (under a mesh a row may change shard). The graphs read
+        the slab, the operands and the masks by address: all are new."""
+        B, per = self.max_batch, cap // self.shards
+        old = [copy.copy(p) for p in self.parts] if self.cap else []
+        live = len(self.members)
+        for d, p in enumerate(self.parts):
+            p.lo, p.rows = d * per, per
+            p.slab = {n: torch.zeros((c.shape[0], per * B)
+                                     + tuple(c.shape[2:]), dtype=c.dtype,
+                                     device=p.device)
+                      for n, c in like.items()}
+            if self.async_mode:
+                p.ops = _init_ops(per, B, p.device)
+                p.masks = {
+                    "rows": torch.zeros(per, dtype=torch.bool,
+                                        device=p.device),
+                    "write": torch.zeros(per * B, dtype=torch.int32,
+                                         device=p.device)}
+                p.graphs.drop()
+        for o in old:
+            for p in self.parts:
+                a = max(o.lo, p.lo)
+                b = min(o.lo + o.rows, p.lo + p.rows, live)
+                if a < b:
+                    self._copy_rows(p, a - p.lo, o, a - o.lo, b - a)
+        self.cap = cap
+        self.peak_rows = max(self.peak_rows, cap * B)
+
+    def _fetch(self, pieces: list, like: list) -> list:
+        """Eager results of one logical dispatch, gathered from its shards
+        (see ``_Pending``) behind one blocking wait: numpy arrays."""
+        return _timed_wait(self, [_Pending("fetch", pieces, [], like)])[0]
 
     # -------------------------------------------------------------- members
     def add(self, eng: ReplicaEngine):
@@ -1085,39 +1292,12 @@ class FleetGroup:
         if self.pending:
             self._stash += self.reconcile(force=True)
         row = len(self.members)
-        B = self.max_batch
         if row >= self.cap:
-            new_cap = pow2_bucket(row + 1)
-            if self.slab is None:
-                self.slab = {n: c.new_zeros((c.shape[0], new_cap * B)
-                                            + tuple(c.shape[2:]))
-                             for n, c in eng.cache.items()}
-                if self.async_mode:
-                    self.ops = _init_ops(new_cap, B, self.device)
-            else:
-                old, self.slab = self.slab, {}
-                for n, s in old.items():
-                    grown = s.new_zeros((s.shape[0], new_cap * B)
-                                        + tuple(s.shape[2:]))
-                    grown[:, :self.cap * B].copy_(s)
-                    self.slab[n] = grown
-                if self.async_mode:
-                    self.ops = {n: torch.cat([o, o.new_zeros(
-                        (new_cap - self.cap, B))]) for n, o in
-                        self.ops.items()}
-            if self.async_mode:
-                # the graphs read the slab, the operands and the masks by
-                # address: all three are new
-                self._masks = {
-                    "rows": torch.zeros(new_cap, dtype=torch.bool,
-                                        device=self.device),
-                    "write": torch.zeros(new_cap * B, dtype=torch.int32,
-                                         device=self.device)}
-                self.graphs.drop()
-            self.cap = new_cap
-            self.peak_rows = max(self.peak_rows, new_cap * B)
-        for n, s in self.slab.items():
-            s[:, self._rows(row)].copy_(eng.cache[n])
+            self._grow(self._cap_for(row + 1), eng.cache)
+        part, i = self._where(row)
+        B = self.max_batch
+        for n, s in part.slab.items():
+            s[:, i * B:(i + 1) * B].copy_(eng.cache[n])
         if self.async_mode:
             self._seed_ops_row(row, eng)
         eng.cache = None
@@ -1137,30 +1317,29 @@ class FleetGroup:
                 act[s] = 1
                 rem[s] = req.rem_tokens(eng.clock)
                 eos[s] = req.eos_id
-        vals = _stage(self.device, eng.last_tok, eng.pos, rem, eos, act)
+        part, i = self._where(row)
+        vals = _stage(part.device, eng.last_tok, eng.pos, rem, eos, act)
         for name, v in zip(("toks", "pos", "rem", "eos", "active"), vals):
-            self.ops[name][row] = v.to(self.ops[name].dtype)
+            part.ops[name][i] = v.to(part.ops[name].dtype)
 
     def remove(self, eng: ReplicaEngine, restore: bool = True):
         """Detach ``eng``; with ``restore`` its slab rows are copied back
-        onto the engine (drain hand-back), otherwise dropped (failure).
-        Pending results apply first (host mirrors must be current before a
-        row moves)."""
+        onto the engine, on the engine's device (drain hand-back),
+        otherwise dropped (failure). Pending results apply first (host
+        mirrors must be current before a row moves)."""
         if self.pending:
             self._stash += self.reconcile(force=True)
         row = eng._fleet_row
         assert eng._fleet is self and self.members[row] is eng
+        part, i = self._where(row)
+        B = self.max_batch
         if restore:
-            eng.cache = {n: s[:, self._rows(row)].clone()
-                         for n, s in self.slab.items()}
+            eng.cache = {n: s[:, i * B:(i + 1) * B].clone().to(eng.device)
+                         for n, s in part.slab.items()}
         last = self.members.pop()
         if last is not eng:          # backfill the hole with the last rows
-            src, dst = self._rows(len(self.members)), self._rows(row)
-            for s in self.slab.values():
-                s[:, dst].copy_(s[:, src])
-            if self.async_mode:
-                for o in self.ops.values():
-                    o[row].copy_(o[len(self.members)])
+            src, si = self._where(len(self.members))
+            self._copy_rows(part, i, src, si, 1)
             last._fleet_row = row
             self.members[row] = last
         eng._fleet, eng._fleet_row = None, -1
@@ -1173,17 +1352,18 @@ class FleetGroup:
         ``_dispatch_fleet_prefill`` instead). In async mode the slot also
         registers in the device operands (``req``'s first token was already
         fetched by that path)."""
-        _write_state(self.slab, f * self.max_batch + slot, small_state, row)
+        part, i = self._where(f)
+        _write_state(part.slab, i * self.max_batch + slot, small_state, row)
         if self.async_mode and req is not None:
             # fill_ takes the value as a kernel argument: an item
             # assignment would copy it from pageable memory, a blocking
             # sync for each operand on a card
-            o = self.ops
-            o["toks"][f, slot].fill_(int(req.output[-1]))
-            o["pos"][f, slot].fill_(int(prompt_len))
-            o["rem"][f, slot].fill_(req.rem_tokens(self.members[f].clock))
-            o["eos"][f, slot].fill_(int(req.eos_id))
-            o["active"][f, slot].fill_(True)
+            o = part.ops
+            o["toks"][i, slot].fill_(int(req.output[-1]))
+            o["pos"][i, slot].fill_(int(prompt_len))
+            o["rem"][i, slot].fill_(req.rem_tokens(self.members[f].clock))
+            o["eos"][i, slot].fill_(int(req.eos_id))
+            o["active"][i, slot].fill_(True)
             # single admits bypass ``pending`` (their sync was eager), so
             # they veto a fused block separately
             self._admitted = True
@@ -1228,112 +1408,159 @@ class FleetGroup:
         (K, sb) batch (K pow2-padded with length-1 dummy rows) runs the
         same row-independent prefill as the standalone path, and the n
         real rows' K/V scatter into their slab rows (member row * B +
-        slot). Async: the admitted slots also activate in the device
+        slot). Under a mesh each shard runs the prefill of the rows it
+        owns. Async: the admitted slots also activate in the device
         operands, so this tick's decode consumes their first token without
         a host sync."""
-        n, K, B = len(entries), pow2_bucket(len(entries)), self.max_batch
-        toks = np.zeros((K, sb), np.int32)
-        lens = np.ones(K, np.int32)             # pad rows: length-1 dummies
-        flat = np.zeros(n, np.int32)
-        rems = np.zeros(n, np.int32)
-        eoss = np.full(n, -1, np.int32)
-        for i, (e, slot, req, p) in enumerate(entries):
-            toks[i, :len(p)] = p
-            lens[i] = len(p)
-            flat[i] = e._fleet_row * B + slot
-            rems[i] = req.rem_tokens(e.clock) - 1
-            eoss[i] = req.eos_id
-        toks, lens, idx, rems, eoss = _stage(self.device, toks, lens, flat,
-                                             rems, eoss)
-        logits, small, plen = self.model.prefill(
-            self.params, {"tokens": toks, "lengths": lens}, cache_len=sb,
-            cache_dtype=self.cache_dtype, attn_backend=self.attn_backend)
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
-        _write_state(self.slab, idx, small, slice(0, n))
+        n, B = len(entries), self.max_batch
+        pieces, at = [], {}
+        for part, idx in self._by_shard([e._fleet_row
+                                         for e, *_ in entries]):
+            m, K = len(idx), pow2_bucket(len(idx))
+            toks = np.zeros((K, sb), np.int32)
+            lens = np.ones(K, np.int32)         # pad rows: length-1 dummies
+            flat = np.zeros(m, np.int32)
+            rems = np.zeros(m, np.int32)
+            eoss = np.full(m, -1, np.int32)
+            for j, i in enumerate(idx):
+                e, slot, req, p = entries[i]
+                at[i] = len(at)
+                toks[j, :len(p)] = p
+                lens[j] = len(p)
+                flat[j] = (e._fleet_row - part.lo) * B + slot
+                rems[j] = req.rem_tokens(e.clock) - 1
+                eoss[j] = req.eos_id
+            with _on(part.device):
+                toks, lens, rows, rems, eoss = _stage(part.device, toks, lens,
+                                                      flat, rems, eoss)
+                logits, small, plen = self.model.prefill(
+                    part.params, {"tokens": toks, "lengths": lens},
+                    cache_len=sb, cache_dtype=self.cache_dtype,
+                    attn_backend=self.attn_backend)
+                first = torch.argmax(logits, dim=-1).to(torch.int32)
+                _write_state(part.slab, rows, small, slice(0, m))
+                if self.async_mode:
+                    head = first[:m]
+                    for name, v in (("toks", head), ("pos", plen[:m]),
+                                    ("rem", rems), ("eos", eoss),
+                                    ("active", (rems >= 1) & (head != eoss))):
+                        part.ops[name].view(-1)[rows] = \
+                            v.to(part.ops[name].dtype)
+            a = len(at) - m
+            pieces.append(((slice(a, a + m),), (first[:m], plen[:m])))
+            self.shard_prefills += 1
         self.prefill_dispatches += 1
         self._shapes.add(("afleet_prefill" if self.async_mode
-                          else "fleet_prefill", K, sb, self.cap, B))
+                          else "fleet_prefill", pow2_bucket(n), sb, self.cap,
+                          B))
         if self.async_mode:
-            head = first[:n]
-            for name, v in (("toks", head), ("pos", plen[:n]), ("rem", rems),
-                            ("eos", eoss),
-                            ("active", (rems >= 1) & (head != eoss))):
-                self.ops[name].view(-1)[idx] = v.to(self.ops[name].dtype)
             meta = []
             for i, (e, slot, req, p) in enumerate(entries):
                 e.slots[slot] = req      # reserve now; commit at reconcile
-                meta.append((i, e, slot, req, len(p), e.clock))
-            self.pending.append(_Pending("prefill", (first,), meta))
+                meta.append((at[i], e, slot, req, len(p), e.clock))
+            self.pending.append(_Pending(
+                "prefill", [(ix, outs[:1]) for ix, outs in pieces], meta,
+                [((n,), torch.int32)]))
             return
-        first, plen = _timed_get(self, (first, plen))
+        first, plen = self._fetch(pieces, [((n,), torch.int32)] * 2)
         for i, (e, slot, req, p) in enumerate(entries):
-            e.commit_admit([slot], [req], first[i:i + 1], plen[i:i + 1],
+            k = at[i]
+            e.commit_admit([slot], [req], first[k:k + 1], plen[k:k + 1],
                            finished)
 
     def _dispatch_fleet_chunk(self, chunk_rows: list, finished: list):
         """ONE chunk dispatch for every due chunk row across the fleet (one
         per distinct ``chunk_len`` of the members), each row's state
-        advanced in place in its slab row (member row * B + slot). Async:
-        a cursor advances at dispatch (its advance is host-known); a row's
-        final chunk activates the slot in the device operands and its first
-        token commits at the next reconcile."""
+        advanced in place in its slab row (member row * B + slot; under a
+        mesh, on the shard that owns it). Async: a cursor advances at
+        dispatch (its advance is host-known); a row's final chunk
+        activates the slot in the device operands and its first token
+        commits at the next reconcile."""
         B = self.max_batch
         by_width: dict = {}
         for item in chunk_rows:
             by_width.setdefault(item[0].chunk_len, []).append(item)
         for C, items in sorted(by_width.items()):
-            first, pos = _chunk_dispatch(
-                self.model, self.params, self.slab, self.device,
-                self.attn_backend,
-                [(e._fleet_row * B + slot, t, off, ln, fr)
-                 for e, slot, t, off, ln, fr, _ in items], C)
+            pieces, at = [], {}
+            for part, idx in self._by_shard([it[0]._fleet_row
+                                             for it in items]):
+                local = []
+                for i in idx:
+                    e, slot, t, off, ln, fr, _ = items[i]
+                    at[i] = len(at)
+                    local.append(((e._fleet_row - part.lo) * B + slot, t, off,
+                                  ln, fr))
+                with _on(part.device):
+                    first, pos = _chunk_dispatch(
+                        self.model, part.params, part.slab, part.device,
+                        self.attn_backend, local, C)
+                    if self.async_mode:
+                        self._activate_finals(part, [items[i] for i in idx],
+                                              first, pos)
+                a = len(at) - len(idx)
+                pieces.append(((slice(a, a + len(idx)),), (first, pos)))
+                self.shard_prefills += 1
             self.prefill_dispatches += 1
             self._shapes.add(("afleet_chunk" if self.async_mode
                               else "fleet_chunk", pow2_bucket(len(items)), C,
                               self.cap, B))
+            n = len(items)
             if not self.async_mode:
-                first, pos = _timed_get(self, (first, pos))
+                first, pos = self._fetch(pieces, [((n,), torch.int32)] * 2)
                 for i, (e, slot, t, off, ln, fr, fin) in enumerate(items):
-                    e.commit_chunk(slot, first[i], pos[i], fin, finished)
+                    e.commit_chunk(slot, first[at[i]], pos[at[i]], fin,
+                                   finished)
                 continue
-            meta, sel, flat, rems, eoss = [], [], [], [], []
+            meta = []
             for i, (e, slot, t, off, ln, fr, fin) in enumerate(items):
                 cur = e._chunks[slot]
                 if not fin:              # the cursor advance is host-known
                     cur.consumed += e.chunk_len
                     continue
                 del e._chunks[slot]      # the slot stays reserved
-                meta.append((i, e, slot, cur.req, off + ln, e.clock))
-                sel.append(i)
-                flat.append(e._fleet_row * B + slot)
-                rems.append(cur.req.rem_tokens(e.clock) - 1)
-                eoss.append(cur.req.eos_id)
-            if not meta:
-                continue
-            sel, idx, rems, eoss = _stage(self.device, sel, flat, rems, eoss)
-            head = first[sel.long()]
-            for name, v in (("toks", head), ("pos", pos[sel.long()]),
-                            ("rem", rems), ("eos", eoss),
-                            ("active", (rems >= 1) & (head != eoss))):
-                self.ops[name].view(-1)[idx] = v.to(self.ops[name].dtype)
-            self.pending.append(_Pending("chunk", (first,), meta))
+                meta.append((at[i], e, slot, cur.req, off + ln, e.clock))
+            if meta:
+                self.pending.append(_Pending(
+                    "chunk", [(ix, outs[:1]) for ix, outs in pieces], meta,
+                    [((n,), torch.int32)]))
+
+    def _activate_finals(self, part: _Shard, items: list, first, pos):
+        """Async chunk dispatch on ``part``: the slots whose final chunk
+        ran (``items`` in dispatch order) activate in its operands."""
+        B = self.max_batch
+        sel, flat, rems, eoss = [], [], [], []
+        for j, (e, slot, t, off, ln, fr, fin) in enumerate(items):
+            if fin:
+                req = e._chunks[slot].req
+                sel.append(j)
+                flat.append((e._fleet_row - part.lo) * B + slot)
+                rems.append(req.rem_tokens(e.clock) - 1)
+                eoss.append(req.eos_id)
+        if not sel:
+            return
+        sel, idx, rems, eoss = _stage(part.device, sel, flat, rems, eoss)
+        head = first[sel.long()]
+        for name, v in (("toks", head), ("pos", pos[sel.long()]),
+                        ("rem", rems), ("eos", eoss),
+                        ("active", (rems >= 1) & (head != eoss))):
+            part.ops[name].view(-1)[idx] = v.to(part.ops[name].dtype)
 
     # -------------------------------------------------------------- decode
-    def _fleet_core(self, toks, pos, rem, eos, active, rows=None,
-                    write=None):
-        """One decode of every slab row: toks/pos/rem/eos/active (cap, B)
-        device tensors. Returns the next greedy token per slot and the
-        fused retire mask, the device twin of the host rule in
+    def _fleet_core(self, part: _Shard, toks, pos, rem, eos, active,
+                    rows=None, write=None):
+        """One decode of every slab row of ``part``: toks/pos/rem/eos/
+        active (rows, B) device tensors. Returns the next greedy token per
+        slot and the fused retire mask, the device twin of the host rule in
         ``ReplicaEngine.finish_step``: after this token a slot is done when
         it reached max_new_tokens (rem <= 1), emitted EOS, or its next
-        write index would hit the end of the cache. With ``rows`` (cap,)
+        write index would hit the end of the cache. With ``rows`` (rows,)
         only those fleet rows step: ``write`` (their slab rows) limits the
-        K/V write, so the others keep their cache."""
-        cap, B = self.cap, self.max_batch
+        state write, so the others keep theirs."""
         logits, _ = self.model.decode(
-            self.params, self.slab, toks.reshape(-1, 1), pos.reshape(-1),
+            part.params, part.slab, toks.reshape(-1, 1), pos.reshape(-1),
             attn_backend=self.attn_backend, write_rows=write)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32).view(cap, B)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).view(
+            part.rows, self.max_batch)
         done = active & ((rem <= 1) | (nxt == eos)
                          | (pos + 1 >= self.max_seq - 1))
         if rows is not None:
@@ -1353,6 +1580,13 @@ class FleetGroup:
                          if s not in e._chunks)
         return rows, np.asarray(write, np.int32)
 
+    def _shard_masks(self, part: _Shard, rows, write) -> tuple:
+        """``part``'s slice of ``_row_masks``: its (rows,) stepping mask
+        and the local slab rows it writes."""
+        lo, B = part.lo * self.max_batch, self.max_batch
+        w = write[(write >= lo) & (write < lo + part.rows * B)] - lo
+        return rows[part.lo:part.lo + part.rows], w
+
     def decode_round(self, stepping_ids=None, allow_block: bool = False
                      ) -> list:
         """One fused decode step for every member (or the ``id(engine)``
@@ -1360,7 +1594,9 @@ class FleetGroup:
         dispatch plus one small (cap, B) host fetch. Async: one dispatch,
         no sync (results apply at the next ``reconcile``), and with
         ``allow_block`` a K-micro-step block may engage on a tick that
-        admitted nothing -- covering the next K - 1 ticks' decode."""
+        admitted nothing -- covering the next K - 1 ticks' decode. Under a
+        mesh a masked round runs only on the shards holding a stepping
+        row."""
         movers = [e for e in self.members
                   if stepping_ids is None or id(e) in stepping_ids]
         if self.async_mode:
@@ -1382,19 +1618,31 @@ class FleetGroup:
                     active[f, s] = 1
                     rem[f, s] = req.rem_tokens(e.clock)
                     eos[f, s] = req.eos_id
-        host = [toks, pos, rem, eos, active]
         masked = len(movers) < len(self.members) \
             or any(e._chunks for e in movers)
         if masked:
-            host += self._row_masks(movers)
-        dev = _stage(self.device, *host)
-        rows = write = None
-        if masked:
-            rows, write = dev[5].bool(), dev[6]
-        nxt, done = self._fleet_core(*dev[:4], dev[4].bool(), rows, write)
+            rows, write = self._row_masks(movers)
+        pieces = []
+        for part in self.parts:
+            span = slice(part.lo, part.lo + part.rows)
+            host = [a[span] for a in (toks, pos, rem, eos, active)]
+            if masked:
+                r, w = self._shard_masks(part, rows, write)
+                if not w.size:
+                    continue
+                host += [r, w]
+            with _on(part.device):
+                dev = _stage(part.device, *host)
+                r = w = None
+                if masked:
+                    r, w = dev[5].bool(), dev[6]
+                out = self._fleet_core(part, *dev[:4], dev[4].bool(), r, w)
+            pieces.append(((span,), out))
         self.dispatches += 1
         self.decode_steps += 1
-        nxt, done = _timed_get(self, (nxt, done))   # ONE small host fetch
+        self.shard_steps += len(pieces)
+        nxt, done = self._fetch(pieces, [((cap, B), torch.int32),
+                                         ((cap, B), torch.bool)])
         finished: list = []
         for e in movers:
             f = e._fleet_row
@@ -1406,8 +1654,8 @@ class FleetGroup:
         and advance in place; only the masks go up, staged into the fixed
         mask buffers -- the stepping rows (heterogeneous speeds) and the
         rows the round writes (without the mid-chunk slots, which stay
-        inactive in the operands). One replay (one graph of K micro-steps
-        for a block); results queue on ``pending``."""
+        inactive in the operands). One replay a shard (one graph of K
+        micro-steps for a block); results queue on ``pending``."""
         if self._block_credit > 0:      # a fused block covers this tick
             self._block_credit -= 1
             return []
@@ -1433,31 +1681,46 @@ class FleetGroup:
         masked = not full or any(e._chunks for e in movers)
         if masked:
             rows, write = self._row_masks(movers)
-            _stage_into((self._masks["rows"], self._masks["write"]), rows,
-                        np.resize(write, self.cap * self.max_batch))
-        nxt, done, stepped = self.graphs.run(
-            (masked, steps), lambda: self._micro_steps(steps, masked=masked))
+        pieces = []
+        for part in self.parts:
+            span = slice(part.lo, part.lo + part.rows)
+            with _on(part.device):
+                if masked:
+                    r, w = self._shard_masks(part, rows, write)
+                    if not w.size:
+                        continue
+                    _stage_into((part.masks["rows"], part.masks["write"]),
+                                r, np.resize(w, part.rows * self.max_batch))
+                out = part.graphs.run(
+                    (masked, steps),
+                    lambda p=part: self._micro_steps(p, steps, masked))
+            pieces.append(((span,) if steps == 1 else (slice(None), span),
+                           out))
         self.dispatches += 1
         self.decode_steps += steps
+        self.shard_steps += steps * len(pieces)
         if steps > 1:
             self._block_credit = steps - 1
-        self.pending.append(_Pending("block" if steps > 1 else "decode",
-                                     (nxt, done, stepped), meta))
+        shape = (self.cap, self.max_batch) if steps == 1 \
+            else (steps, self.cap, self.max_batch)
+        self.pending.append(_Pending(
+            "block" if steps > 1 else "decode", pieces, meta,
+            [(shape, torch.int32), (shape, torch.bool), (shape, torch.bool)]))
         return []
 
-    def _micro_steps(self, K: int, masked: bool) -> tuple:
-        """K async decode micro-steps over the slab, the device twin of
-        ``ReplicaEngine.apply_decode`` each: the operands advance in place
-        (a slot retired at micro-step k is inactive from k + 1). Reads only
-        fixed tensors (slab, ``ops``, ``_masks``): a graph's body. Returns
-        (next tokens, retire mask, stepped mask), (cap, B) each, stacked
-        (K, cap, B) when K > 1."""
-        o = self.ops
-        rows = self._masks["rows"] if masked else None
-        write = self._masks["write"] if masked else None
+    def _micro_steps(self, part: _Shard, K: int, masked: bool) -> tuple:
+        """K async decode micro-steps over ``part``'s slab rows, the device
+        twin of ``ReplicaEngine.apply_decode`` each: the operands advance
+        in place (a slot retired at micro-step k is inactive from k + 1).
+        Reads only fixed tensors (slab, ``ops``, ``masks``): a graph's
+        body. Returns (next tokens, retire mask, stepped mask), (rows, B)
+        each, stacked (K, rows, B) when K > 1."""
+        o = part.ops
+        rows = part.masks["rows"] if masked else None
+        write = part.masks["write"] if masked else None
         outs = []
         for _ in range(K):
-            nxt, done = self._fleet_core(o["toks"], o["pos"], o["rem"],
+            nxt, done = self._fleet_core(part, o["toks"], o["pos"], o["rem"],
                                          o["eos"], o["active"], rows, write)
             stepped = o["active"].clone() if rows is None else \
                 o["active"] & rows[:, None]
@@ -1573,15 +1836,14 @@ class ClusterFrontend:
     ``step`` issues one decode dispatch per group instead of one per replica.
     ``fleet_prefill`` (default: follows ``fleet_batch``) batches admission
     the same way; set it False to keep per-replica admission as the parity
-    oracle. ``mesh`` is not yet ported."""
+    oracle. ``mesh`` (a ``launch.mesh.Mesh`` with a ``fleet`` axis) splits
+    every group's slab rows over its shards (``FleetGroup``)."""
 
     def __init__(self, replicas: list, policy: str = "lc",
                  fractions_fn=None, seed: int = 0, fleet_batch: bool = False,
                  fleet_prefill: Optional[bool] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("fleet-mesh sharding (mesh=) is not "
-                                      "yet ported")
         self.replicas = replicas
+        self.mesh = mesh
         self.policy = policy
         self.fractions_fn = fractions_fn
         self.rng = np.random.default_rng(seed)
@@ -1598,7 +1860,8 @@ class ClusterFrontend:
                     g = self.fleets[eng.fleet_key] = FleetGroup(
                         eng.model, eng.params, max_batch=eng.max_batch,
                         max_seq=eng.max_seq, cache_dtype=eng.cache_dtype,
-                        attn_backend=eng.attn_backend, device=eng.device)
+                        attn_backend=eng.attn_backend, mesh=mesh,
+                        device=eng.device)
                 g.add(eng)
 
     def submit(self, req: Request):

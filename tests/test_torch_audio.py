@@ -30,7 +30,7 @@ from repro_torch.launch import serve
 from repro_torch.models import attention as tattn
 from repro_torch.models import encdec, layers
 from repro_torch.models.dims import padded_dims
-from repro_torch.serving.engine import FleetGroup
+from repro_torch.serving.engine import FleetGroup, ReplicaEngine
 from test_torch_vlm import (_one_torch_thread, check_config,  # noqa: F401
                             consistency_vs_reference, extras_of,
                             greedy_vs_reference, pair, port_engine,
@@ -177,8 +177,14 @@ def test_engine_with_extras_matches_reference(backend):
 
 
 def test_fleet_and_cli_refuse_audio():
+    """A fleet of audio replicas serves (parity: tests/test_torch_fleet_
+    extras.py): its slab holds the decoder's self cache and the fixed-Le
+    cross K/V a row. The CLI still refuses the family, as the
+    reference's CLI fails on it."""
     _, _, tm, tp = pair(ARCH)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FleetGroup(tm, tp, max_batch=2, max_seq=32, device="cpu")
+    g = FleetGroup(tm, tp, max_batch=2, max_seq=32, device="cpu")
+    g.add(ReplicaEngine(tm, tp, max_batch=2, max_seq=32, device="cpu"))
+    assert g.slab["self_k"].shape[1:3] == (2, 32)
+    assert g.slab["cross_k"].shape[1:3] == (2, tm.cfg.encoder_seq_len)
     with pytest.raises(SystemExit, match="frame_embeds"):
         serve.main(["--device", "cpu", "--arch", ARCH, "--requests", "2"])

@@ -41,8 +41,9 @@ from repro_torch.serving.engine import ReplicaEngine, Request
 from repro_torch.sim.cluster import ClusterSim
 from repro_torch.workload.clients import ClientPool
 from repro_torch.workload.trace import parse_tiers
-from test_torch_control_loop import (assert_loops_match, port_loop,
-                                     reference_loop)
+from test_torch_control_loop import (assert_loops_match,
+                                     cached_reference_loop, port_loop)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
 
@@ -485,21 +486,35 @@ def test_shed_retry_racing_cell_up_admitted_exactly_once(models):
 
 
 # ------------------------------------------------------------ serve level
+CELL_LOOP = ["--device", "cpu", "--policy", "ours", "--ticks", "15",
+             "--cells", "2", "--hierarchy", "--plan-interval-global", "4",
+             "--clients", "10", "--timeout", "8", "--retries", "1",
+             "--cell-chaos", "cell_down@4:c0,cell_up@9:c0,plane_down@10:k3"]
+
+
 def test_control_loop_cells_hierarchy_matches_reference(models):
     """``--cells 2 --hierarchy`` with a cell blackout and clients through
     ``run_control_loop``: streams, finish clocks, ledger, per-tick counts,
     the clients' report, the plan log and the hierarchy summary equal the
     reference's."""
     jm, jp, tm, tp = models
-    args = serve.build_parser().parse_args(
-        ["--device", "cpu", "--policy", "ours", "--ticks", "15",
-         "--cells", "2", "--hierarchy", "--plan-interval-global", "4",
-         "--clients", "10", "--timeout", "8", "--retries", "1",
-         "--cell-chaos", "cell_down@4:c0,cell_up@9:c0,plane_down@10:k3"])
-    ref = reference_loop(jm, jp, args)
+    args = serve.build_parser().parse_args(CELL_LOOP)
+    ref = cached_reference_loop(jm, jp, args)
     out = port_loop(tm, tp, args, ref)
     assert_loops_match(out, ref)
     fe = out["fe"]
     assert fe.cell_downs == 1 and fe.plane_outages == 1
     assert out["sup"].summary()["restores"] == 1
     assert fe.ledger.balanced() and fe.ledger.double_served == 0
+
+
+def test_control_loop_cells_sharded_matches_reference(models):
+    """The federation above over 2 virtual shards (``--devices 2``): every
+    cell's fleet groups split over the mesh, through the blackout and the
+    plane outage; the reference's loop is matched tick by tick."""
+    jm, jp, tm, tp = models
+    args = serve.build_parser().parse_args(CELL_LOOP + ["--devices", "2"])
+    ref = cached_reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    assert out["fe"].ledger.balanced()

@@ -30,12 +30,14 @@ from repro.serving import Request as JaxRequest
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import ElasticClusterFrontend
 from repro_torch.serving.engine import ReplicaEngine, Request
 from repro_torch.workload.trace import TierSet, TierSpec
-from test_torch_control_loop import (assert_loops_match, port_loop,
-                                     reference_loop)
+from test_torch_control_loop import (assert_loops_match,
+                                     cached_reference_loop, port_loop)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
 CHUNK = 8
@@ -192,10 +194,10 @@ def test_fleet_prefill_parity_and_dispatch_bound():
     assert (s_on, m_on, t_on) == run(JaxElastic, ref, JaxRequest, True)
 
 
-def _churn(elastic, replica, req_cls, fleet):
+def _churn(elastic, replica, req_cls, fleet, **fe_kw):
     fe = elastic(lambda rid: replica(max_batch=2, max_seq=MAX_SEQ, rid=rid,
                                      chunk_len=CHUNK),
-                 2, initial_replicas=2, seed=0, fleet_batch=fleet)
+                 2, initial_replicas=2, seed=0, fleet_batch=fleet, **fe_kw)
     rng = np.random.default_rng(9)
     reqs = [req_cls(i, rng.integers(1, 400, int(rng.integers(3, 40))).tolist(),
                     max_new_tokens=6) for i in range(10)]
@@ -218,12 +220,42 @@ def test_fleet_chunked_parity_across_churn(arch):
     backfill) with streams and finish ticks identical to the per-replica
     path and to the reference's fleet (hybrid: carried ssm/conv state and
     offset KV writes)."""
-    jm, jp, tm, tp = _pair(arch)
+    _, _, tm, tp = _pair(arch)
     port = lambda **kw: ReplicaEngine(tm, tp, device="cpu", **kw)
     fleet, fe = _churn(ElasticClusterFrontend, port, Request, True)
     assert fleet == _churn(ElasticClusterFrontend, port, Request, False)[0]
-    assert fleet == _churn(JaxElastic, lambda **kw: JaxReplica(jm, jp, **kw),
-                           JaxRequest, True)[0]
+    assert fleet == _ref_churn(arch)[0]
+    assert fe.ledger.balanced()
+
+
+def _counts(fe):
+    return (fe.decode_dispatches(), fe.prefill_dispatches(),
+            fe.sync_count())
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_churn(arch):
+    jm, jp, _, _ = _shared(arch)
+    snap, fe = _churn(JaxElastic, lambda **kw: JaxReplica(jm, jp, **kw),
+                      JaxRequest, True)
+    return snap, _counts(fe)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "granite-3-8b"])
+def test_fleet_chunked_sharded_parity_across_churn(arch):
+    """The churn above over a fleet mesh of 2 (hybrid) or 4 (dense)
+    virtual shards: the open chunk cursors' rows move between shards on
+    growth and backfill; streams, clocks and the dispatch and sync counts
+    equal the reference's fleet run."""
+    _, _, tm, tp = _shared(arch)
+    shards = 2 if arch == "zamba2-2.7b" else 4
+    got, fe = _churn(ElasticClusterFrontend,
+                     lambda **kw: ReplicaEngine(tm, tp, device="cpu", **kw),
+                     Request, True,
+                     mesh=make_mesh((shards,), ("fleet",),
+                                    devices=["cpu"] * shards))
+    assert (got, _counts(fe)) == _ref_churn(arch)
+    assert {g.shards for g in fe._fleets.values()} <= {shards}
     assert fe.ledger.balanced()
 
 
@@ -360,7 +392,19 @@ def test_control_loop_chunk_len_matches_reference():
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
          "--ticks", "20", "--chunk-len", "8", "--max-seq", "64"])
-    ref = reference_loop(jm, jp, args)
+    ref = cached_reference_loop(jm, jp, args)
     out = port_loop(tm, tp, args, ref)
     assert_loops_match(out, ref)
     assert any(s[0] == "afleet_chunk" for s in out["fe"].prefill_shapes())
+
+
+def test_control_loop_chunk_len_sharded_matches_reference():
+    """The loop above over 2 virtual shards (``--devices 2``) equals the
+    reference's loop tick for tick."""
+    jm, jp, tm, tp = _pair("granite-3-8b")
+    args = serve.build_parser().parse_args(
+        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+         "--ticks", "20", "--chunk-len", "8", "--max-seq", "64",
+         "--devices", "2"])
+    ref = cached_reference_loop(jm, jp, args)
+    assert_loops_match(port_loop(tm, tp, args, ref), ref)

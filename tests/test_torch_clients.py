@@ -29,8 +29,9 @@ from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import ElasticClusterFrontend
 from repro_torch.serving.engine import ReplicaEngine, Request
 from repro_torch.workload.clients import ClientPool
-from test_torch_control_loop import (assert_loops_match, port_loop,
-                                     reference_loop)
+from test_torch_control_loop import (assert_loops_match,
+                                     cached_reference_loop, port_loop)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
 
@@ -111,20 +112,34 @@ def test_parse_timeout_refuses_what_the_reference_refuses():
             parse("premium")
 
 
+CLIENT_LOOP = ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+               "--ticks", "15", "--clients", "16", "--timeout",
+               "premium:5,default:9", "--retries", "2", "--spawn-rate", "4",
+               "--tiers", "premium:0.3:w5:4,standard:0.7:w1",
+               "--chaos", "preempt@6:n0:k3,recover@12:n0"]
+
+
 def test_control_loop_clients_matches_reference(models):
     """``--clients`` through ``run_control_loop``: the clients replace the
     trace; streams, finish clocks, ledger terminals per tier, per-tick
     counts and the clients' report equal the reference's."""
     jm, jp, tm, tp = models
-    args = serve.build_parser().parse_args(
-        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
-         "--ticks", "15", "--clients", "16", "--timeout",
-         "premium:5,default:9", "--retries", "2", "--spawn-rate", "4",
-         "--tiers", "premium:0.3:w5:4,standard:0.7:w1",
-         "--chaos", "preempt@6:n0:k3,recover@12:n0"])
-    ref = reference_loop(jm, jp, args)
+    args = serve.build_parser().parse_args(CLIENT_LOOP)
+    ref = cached_reference_loop(jm, jp, args)
     out = port_loop(tm, tp, args, ref)
     assert_loops_match(out, ref)
     s = out["pool"].summary()
     assert s["clients"] == 16 and s["issued"] > 0
     assert out["fe"].ledger.balanced() and out["fe"].preempted_nodes == 1
+
+
+def test_control_loop_tiers_sharded_matches_reference(models):
+    """The SLO tiers, the clients and a node preemption of the loop above
+    over 4 virtual shards (``--devices 4``): the reference's loop, tier
+    by tier and tick by tick."""
+    jm, jp, tm, tp = models
+    args = serve.build_parser().parse_args(CLIENT_LOOP + ["--devices", "4"])
+    ref = cached_reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    assert out["fe"].preempted_nodes == 1

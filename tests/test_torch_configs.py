@@ -25,6 +25,7 @@ from repro_torch.launch import serve
 from repro_torch.models.model import make_model
 from test_torch_control_loop import (assert_loops_match, port_loop,
                                      reference_loop)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 ARCHS = ["mistral-nemo-12b", "command-r-35b"]
 TOL = dict(atol=1e-4, rtol=1e-4)

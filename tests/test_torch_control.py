@@ -36,6 +36,7 @@ from repro_torch.core import forecaster as tfc
 from repro_torch.core import gcn as tgcn
 from repro_torch.core import gpso as tgpso
 from repro_torch.kernels import ops, ref
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 # the serve path's cluster (repro.launch.serve.run_control_loop)
 CLUSTER = dict(num_nodes=2, horizon=8, forecast_window=16,

@@ -12,8 +12,10 @@ live on both sides and must be equal, as must the per-tick replica counts,
 dispatch and sync counts; the routing fractions agree within 1e-6.
 ``reference_loop``, ``port_loop`` and ``assert_loops_match`` take every
 flag of the loop (cells, hierarchy, clients, decode blocks, chunked
-prefill, tiers, chaos) and serve the other parity tests of the serve
-flags.
+prefill, tiers, chaos, the serving mesh) and serve the other parity tests
+of the serve flags; ``cached_reference_loop`` runs the reference once a
+flag set, so a file's sharded runs (``--devices N``: N virtual CPU shards)
+are held to the reference run its unsharded test made.
 """
 import hashlib
 import os
@@ -45,10 +47,11 @@ from repro_torch.bridge import params_from_jax, rl_from_jax
 from repro_torch.configs import get_config
 from repro_torch.configs.paper_cluster import ClusterConfig
 from repro_torch.core.balancer import RLBalancer
-from repro_torch.launch import serve
+from repro_torch.launch import mesh, serve
 from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import async_tick_violations
 from test_torch_control import JaxKey, _np
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 TICKS = 25
@@ -175,22 +178,46 @@ def reference_loop(jm, jp, args) -> dict:
     return {"fe": fe, "rl": rl, "ticks": ticks, "pool": pool, "sup": sup}
 
 
+_REFERENCE_RUNS: dict = {}
+
+
+def cached_reference_loop(jm, jp, args) -> dict:
+    """``reference_loop`` once a config and flag set in this process.
+    ``--devices`` and ``--mesh`` are left out of the key: the reference's
+    sharded loop equals its unsharded one (tests/test_fleet_shard.py), so
+    a sharded port run is held to the run of the same flags without
+    them."""
+    flags = {k: v for k, v in vars(args).items()
+             if k not in ("devices", "mesh")}
+    key = (repr(jm.cfg), repr(sorted(flags.items())))
+    if key not in _REFERENCE_RUNS:
+        _REFERENCE_RUNS[key] = reference_loop(jm, jp, args)
+    return _REFERENCE_RUNS[key]
+
+
 def port_loop(tm, tp, args, ref) -> dict:
     """The port's ``run_control_loop`` with the reference's actor weights
-    bridged in and GPSO drawing through ``JaxKey``."""
+    bridged in, GPSO drawing through ``JaxKey`` and the serving mesh that
+    ``--devices`` / ``--mesh`` ask for (under ``"mesh"`` in the result)."""
     rl = RLBalancer(_cluster(ClusterConfig, args), 4 + 8, seed=args.seed,
                     device="cpu",
                     state=rl_from_jax(_np(ref["rl"].state), "cpu"))
-    return serve.run_control_loop(
+    mesh = serve.serve_mesh(args)
+    out = serve.run_control_loop(
         args, tm.cfg, tm, tp, rl=rl,
-        scaler_key=JaxKey(jax.random.PRNGKey(args.seed)))
+        scaler_key=JaxKey(jax.random.PRNGKey(args.seed)), mesh=mesh)
+    return dict(out, mesh=mesh)
 
 
 def assert_loops_match(out, ref):
     """Streams, finish clocks, ledger terminals, per-tick replicas,
     dispatch and sync counts exact; the routing fractions within 1e-6 (the
     reference's jitted GPSO rounds the last ulp of a fitness differently);
-    the clients' and the hierarchy's own reports exact."""
+    the clients' and the hierarchy's own reports exact. The distinct
+    prefill shapes (the reference's compile count) only when ``out`` is
+    unsharded: a shape holds the slab's capacity, which a mesh rounds to a
+    multiple of its shards, so a sharded run compiles at capacities the
+    unsharded ``ref`` never saw, the reference's own sharded run too."""
     fe, jfe = out["fe"], ref["fe"]
     assert _digest(fe) == _digest(jfe)
     assert len(out["ticks"]) == len(ref["ticks"])
@@ -204,7 +231,8 @@ def assert_loops_match(out, ref):
             fe.sync_count(), fe.replicas_spawned, fe.failed_replicas) == (
         jfe.decode_dispatches(), jfe.prefill_dispatches(),
         jfe.sync_count(), jfe.replicas_spawned, jfe.failed_replicas)
-    assert fe.prefill_retraces() == jfe.prefill_retraces()
+    if out.get("mesh") is None:
+        assert fe.prefill_retraces() == jfe.prefill_retraces()
     assert fe.ledger.balanced() and fe.ledger.balance() == \
         jfe.ledger.balance()
     assert fe.ledger.per_tier == jfe.ledger.per_tier
@@ -221,15 +249,17 @@ def _digest(fe):
     return hashlib.sha256(repr(rows).encode()).hexdigest(), len(rows)
 
 
-@pytest.mark.parametrize("extra", [
-    [], ["--seed", "1", "--failure-rate", "0.1", "--provision-delay", "1"]],
-    ids=["defaults", "failures"])
+LOOP = ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+        "--ticks", str(TICKS)]
+FAILURES = ["--seed", "1", "--failure-rate", "0.1", "--provision-delay", "1"]
+
+
+@pytest.mark.parametrize("extra", [[], FAILURES],
+                         ids=["defaults", "failures"])
 def test_control_loop_matches_reference(models, extra):
     jm, jp, tm, tp = models
-    args = serve.build_parser().parse_args(
-        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
-         "--ticks", str(TICKS)] + extra)
-    ref = reference_loop(jm, jp, args)
+    args = serve.build_parser().parse_args(LOOP + extra)
+    ref = cached_reference_loop(jm, jp, args)
     out = port_loop(tm, tp, args, ref)
     assert_loops_match(out, ref)
     assert len(out["ticks"]) == TICKS
@@ -249,10 +279,28 @@ def test_cli_control_loop_runs_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"],
-                                   ["--mesh", "2:fleet"]])
-def test_unported_control_flags_raise(flags):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--device", "cpu", "--policy", "ours"] + flags)
+                                   ["--mesh", "2:fleet", "--devices", "2"],
+                                   ["--devices", "4"] + FAILURES])
+def test_unported_control_flags_raise(models, flags, capsys):
+    """--devices and --mesh are ported. The control loop over N virtual
+    CPU shards, on the reference's weights, equals the reference's loop
+    (streams, clocks, ledger, per-tick replicas, dispatches and syncs),
+    with failures too; the CLI prints the mesh line and ends balanced and
+    leaves the host device count as it found it."""
+    jm, jp, tm, tp = models
+    args = serve.build_parser().parse_args(LOOP + flags)
+    ref = cached_reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    shards = 2 if "--mesh" in flags else int(flags[1])
+    assert {g.shards for g in out["fe"]._fleets.values()} == {shards}
+    before = mesh._host_devices
+    serve.main(LOOP[:-1] + ["6"] + flags)
+    text = capsys.readouterr().out
+    assert f"[serve] mesh: {{'fleet': {shards}}} over {shards} device(s)" \
+        in text
+    assert "balanced=True" in text and "double_served=0" in text
+    assert mesh._host_devices == before
 
 
 def test_chunk_len_control_flag_runs(capsys):

@@ -35,8 +35,9 @@ from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import ElasticClusterFrontend
 from repro_torch.serving.engine import FleetGroup, ReplicaEngine, Request
 from repro_torch.serving.graphs import DecodeGraphs
-from test_torch_control_loop import (assert_loops_match, port_loop,
-                                     reference_loop)
+from test_torch_control_loop import (assert_loops_match,
+                                     cached_reference_loop, port_loop)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
 TICKS = 15
@@ -147,13 +148,30 @@ def test_control_loop_decode_block_matches_reference(models, arch):
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
          "--ticks", str(TICKS), "--decode-block", "4", "--arch", arch])
-    ref = reference_loop(jm, jp, args)
+    ref = cached_reference_loop(jm, jp, args)
     out = port_loop(tm, tp, args, ref)
     assert_loops_match(out, ref)
     fe = out["fe"]
     assert fe.decode_steps() > fe.decode_dispatches()   # blocks of 4 ran
     args.decode_block = 1
     assert fe.sync_count() < port_loop(tm, tp, args, ref)["fe"].sync_count()
+
+
+def test_control_loop_decode_block_sharded_matches_reference(models):
+    """``--decode-block 4`` over 4 virtual shards equals the reference's
+    loop of the test above: streams, clocks, ledger, per-tick dispatches
+    and syncs; the blocks engaged on every shard."""
+    jm, jp, tm, tp = models
+    args = serve.build_parser().parse_args(
+        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+         "--ticks", str(TICKS), "--decode-block", "4", "--arch",
+         "granite-3-8b", "--devices", "4"])
+    ref = cached_reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    fe = out["fe"]
+    assert fe.decode_steps() > fe.decode_dispatches()
+    assert fe.shard_dispatches()[1] > fe.decode_steps()
 
 
 # ---------------------------------------------------- the graphs' bookkeeping

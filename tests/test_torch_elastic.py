@@ -26,12 +26,14 @@ from repro.serving import Request as JaxRequest
 from repro.serving import RequestLedger as JaxLedger
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import (ChaosSchedule,
                                          ElasticClusterFrontend,
                                          RequestLedger)
 from repro_torch.serving.engine import (ClusterFrontend, FleetGroup,
                                         ReplicaEngine, Request)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
 SPEEDS = (0.7, 1.0, 1.4)
@@ -98,18 +100,46 @@ def _churn(side, models, hetero=False, **fe_kw):
 MODES = {"fleet-async": {}, "fleet-eager": dict(async_tick=False),
          "no-fleet-prefill": dict(fleet_prefill=False),
          "no-fleet": dict(fleet_batch=False)}
+_REFERENCE_RUNS: dict = {}
 
 
-@pytest.mark.parametrize("hetero", [False, True])
-@pytest.mark.parametrize("mode", sorted(MODES))
-def test_churn_matches_reference(models, mode, hetero):
+def _reference(key, run):
+    """``run()`` once a key: the reference's runs are shared by the
+    unsharded and the sharded cases (the reference's sharded run equals
+    its unsharded one, tests/test_fleet_shard.py)."""
+    if key not in _REFERENCE_RUNS:
+        _REFERENCE_RUNS[key] = run()
+    return _REFERENCE_RUNS[key]
+
+
+# (mode, hetero, shards): every mode unsharded, the fleet modes over 2 and
+# 4 virtual CPU shards too
+CHURN_CASES = [pytest.param(m, h, 1, id=f"{m}-{h}")
+               for h in (False, True) for m in sorted(MODES)] + [
+    pytest.param(m, h, n, id=f"{m}-{h}-{n}shards") for n in (2, 4)
+    for h in (False, True)
+    for m in ("fleet-async", "fleet-eager", "no-fleet-prefill")]
+
+
+@pytest.mark.parametrize("mode,hetero,shards", CHURN_CASES)
+def test_churn_matches_reference(models, mode, hetero, shards):
     """Failure / drain / scale-up: every mode of the port gives the
     reference's streams and clocks, and the reference's counters for the
-    same mode. ``hetero`` mixes speeds 0.7/1.0/1.4 (sub-step rounds where
-    part of a group steps) and two max_batch groups."""
+    same mode, totals and per tick. ``hetero`` mixes speeds 0.7/1.0/1.4
+    (sub-step rounds where part of a group steps) and two max_batch
+    groups. ``shards`` > 1 splits every fleet group's slab rows over a
+    mesh of virtual CPU shards (growth re-partitions rows, removal
+    backfills across shards), held to the same reference run: the
+    reference's sharded run equals its unsharded one
+    (tests/test_fleet_shard.py)."""
     kw = MODES[mode]
-    want, want_counts, want_ticks, _ = _churn("jax", models, hetero, **kw)
-    got, counts, ticks, fe = _churn("torch", models, hetero, **kw)
+    want, want_counts, want_ticks = _reference(
+        ("churn", mode, hetero),
+        lambda: _churn("jax", models, hetero, **kw)[:3])
+    mesh = None if shards == 1 else make_mesh(
+        (shards,), ("fleet",), devices=["cpu"] * shards)
+    got, counts, ticks, fe = _churn("torch", models, hetero, mesh=mesh,
+                                    **kw)
     assert got == want
     assert counts == want_counts
     assert ticks == want_ticks
@@ -118,6 +148,8 @@ def test_churn_matches_reference(models, mode, hetero):
         assert counts[0] == 0
     else:
         assert counts[0] > 0
+    if shards > 1:                       # more than one shard decoded
+        assert fe.shard_dispatches()[1] > fe.decode_steps()
 
 
 def test_arrivals_and_scaling_async_matches_eager(models):
@@ -250,22 +282,38 @@ def test_join_and_leave_mid_generation(models):
 def test_cluster_frontend_fleet_matches_reference(models):
     """The static frontend's fleet path (one decode dispatch per group per
     step, fleet admission) against the reference's."""
-    jm, jp, tm, tp = models
+    want = _reference("cluster", lambda: _cluster_run("jax", models, True))
+    assert _cluster_run("torch", models, True) == want and want[1] > 0
+    assert _cluster_run("torch", models, False)[0] == want[0]
 
-    def run(side, fleet):
-        mk = _factory(side, models)
-        fe = (JaxClusterFrontend if side == "jax" else ClusterFrontend)(
-            [mk(i) for i in range(3)], policy="lc", seed=0,
-            fleet_batch=fleet)
-        reqs = _reqs(JaxRequest if side == "jax" else Request, 9)
-        for r in reqs:
-            fe.submit(r)
-        fe.run_until_drained()
-        return _snap(reqs), sum(g.dispatches for g in fe.fleets.values())
 
-    want = run("jax", True)
-    assert run("torch", True) == want and want[1] > 0
-    assert run("torch", False)[0] == want[0]
+def _cluster_run(side, models, fleet, mesh=None):
+    """Three replicas behind the static frontend: streams, clocks and the
+    groups' decode dispatches."""
+    mk = _factory(side, models)
+    fe = (JaxClusterFrontend if side == "jax" else ClusterFrontend)(
+        [mk(i) for i in range(3)], policy="lc", seed=0, fleet_batch=fleet,
+        mesh=mesh)
+    reqs = _reqs(JaxRequest if side == "jax" else Request, 9)
+    for r in reqs:
+        fe.submit(r)
+    fe.run_until_drained()
+    return _snap(reqs), sum(g.dispatches for g in fe.fleets.values())
+
+
+def test_three_members_with_a_pad_row(models):
+    """The three replicas above as one group over 4 virtual shards: cap 4,
+    so one shard holds a pad row, masked out of every dispatch; the
+    reference's streams, clocks and decode dispatch count."""
+    want = _reference("cluster", lambda: _cluster_run("jax", models, True))
+    mesh = make_mesh((4,), ("fleet",), devices=["cpu"] * 4)
+    assert _cluster_run("torch", models, True, mesh) == want
+    g = FleetGroup(models[2], models[3], max_batch=2, max_seq=MAX_SEQ,
+                   mesh=mesh, device="cpu")
+    mk = _factory("torch", models)
+    for i in range(3):
+        g.add(mk(i))
+    assert g.cap == 4 and [p.rows for p in g.parts] == [1, 1, 1, 1]
 
 
 def test_provisioning_drain_and_failure_semantics(models):
@@ -384,10 +432,15 @@ def test_chaos_schedule_rejects_what_the_reference_rejects(bad):
 
 
 def test_unported_fleet_options_raise(models):
+    """``mesh=`` is ported: the elastic frontend's groups split their slab
+    over a fleet mesh (parity: the sharded cases of
+    test_churn_matches_reference), and, as
+    in the reference, a mesh without a 'fleet' axis is refused."""
     _, _, tm, tp = models
     mk = _factory("torch", models)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ElasticClusterFrontend(mk, 1, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FleetGroup(tm, tp, max_batch=2, max_seq=MAX_SEQ, mesh=object(),
-                   device="cpu")
+    fe = ElasticClusterFrontend(
+        mk, 1, mesh=make_mesh((2,), ("fleet",), devices=["cpu", "cpu"]))
+    assert [g.shards for g in fe._fleets.values()] == [2]
+    with pytest.raises(ValueError, match="'fleet' axis"):
+        FleetGroup(tm, tp, max_batch=2, max_seq=MAX_SEQ, device="cpu",
+                   mesh=make_mesh((2,), ("data",), devices=["cpu", "cpu"]))

@@ -18,6 +18,7 @@ from repro.kernels.decode_attention import flash_decode as jax_flash_decode
 from repro.kernels.flash_attention import \
     flash_attention as jax_flash_attention
 from repro_torch.kernels import decode_attention, ops, ref
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 TOLS = {"float32": dict(atol=2e-5, rtol=2e-5),
         "bfloat16": dict(atol=3e-2, rtol=3e-2)}

@@ -33,6 +33,7 @@ from repro_torch.models.model import make_model
 from repro_torch.serving import kv_quant
 from repro_torch.serving.elastic import ElasticClusterFrontend
 from repro_torch.serving.engine import ReplicaEngine, Request
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
 

@@ -21,6 +21,7 @@ from repro.models import make_model as jax_make_model
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.models.model import make_model
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 CACHE_LEN = 32

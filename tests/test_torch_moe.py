@@ -33,6 +33,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models.model import make_model
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 ARCHS = ["grok-1-314b", "llama4-maverick-400b-a17b"]
 MOE_TOL = dict(atol=1e-5, rtol=1e-5)

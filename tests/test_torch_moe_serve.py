@@ -41,6 +41,7 @@ from repro_torch.serving.engine import ReplicaEngine, Request
 from test_torch_control_loop import (assert_loops_match, port_loop,
                                      reference_loop)
 from test_torch_serve import _digest, _jax_drain
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 GROK, LLAMA4 = "grok-1-314b", "llama4-maverick-400b-a17b"

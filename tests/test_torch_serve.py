@@ -30,9 +30,11 @@ from repro.serving.engine import total_prefill_traces as jax_traces
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import make_model
 from repro_torch.serving.engine import (FleetGroup, ReplicaEngine, Request,
                                         total_prefill_traces)
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -149,17 +151,22 @@ def test_cli_takes_the_references_backend_names(capsys):
 
 
 def test_cli_control_mode_not_yet_ported(capsys):
-    """The control loop, its multi-cell federation and chunked prefill are
-    ported (tests/test_torch_control_loop.py, tests/test_torch_cells.py,
-    tests/test_torch_chunked_prefill.py): --chunk-len in the federation
-    runs to a balanced ledger; only --devices/--mesh stay refused.
-    --hierarchy without --cells > 1 exits with the reference's message."""
+    """The control loop, its multi-cell federation, chunked prefill and
+    the fleet mesh are ported (tests/test_torch_control_loop.py,
+    tests/test_torch_cells.py, tests/test_torch_chunked_prefill.py hold
+    them to the reference, sharded too): --chunk-len in the federation
+    runs to a balanced ledger, and so does the federation over 2 virtual
+    shards, every cell's groups split. --hierarchy without --cells > 1
+    exits with the reference's message."""
     serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2",
                 "--chunk-len", "8", "--max-seq", "64", "--ticks", "6"])
     assert "balanced=True" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2",
-                    "--devices", "2"])
+    out = serve.main(["--device", "cpu", "--policy", "ours", "--cells", "2",
+                      "--ticks", "6", "--devices", "2"])["fe"]
+    text = capsys.readouterr().out
+    assert "[serve] mesh: {'fleet': 2} over 2 device(s)" in text
+    assert "balanced=True" in text and out.ledger.balanced()
+    assert {g.shards for c in out.cells for g in c._fleets.values()} == {2}
     with pytest.raises(SystemExit, match="needs --cells > 1"):
         serve.main(["--device", "cpu", "--hierarchy"])
 
@@ -178,18 +185,22 @@ def test_cuda_requested_without_cuda_raises(models, monkeypatch):
 def test_unported_engine_options_raise(models):
     """chunk_len and the int8 cache are ported for the dense family and no
     longer raise (tests/test_torch_chunked_prefill.py and
-    tests/test_torch_kv_quant.py hold them to the reference); fleet-mesh
-    sharding still raises, and a cache dtype the codec does not know is
-    refused."""
+    tests/test_torch_kv_quant.py hold them to the reference), a fleet
+    group takes a fleet mesh (tests/test_torch_fleet_mesh.py) and refuses
+    one without a 'fleet' axis, as the reference does, and a cache dtype
+    the codec does not know is refused."""
     _, _, tm, tp = models
     assert ReplicaEngine(tm, tp, max_batch=2, max_seq=32, chunk_len=8,
                          device="cpu").chunk_len == 8
     eng = ReplicaEngine(tm, tp, max_batch=2, max_seq=32, cache_dtype="int8",
                         device="cpu")
     assert eng.cache["k_q"].dtype == torch.int8 and eng.chunk_len == 0
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FleetGroup(tm, tp, max_batch=2, max_seq=32, mesh=object(),
-                   device="cpu")
+    g = FleetGroup(tm, tp, max_batch=2, max_seq=32, device="cpu",
+                   mesh=make_mesh((2,), ("fleet",), devices=["cpu"] * 2))
+    assert g.shards == 2 and len(g.parts) == 2
+    with pytest.raises(ValueError, match="'fleet' axis"):
+        FleetGroup(tm, tp, max_batch=2, max_seq=32, device="cpu",
+                   mesh=make_mesh((1,), ("model",), devices=["cpu"]))
     with pytest.raises(ValueError, match="cache dtype"):
         ReplicaEngine(tm, tp, max_batch=2, max_seq=32, cache_dtype="int4",
                       device="cpu")

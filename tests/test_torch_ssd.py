@@ -33,6 +33,7 @@ from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models import ssd
 from repro_torch.models.model import make_model
 from test_torch_kernels import _attention_case, _decode_case
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 CROSS_CHUNK_TOL = dict(atol=1e-3, rtol=1e-3)

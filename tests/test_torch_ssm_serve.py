@@ -27,9 +27,10 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models.model import make_model
 from repro_torch.serving.engine import FleetGroup, ReplicaEngine, Request
-from test_torch_control_loop import (assert_loops_match, port_loop,
-                                     reference_loop)
+from test_torch_control_loop import (assert_loops_match,
+                                     cached_reference_loop, port_loop)
 from test_torch_serve import _digest, _jax_drain
+from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 ARCHS = ["mamba2-1.3b", "zamba2-2.7b"]
 TICKS = 25
@@ -71,10 +72,24 @@ def test_control_loop_matches_reference(models):
     args = serve.build_parser().parse_args(
         ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
          "--ticks", str(TICKS), "--arch", tm.cfg.name])
-    ref = reference_loop(jm, jp, args)
+    ref = cached_reference_loop(jm, jp, args)
     out = port_loop(tm, tp, args, ref)
     assert_loops_match(out, ref)
     assert len(out["ticks"]) == TICKS and out["fe"].replicas_spawned > 2
+
+
+def test_control_loop_sharded_matches_reference(models):
+    """The loop above over 2 virtual shards (``--devices 2``): the ssm and
+    conv state of the slab rows split, scale-ups and drains move rows
+    between shards, and the reference's loop is matched tick by tick."""
+    jm, jp, tm, tp = models
+    args = serve.build_parser().parse_args(
+        ["--device", "cpu", "--policy", "ours", "--autoscale", "gpso",
+         "--ticks", str(TICKS), "--arch", tm.cfg.name, "--devices", "2"])
+    ref = cached_reference_loop(jm, jp, args)
+    out = port_loop(tm, tp, args, ref)
+    assert_loops_match(out, ref)
+    assert out["fe"].shard_dispatches()[1] > out["fe"].decode_steps()
 
 
 @pytest.mark.parametrize("name", ARCHS)

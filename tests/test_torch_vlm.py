@@ -304,11 +304,15 @@ def test_engine_retires_at_the_prefix_inclusive_max_seq():
 
 
 def test_fleet_and_cli_refuse_vlm():
-    """No fleet of vlm replicas and no CLI run: both raise with the
-    pointer to the engine API, never serve silently wrong."""
+    """A fleet of vlm replicas serves (its parity with the reference's
+    fleet run is tests/test_torch_fleet_extras.py): a member's slab rows
+    hold max_seq + num_patches positions. The CLI still refuses the
+    family, as the reference's CLI fails on it, with the pointer to the
+    engine API; chunked prefill raises as in the reference."""
     _, _, tm, tp = pair(ARCH)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FleetGroup(tm, tp, max_batch=2, max_seq=32, device="cpu")
+    g = FleetGroup(tm, tp, max_batch=2, max_seq=32, device="cpu")
+    g.add(ReplicaEngine(tm, tp, max_batch=2, max_seq=32, device="cpu"))
+    assert g.slab["k"].shape[1:3] == (2, 32 + tm.cfg.num_patches)
     with pytest.raises(SystemExit, match="Request.extras"):
         serve.main(["--device", "cpu", "--arch", ARCH, "--requests", "2"])
     with pytest.raises(ValueError, match="chunked prefill unsupported"):
