@@ -238,6 +238,26 @@ the script exits non-zero:
      heads (32 q / 8 kv, hd 128), S 4,096, pos 0, 100, 2,047 and 4,095,
      in f32 within 2e-5 of flash_decode's plain version.
 
+ 15. the parameter half of multi-device. (a) A one-rank NCCL process group
+     on cuda:0 and a (data=1, model=1) ``DeviceMesh``: phase 13's
+     granite-3-8b configuration (full width, 4 of 40 layers, f32, TF32
+     off, B 4 x S 1,024 Markov tokens, seed 0) takes 3 AdamW steps of
+     ``make_train_step(shard_fn=make_shard_fn(plan))`` on ``place_params``
+     weights (DTensors), every loss and grad norm within 1e-5 relative of
+     the plain step's on the same weights and batches, no kernel launched;
+     then ``reshard_params`` onto a fresh (1, 1) mesh gives the same bits.
+     Host ms, CUDA-event ms and peak GB of both, beside phase 13's. (b)
+     ``launch.dryrun.run_cell`` in three subprocesses at once (the
+     ``fake`` group is process-global), on fake CUDA tensors:
+     granite-3-8b ``train_4k`` on the 256-rank mesh, grok-1-314b
+     ``train_4k`` on the 512-rank mesh with expert sharding over data (both
+     at full depth, ``grad_accum`` 1: the reference's sizing traced too
+     long for the phase), and
+     (a)'s configuration on ``1x1:data,model``, whose predicted peak is
+     printed beside (a)'s measured ``max_memory_allocated``; each cell's
+     peak GB a device, flops a device and collective MiB. A cell that
+     fails fails the phase.
+
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
 gcn_layer, mamba2's for ssd_scan; gcn_layer_bwd's from the experiment of
@@ -4301,6 +4321,205 @@ def phase_train(torch, ops, smi) -> dict:
     return out
 
 
+# phase 15: the parameter half of multi-device
+SHARD_STEPS = 3
+SHARD_RTOL = 1e-5            # sharded against plain step, loss and grad norm
+# the dry-run's cells: (label, CLI arguments); each runs in its own process.
+# Both full-depth cells pin --grad-accum 1: at the reference's sizing
+# (granite 8 microbatches, grok 4) granite's cell traced in 126.8 s alone
+# on an H100 80GB (700 W) host, over this phase's budget, and each
+# microbatch repeats the same traced work
+DRYRUN_CELLS = (      # (label, arch, shape, mesh, run_cell's opts)
+    ("granite-3-8b train_4k single (16 x 16 = 256 fake ranks), "
+     "grad_accum pinned to 1",
+     "granite-3-8b", "train_4k", "single", {"grad_accum": 1}),
+    ("grok-1-314b train_4k multi, experts over data (2 x 16 x 16 = 512), "
+     "grad_accum pinned to 1",
+     "grok-1-314b", "train_4k", "multi",
+     {"expert_sharding": "data", "grad_accum": 1}),
+    ("(a)'s configuration on 1x1:data,model",
+     "granite-3-8b", "train_4k", "single",
+     {"mesh_spec": "1x1:data,model", "layers": TRAIN_DEPTH["granite-3-8b"],
+      "global_batch": TRAIN_B, "seq_len": TRAIN_S, "param_dtype": "f32",
+      "remat": "none", "loss_chunk": 2048}),
+)
+# one cell in a process of its own: argv arch, shape, mesh, opts (JSON),
+# the JSON result's path
+DRYRUN_CHILD = (
+    "import json, sys\n"
+    "from repro_torch.launch.dryrun import run_cell\n"
+    "arch, shape, mesh, opts, out = sys.argv[1:]\n"
+    "res = run_cell(arch, shape, mesh, json.loads(opts), device='cuda')\n"
+    "open(out, 'w').write(json.dumps(res))\n")
+DRYRUN_TIMEOUT = 110         # seconds, the three cells together
+
+
+def _full(x):
+    """A DTensor's whole value (every rank's blocks), else ``x``."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _shard_steps(torch, step, params, state, batches) -> dict:
+    """``step`` over ``batches``: each step's loss and grad norm (read
+    back whole), host ms to the loss's readback, CUDA-event ms, and the
+    peak memory of the steps; the last params."""
+    out = dict(loss=[], gnorm=[], host=[], dev=[], peak=[])
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        params, state, m = step(params, state, b)
+        e1.record()
+        out["loss"].append(_full(m["loss"]).item())
+        out["host"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out["dev"].append(e0.elapsed_time(e1))
+        out["gnorm"].append(_full(m["grad_norm"]).item())
+        out["peak"].append(torch.cuda.max_memory_allocated() / 1e9)
+    out["params"] = params
+    return out
+
+
+def phase_sharded_step(torch, ops, smi, train) -> dict:
+    """15 (a): see the module docstring."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import (ShardPlan, make_shard_fn,
+                                         place_params, reshard_params)
+    from repro_torch.distributed.sharding import place_batch
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.model import make_model, make_train_step
+    from repro_torch.models.optim import AdamW, cosine_schedule
+
+    name = "granite-3-8b"
+    cfg = dataclasses.replace(get_config(name), num_layers=TRAIN_DEPTH[name])
+    model = make_model(cfg)
+    toks = [{"tokens": t.cuda()} for t in _markov_tokens(
+        torch, cfg.vocab_size, TRAIN_B, TRAIN_S, SHARD_STEPS)]
+    opt = AdamW(lr=cosine_schedule(3e-4, 2, SHARD_STEPS), weight_decay=0.01)
+    params = model.init(seed=SEED, dtype=torch.float32, device="cuda")
+    plain = _shard_steps(torch, make_train_step(model, opt), params,
+                         opt.init(params), toks)
+    del params, plain["params"]
+    _free(torch)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh((1, 1), ("data", "model"))
+        plan = ShardPlan(mesh, "train")
+        params = place_params(plan, model.init(seed=SEED,
+                                               dtype=torch.float32,
+                                               device="cuda"))
+        ops.reset_launches()
+        sharded = _shard_steps(
+            torch, make_train_step(model, opt, make_shard_fn(plan)), params,
+            opt.init(params), [place_batch(plan, b) for b in toks])
+        launched = dict(ops.LAUNCHES)
+        fresh = make_device_mesh((1, 1), ("data", "model"))
+        moved = reshard_params(sharded["params"], ShardPlan(fresh, "train"))
+        same = all(torch.equal(_full(a), _full(b)) for a, b in zip(
+            leaves(sharded["params"]), leaves(moved)))
+        placed = {str(tuple(p.placements))
+                  for p in leaves(sharded["params"])}
+        del params, moved, sharded["params"]
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    worst = max(abs(a - b) / abs(b) for k in ("loss", "gnorm")
+                for a, b in zip(sharded[k], plain[k]))
+    for tag, r in (("plain", plain), ("sharded", sharded)):
+        log(f"[shard] {tag}: losses "
+            + ", ".join(f"{x:.6f}" for x in r["loss"]) + "; grad norms "
+            + ", ".join(f"{x:.6f}" for x in r["gnorm"])
+            + f"; step host {statistics.median(r['host'][1:]):.1f} ms, "
+            f"CUDA-event {statistics.median(r['dev'][1:]):.1f} ms (median "
+            f"of steps 2-{SHARD_STEPS}); peak {max(r['peak']):.2f} GB")
+    p13 = train.get(name, {})
+    log(f"[shard] (a) {name} at {TRAIN_DEPTH[name]} layers f32 B {TRAIN_B} "
+        f"x S {TRAIN_S} on a one-rank NCCL (data=1, model=1) DeviceMesh, "
+        f"params placed {sorted(placed)}: {SHARD_STEPS} steps, loss and "
+        f"grad norm within {worst:.2e} relative of the plain step's (gate "
+        f"{SHARD_RTOL}); kernel launches {launched}; resharded onto a fresh "
+        f"(1, 1) mesh: {'equal bits' if same else 'DIFFERENT'}; phase 13's "
+        f"step {p13.get('step_ms', float('nan')):.1f} ms host, "
+        f"{p13.get('span_ms', float('nan')):.1f} ms CUDA-event, peak "
+        f"{p13.get('peak_gb', float('nan')):.2f} GB; {smi}")
+    if worst > SHARD_RTOL or not same or any(launched.values()):
+        raise AssertionError("the sharded step differs from the plain one, "
+                             "launched a kernel, or the reshard moved bits")
+    return dict(plain=plain, sharded=sharded, worst=worst)
+
+
+def phase_dryrun(torch, smi, measured_peak_gb: float) -> dict:
+    """15 (b): see the module docstring."""
+    import os
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, (label, arch, shape, mesh, opts) in enumerate(DRYRUN_CELLS):
+            path = Path(tmp) / f"cell{i}.json"
+            cmd = [sys.executable, "-c", DRYRUN_CHILD, arch, shape, mesh,
+                   json.dumps(opts), str(path)]
+            procs.append((label, path, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env, cwd=str(ROOT))))
+        t0 = time.perf_counter()
+        failed = []
+        for label, path, p in procs:
+            left = max(DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1)
+            try:
+                text, _ = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                failed.append(f"{label}: over {DRYRUN_TIMEOUT}s")
+                continue
+            res = json.loads(path.read_text()) if path.exists() else {}
+            if p.returncode != 0 or not res.get("ok"):
+                failed.append(f"{label}: {res.get('error', text[-1500:])}")
+                continue
+            out[label] = res
+            m = res["memory"]
+            log(f"[dryrun] {label}: peak {m['peak_hbm_bytes'] / 1e9:.2f} GB a "
+                f"device (arguments {m['argument_bytes'] / 1e9:.2f} GB), "
+                f"{res['flops_per_device']:.4g} flops a device, collectives "
+                f"{res['collectives']['total'] / 2**20:.1f} MiB a device ("
+                + ", ".join(f"{k} {v / 2**20:.1f}" for k, v in
+                            res["collectives"].items() if k != "total" and v)
+                + f"); grad_accum {res['opts']['grad_accum']}, loss_chunk "
+                f"{res['opts']['loss_chunk']}, remat {res['opts']['remat']}; "
+                f"traced in {res['trace_s']} s")
+    if failed:
+        raise AssertionError("dry-run cells failed: " + " | ".join(failed))
+    pred = out[DRYRUN_CELLS[2][0]]["memory"]["peak_hbm_bytes"] / 1e9
+    log(f"[dryrun] (a)'s configuration: predicted peak {pred:.2f} GB a "
+        f"device against (a)'s measured max_memory_allocated "
+        f"{measured_peak_gb:.2f} GB ({pred / measured_peak_gb:.3f}x); {smi}")
+    return out
+
+
+def phase_multi_device(torch, ops, smi, train) -> dict:
+    """Phase 15: the parameter half of multi-device."""
+    t0 = time.perf_counter()
+    a = phase_sharded_step(torch, ops, smi, train)
+    b = phase_dryrun(torch, smi, max(a["sharded"]["peak"]))
+    log(f"[shard] phase 15: {time.perf_counter() - t0:.1f}s")
+    return dict(step=a, dryrun=b)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4394,7 +4613,9 @@ def main() -> int:
     extras_rows(rows, families)
     fleet_rows(rows, families, served["granite-3-8b"]["mesh"])
     _free(torch)
-    phase_train(torch, ops, smi)
+    train = phase_train(torch, ops, smi)
+    _free(torch)
+    phase_multi_device(torch, ops, smi, train)
     log(f"[done] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
         f"{time.perf_counter() - t_start:.1f}s")

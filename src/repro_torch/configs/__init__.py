@@ -1,7 +1,7 @@
-"""Architecture configs (a copy of the subset of ``repro.configs`` the port
-serves)."""
+"""Architecture configs and the dry-run's shape cells (a copy of
+``repro.configs``). ``ARCH_NAMES``: every registered architecture."""
 from repro_torch.configs.base import (  # noqa: F401
-    REGISTRY, ArchConfig, get_config,
+    REGISTRY, SHAPES, ArchConfig, ShapeConfig, applicable_shapes, get_config,
 )
 from repro_torch.configs import mistral_nemo_12b  # noqa: F401
 from repro_torch.configs import command_r_35b  # noqa: F401
@@ -13,3 +13,5 @@ from repro_torch.configs import mamba2_1_3b  # noqa: F401
 from repro_torch.configs import zamba2_2_7b  # noqa: F401
 from repro_torch.configs import internvl2_2b  # noqa: F401
 from repro_torch.configs import whisper_base  # noqa: F401
+
+ARCH_NAMES = sorted(REGISTRY)

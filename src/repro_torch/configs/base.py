@@ -181,6 +181,33 @@ class ArchConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One dry-run cell's shape: sequence length, global batch and kind
+    ("train" | "prefill" | "decode")."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> list:
+    """The shape cells that apply to this arch (long_500k only for the
+    sub-quadratic ones)."""
+    out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+    if cfg.sub_quadratic:
+        out.append(SHAPES["long_500k"])
+    return out
+
+
 # Populated by repro_torch.configs.__init__
 REGISTRY: dict = {}
 

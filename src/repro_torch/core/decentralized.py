@@ -9,8 +9,11 @@ gradient compression (the port of ``repro.core.decentralized``).
      ~50-100x; the residual keeps convergence).
 
 A node tree is a parameter tree (``core.tree``) whose every leaf has a
-leading node axis. The collective half (``psum_average_grads``,
-``make_gossip_allreduce``) runs across devices and is not ported yet.
+leading node axis. The collective half runs across the ranks of a
+``torch.distributed`` ``DeviceMesh`` (the reference's runs inside
+``shard_map`` over a jax mesh): ``psum_average_grads`` averages each
+rank's gradients over one mesh axis, ``make_gossip_allreduce`` averages
+the per-node replicas of a tree laid out along that axis.
 """
 from __future__ import annotations
 
@@ -82,3 +85,61 @@ class ErrorFeedback:
         sparse = tree_map(lambda c: topk_compress(c, self.k_frac)[0],
                           corrected)
         return sparse, tree_map(lambda c, s: c - s, corrected, sparse)
+
+
+# ------------------------------------------------- on-mesh collective path
+def _axis_group(mesh, axis_name: str):
+    return mesh.get_group(axis_name), mesh.size(
+        mesh.mesh_dim_names.index(axis_name))
+
+
+def _mean_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    import torch.distributed as dist
+
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out / n
+
+
+def psum_average_grads(grads, axis_name: str, mesh):
+    """Data-parallel gradient averaging: every rank's leaves summed over
+    the ``axis_name`` group of ``mesh`` (one all-reduce a leaf), divided
+    by the axis size. The reference names only the axis (inside
+    ``shard_map``); here the mesh that owns it is an argument. A DTensor
+    leaf is averaged block by block and keeps its layout."""
+    from torch.distributed.tensor import DTensor
+
+    group, n = _axis_group(mesh, axis_name)
+
+    def avg(g):
+        if isinstance(g, DTensor):
+            return DTensor.from_local(_mean_over(g.to_local(), group, n),
+                                      g.device_mesh, g.placements)
+        return _mean_over(g, group, n)
+    return tree_map(avg, grads)
+
+
+def make_gossip_allreduce(mesh, axis: str = "data"):
+    """Parameter averaging over one mesh axis, the decentralized sync in
+    one collective. Layout contract (the reference's): every leaf's
+    LEADING axis is the per-node replica axis, split over ``axis``; a
+    plain leaf is placed so first (every rank passes the whole tree).
+    After the call every node's block holds the mean of the blocks over
+    the axis group (consensus in one all-reduce)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import distribute_tensor
+
+    group, n = _axis_group(mesh, axis)
+    dim = mesh.mesh_dim_names.index(axis)
+    layout = [Shard(0) if i == dim else Replicate()
+              for i in range(mesh.ndim)]
+
+    def one(x):
+        if not isinstance(x, DTensor):
+            x = distribute_tensor(x, mesh, layout)
+        return DTensor.from_local(_mean_over(x.to_local(), group, n), mesh,
+                                  x.placements)
+
+    def avg(params):
+        return tree_map(one, params)
+    return avg

@@ -14,8 +14,13 @@ device_count``): it exposes n shards that all live on ``cpu``. A mesh
 over a repeated device (two shards on one card) is built only from an
 explicit device list passed to ``make_mesh``.
 
-``make_production_mesh`` (the 256/512-chip dry-run mesh) belongs to the
-dry-run slice and is not here.
+The parameter half runs SPMD instead: one process a device under a
+``torch.distributed`` process group, the parameters ``DTensor``s over a
+``DeviceMesh`` (``distributed.sharding``). ``make_device_mesh`` builds
+one over the group's first ranks (NCCL on cards, gloo on the CPU, the
+``fake`` backend in the dry-run), ``make_production_mesh`` the
+256/512-device mesh of the dry-run, and ``parse_mesh_spec(...,
+distributed=True)`` one from a spec. A mesh larger than the group raises.
 """
 from __future__ import annotations
 
@@ -139,13 +144,51 @@ def make_fleet_mesh(devices: int = 0, device: str = "cuda") -> Mesh:
     return make_mesh((n,), ("fleet",), device=device)
 
 
-def parse_mesh_spec(spec: str, device: str = "cuda") -> Mesh:
+def make_device_mesh(shape, axes, device: str = "cuda"):
+    """A ``torch.distributed`` ``DeviceMesh`` of ``shape`` with dim names
+    ``axes`` over ranks 0 .. prod(shape) - 1 of the current process group
+    (rank r at row-major position r), on devices of kind ``device``. Needs
+    an initialised group at least that large: no silent fallback."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh of {len(shape)} dims got axis names {axes}")
+    if not dist.is_initialized():
+        raise RuntimeError("a DeviceMesh needs a torch.distributed process "
+                           "group: call init_process_group first")
+    n, world = int(np.prod(shape)), dist.get_world_size()
+    if n > world:
+        raise RuntimeError(f"mesh {dict(zip(axes, shape))} needs {n} ranks, "
+                           f"the process group has {world}")
+    kind = torch.device(device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA DeviceMesh was requested but "
+                           "torch.cuda.is_available() is False")
+    ranks = torch.arange(n, dtype=torch.int64).reshape(shape)
+    return DeviceMesh(kind, ranks, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):
+    """Single pod: (data=16, model=16) = 256 devices. Multi-pod:
+    (pod=2, data=16, model=16) = 512 devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_device_mesh(shape, axes, device=device)
+
+
+def parse_mesh_spec(spec: str, device: str = "cuda",
+                    distributed: bool = False):
     """'2x8x16:data,expert,model' -> mesh over the visible devices of kind
-    ``device``."""
+    ``device`` (a ``Mesh``), or with ``distributed`` a ``DeviceMesh`` over
+    the process group's first ranks (``make_device_mesh``)."""
     shape_s, axes_s = spec.split(":")
     shape = tuple(int(x) for x in shape_s.split("x"))
     axes = tuple(axes_s.split(","))
     if len(shape) != len(axes):
         raise ValueError(f"mesh spec {spec!r}: {len(shape)} sizes for "
                          f"{len(axes)} axes")
+    if distributed:
+        return make_device_mesh(shape, axes, device=device)
     return make_mesh(shape, axes, device=device)

@@ -30,10 +30,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.dims import PaddedDims, q_head_mask
-from repro_torch.models.layers import apply_rope, he_init
+from repro_torch.models.layers import apply_rope, he_init, per_shard
 
 NEG_INF = -1e9
 
@@ -110,7 +111,8 @@ def _attend(q, k, v, q_pos, k_pos, causal: bool):
 
 
 def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
-              causal=True, kv_x=None, backend: str = "pallas", kv_out=None):
+              causal=True, kv_x=None, backend: str = "pallas", kv_out=None,
+              shard_fn=None):
     """Full-sequence attention (the reference's ``attention``): the queries
     of ``x`` (B, S, d) over the keys of ``kv_x`` (B, T, d), x itself when
     None -- an encoder's self-attention with ``causal=False``, a decoder's
@@ -120,7 +122,8 @@ def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
     (B, T, G, hd) tensors, receives the projected K and V in its own dtype
     (the decoder's cross cache), in place. ``"pallas"`` attends through
     ``ops.flash_attention`` (a causal call needs T == S), ``"einsum"``
-    through the reference's dense path. Returns (B, S, d_model)."""
+    through the reference's dense path. ``shard_fn`` places q ("qkv")
+    and k, v ("kv") after RoPE. Returns (B, S, d_model)."""
     S = x.shape[1]
     q, k, v = _project_qkv(params, x, dims, kv_x)
     T = k.shape[1]
@@ -130,13 +133,16 @@ def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, k_pos, rope_theta)
+    if shard_fn is not None:
+        q, k, v = shard_fn(q, "qkv"), shard_fn(k, "kv"), shard_fn(v, "kv")
     if kv_out is not None:
         kv_out[0].copy_(k)
         kv_out[1].copy_(v)
     if backend == "pallas":
         ctx = ops.flash_attention(q, k, v, causal=causal)
     elif backend == "einsum":
-        ctx = _attend(q, k, v, positions, k_pos, causal)
+        # batch rows (dim 0) and kv-head groups (dim 2) are independent
+        ctx = per_shard(_attend, (q, k, v), (0, 2), positions, k_pos, causal)
     else:
         raise ValueError(f"unknown attention backend {backend!r}")
     return _out_proj(params, ctx, dims)
@@ -158,7 +164,8 @@ def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
     if backend == "pallas":
         ctx = ops.flash_attention(q, k, v, causal=True)
     elif backend == "einsum":
-        ctx = _attend(q, k, v, positions, positions, causal=True)
+        ctx = per_shard(_attend, (q, k, v), (0, 2), positions, positions,
+                        True)
     else:
         raise ValueError(f"unknown attention backend {backend!r}")
     return _out_proj(params, ctx, dims)
@@ -237,7 +244,14 @@ def write_kv(k_cache, v_cache, k_new, v_new, pos, rows=None):
     empty slot decodes at its stale position, which may be S (its last
     request retired there); the reference's scatter drops that write, and
     here it lands on S - 1, which a slot's next request writes before it
-    reads."""
+    reads. DTensor caches (batch over data, kv groups over model) are
+    written block by block on each rank, every row (no ``rows``)."""
+    if isinstance(k_cache, DTensor):
+        if rows is not None:
+            raise ValueError("a sharded cache is written whole: rows=None")
+        per_shard(write_kv, (k_cache, v_cache, k_new, v_new, pos), (0, 2),
+                  mutates=(0, 1), out_axes=[])
+        return k_cache, v_cache
     if rows is None:
         rows = torch.arange(k_cache.shape[0], device=k_cache.device)
         k_new, v_new = k_new[:, 0], v_new[:, 0]
@@ -270,6 +284,14 @@ def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
         return _out_proj(params, ctx, dims)
     if backend != "einsum":
         raise ValueError(f"unknown attention backend {backend!r}")
+    # batch rows (dim 0) and kv-head groups (dim 2) are independent
+    ctx = per_shard(_decode_ctx, (q, k_cache, v_cache, pos), (0, 2),
+                    k_scale, v_scale)
+    return _out_proj(params, ctx, dims)
+
+
+def _decode_ctx(q, k_cache, v_cache, pos, k_scale, v_scale):
+    """The einsum decode's context (B, 1, G, qpg, hd) in q's dtype."""
     if k_scale is not None:
         k_cache = ref.dequantize_kv(k_cache, k_scale, q.dtype)
         v_cache = ref.dequantize_kv(v_cache, v_scale, q.dtype)
@@ -282,4 +304,4 @@ def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bgqst,btgh->bsgqh", probs.to(v_cache.dtype), v_cache)
-    return _out_proj(params, ctx.to(q.dtype), dims)
+    return ctx.to(q.dtype)

@@ -37,7 +37,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
-from repro_torch.models.layers import layer_norm, sinusoidal_positions_on
+from repro_torch.models.layers import (fresh_state, layer_norm, lookup,
+                                       sinusoidal_positions_on)
 from repro_torch.models.lm import init_mlp, mlp_apply, remat_policy
 
 
@@ -87,59 +88,70 @@ def _ln(x, p, eps):
     return layer_norm(x, p["scale"], p["bias"], eps)
 
 
-def _enc_layer(lp, h, cfg, dims, attn_backend):
+def _enc_layer(lp, h, cfg, dims, attn_backend, shard_fn=None):
     x = _ln(h, lp["attn_norm"], cfg.norm_eps)
     h = h + attn.attention(lp["attn"], x, dims, causal=False,
-                           backend=attn_backend)
+                           backend=attn_backend, shard_fn=shard_fn)
     x = _ln(h, lp["ffn_norm"], cfg.norm_eps)
     return h + mlp_apply(lp["mlp"], x, cfg.activation)
 
 
 def encode(params, frame_embeds, cfg: ArchConfig, dims: PaddedDims, *,
-           attn_backend: str = "pallas", remat: str = "none"):
-    """The encoder over ``frame_embeds`` (B, Le, d): (B, Le, d)."""
+           attn_backend: str = "pallas", remat: str = "none",
+           shard_fn=None):
+    """The encoder over ``frame_embeds`` (B, Le, d): (B, Le, d);
+    ``shard_fn`` places each attention's q, k, v."""
     run = remat_policy(remat)
     Le = frame_embeds.shape[1]
     pos = sinusoidal_positions_on(Le, cfg.d_model, frame_embeds.device)
     h = frame_embeds + pos.to(frame_embeds.dtype)[None]
     for lp in params["enc_layers"]:
-        h = run(_enc_layer, lp, h, cfg, dims, attn_backend)
+        h = run(_enc_layer, lp, h, cfg, dims, attn_backend, shard_fn)
     return _ln(h, params["enc_final_norm"], cfg.norm_eps)
 
 
-def _dec_layer(lp, h, enc_out, cfg, dims):
+def _dec_layer(lp, h, enc_out, cfg, dims, shard_fn=None):
     """One decoder layer over a whole sequence (teacher forcing): causal
     self-attention, cross-attention over ``enc_out``, the MLP; einsum."""
     x = _ln(h, lp["attn_norm"], cfg.norm_eps)
     h = h + attn.attention(lp["attn"], x, dims, causal=True,
-                           backend="einsum")
+                           backend="einsum", shard_fn=shard_fn)
     x = _ln(h, lp["cross_norm"], cfg.norm_eps)
     h = h + attn.attention(lp["cross"], x, dims, causal=False, kv_x=enc_out,
-                           backend="einsum")
+                           backend="einsum", shard_fn=shard_fn)
     x = _ln(h, lp["ffn_norm"], cfg.norm_eps)
     return h + mlp_apply(lp["mlp"], x, cfg.activation)
 
 
-def _decoder_stack(params, h, enc_out, cfg, dims, *, remat: str = "none"):
+def _decoder_stack(params, h, enc_out, cfg, dims, *, remat: str = "none",
+                   shard_fn=None):
     run = remat_policy(remat)
     for lp in params["dec_layers"]:
-        h = run(_dec_layer, lp, h, enc_out, cfg, dims)
+        h = run(_dec_layer, lp, h, enc_out, cfg, dims, shard_fn)
     return _ln(h, params["dec_final_norm"], cfg.norm_eps)
 
 
 def encdec_forward(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
-                   remat: str = "none", return_features: bool = False):
+                   remat: str = "none", shard_fn=None,
+                   return_features: bool = False):
     """Training forward (teacher forcing) of ``batch["frame_embeds"]``
     (B, Le, d) and ``batch["tokens"]`` (B, S): (logits (B, S, V), aux = 0),
-    or (features (B, S, d), 0) with ``return_features``."""
+    or (features (B, S, d), 0) with ``return_features``. ``shard_fn``
+    places every attention's q, k, v and the logits."""
     enc_out = encode(params, batch["frame_embeds"], cfg, dims,
-                     attn_backend="einsum", remat=remat)
+                     attn_backend="einsum", remat=remat, shard_fn=shard_fn)
     toks = batch["tokens"]
     h = _decoder_in(params, toks, torch.arange(toks.shape[1],
                                                device=toks.device))
-    h = _decoder_stack(params, h, enc_out, cfg, dims, remat=remat)
+    h = _decoder_stack(params, h, enc_out, cfg, dims, remat=remat,
+                       shard_fn=shard_fn)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return (h if return_features else h @ params["embed"].T), aux
+    if return_features:
+        return h, aux
+    logits = h @ params["embed"].T
+    if shard_fn is not None:
+        logits = shard_fn(logits, "logits")
+    return logits, aux
 
 
 # ------------------------------------------------------------------ serving
@@ -159,22 +171,25 @@ def encdec_init_state(cfg, dims, batch: int, max_len: int,
 def _decoder_in(params, tokens, positions):
     """Token embeddings plus the learned positions: ``positions`` (S,)
     shared by every row, or (B, 1) one a row."""
-    return params["embed"][tokens] + params["dec_pos"][positions.long()]
+    return (lookup(params["embed"], tokens)
+            + lookup(params["dec_pos"], positions.long()))
 
 
 def encdec_prefill(params, batch, cfg, dims, *, cache_len: int,
-                   cache_dtype=torch.bfloat16, attn_backend: str = "pallas"):
+                   cache_dtype=torch.bfloat16, attn_backend: str = "pallas",
+                   shard_fn=None):
     """Encode ``batch["frame_embeds"]``, then the decoder over
     ``batch["tokens"]`` (B, S), filling the self cache at [0, S) and the
     cross cache whole. Returns (last-token logits (B, V), state, pos (B,)
-    int32 = S)."""
+    int32 = S). ``shard_fn`` places the encoder's q, k, v, as in the
+    reference, and lays out a sharded run's fresh state."""
     enc_out = encode(params, batch["frame_embeds"], cfg, dims,
-                     attn_backend=attn_backend)
+                     attn_backend=attn_backend, shard_fn=shard_fn)
     toks = batch["tokens"]
     B, S = toks.shape
     h = _decoder_in(params, toks, torch.arange(S, device=toks.device))
-    state = encdec_init_state(cfg, dims, B, cache_len, cache_dtype,
-                              device=h.device)
+    state = fresh_state(encdec_init_state, h, shard_fn, cfg, dims, B,
+                        cache_len, cache_dtype)
     for li, lp in enumerate(params["dec_layers"]):
         x = _ln(h, lp["attn_norm"], cfg.norm_eps)
         h = h + attn.prefill_attention(lp["attn"], x, dims,
@@ -196,9 +211,10 @@ def encdec_prefill(params, batch, cfg, dims, *, cache_len: int,
 
 def encdec_decode(params, state, tokens, pos, cfg: ArchConfig,
                   dims: PaddedDims, *, attn_backend: str = "pallas",
-                  write_rows=None):
+                  write_rows=None, shard_fn=None):
     """One decode step. tokens: (B, 1) int; pos: (B,) int32, each row's
-    cache write index and decoder position. Writes the new self K/V in
+    cache write index and decoder position (``shard_fn`` is taken for the
+    facade's sake: no tag applies here, as in the reference). Writes the new self K/V in
     place (rows ``write_rows`` only, when given) and returns
     (logits (B, V), state)."""
     h = _decoder_in(params, tokens, pos[:, None])            # (B, 1, d)

@@ -43,7 +43,8 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
-from repro_torch.models.layers import gelu, he_init, rms_norm, silu
+from repro_torch.models.layers import (fresh_state, gelu, he_init, lookup,
+                                       rms_norm, silu)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.serving import kv_quant
 
@@ -143,14 +144,14 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
 def embed_inputs(params, cfg, batch):
     """Token embeddings, after the projected patch prefix for vlm. Returns
     (h (B, S_total, d), text_start: the prefix length, 0 without one)."""
-    h = params["embed"][batch["tokens"]]                     # (B, L, d)
+    h = lookup(params["embed"], batch["tokens"])                     # (B, L, d)
     if cfg.family != "vlm":
         return h, 0
     patches = batch["patch_embeds"].to(h.dtype) @ params["patch_proj"]
     return torch.cat([patches, h], dim=1), cfg.num_patches
 
 
-def _ffn_sublayer(lp, h, cfg):
+def _ffn_sublayer(lp, h, cfg, shard_fn=None):
     """The FFN half of a block: the dense MLP, or on an MoE layer the
     routed experts. Returns (h, aux): the experts' Switch load-balance
     loss, None on a dense layer (serving drops it)."""
@@ -159,42 +160,55 @@ def _ffn_sublayer(lp, h, cfg):
         y, aux = moe_apply(lp["moe"], x, num_experts=cfg.num_experts,
                            top_k=cfg.num_experts_per_tok,
                            capacity_factor=cfg.capacity_factor,
-                           activation=cfg.activation)
+                           activation=cfg.activation, shard_fn=shard_fn)
         return h + y, aux
     return h + mlp_apply(lp["mlp"], x, cfg.activation), None
 
 
-def train_block(lp, h, cfg, dims, positions):
+def train_block(lp, h, cfg, dims, positions, shard_fn=None):
     """One attention + FFN block over a whole sequence, einsum attention
     (a dense or MoE layer, or the hybrid family's shared block). Returns
     (h, aux or None)."""
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     h = h + attn.attention(lp["attn"], x, dims, positions=positions,
                            rope_theta=cfg.rope_theta, causal=True,
-                           backend="einsum")
-    return _ffn_sublayer(lp, h, cfg)
+                           backend="einsum", shard_fn=shard_fn)
+    return _ffn_sublayer(lp, h, cfg, shard_fn)
 
 
 def lm_forward(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
-               remat: str = "none", return_features: bool = False):
+               remat: str = "none", shard_fn=None,
+               return_features: bool = False):
     """Full-sequence training forward. Returns (logits (B, S_total, V),
     aux) -- or (features (B, S_total, d), aux) with ``return_features``
     (the chunked CE applies the head itself, so the (T, V) logits are
     never held whole). ``aux`` (f32 scalar) sums the Switch loss of every
-    MoE layer; a vlm batch's patch prefix counts in S_total."""
+    MoE layer; a vlm batch's patch prefix counts in S_total. ``shard_fn``
+    places the activations ("act_btd" after the embedding and each layer,
+    "qkv"/"kv", "moe_buf", "logits"; ``distributed.sharding``)."""
     run = remat_policy(remat)
     h, _ = embed_inputs(params, cfg, batch)
+    if shard_fn is not None:
+        h = shard_fn(h, "act_btd")
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in params["layers"]:
-        h, a = run(train_block, lp, h, cfg, dims, positions)
+        h, a = run(train_block, lp, h, cfg, dims, positions, shard_fn)
+        if shard_fn is not None:
+            h = shard_fn(h, "act_btd")
         if a is not None:
             aux = aux + a
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h if return_features else _logits(params, h)), aux
+    if return_features:
+        return h, aux
+    logits = _logits(params, h)
+    if shard_fn is not None:
+        logits = shard_fn(logits, "logits")
+    return logits, aux
 
 
-def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend):
+def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend,
+                  shard_fn=None):
     """One attention + MLP block over a prompt (a dense layer, or the
     hybrid family's shared block), writing its K/V into the per-layer
     caches (B, S_cache, G, hd) in place."""
@@ -202,11 +216,12 @@ def block_prefill(lp, h, cfg, dims, k_cache, v_cache, attn_backend):
     h = h + attn.prefill_attention(lp["attn"], x, dims, k_cache, v_cache,
                                    rope_theta=cfg.rope_theta,
                                    backend=attn_backend)
-    return _ffn_sublayer(lp, h, cfg)[0]
+    h = _ffn_sublayer(lp, h, cfg, shard_fn)[0]
+    return h if shard_fn is None else shard_fn(h, "act_btd")
 
 
 def block_chunk(lp, h, cfg, dims, k_cache, v_cache, positions, lengths,
-                rows, attn_backend):
+                rows, attn_backend, shard_fn=None):
     """One attention + MLP block over a prefill chunk at its cache
     positions (``attention.chunk_prefill_attention``), writing its K/V
     into rows ``rows`` of the per-layer caches in place."""
@@ -215,11 +230,12 @@ def block_chunk(lp, h, cfg, dims, k_cache, v_cache, positions, lengths,
                                          v_cache, positions, lengths,
                                          rope_theta=cfg.rope_theta,
                                          backend=attn_backend, rows=rows)
-    return _ffn_sublayer(lp, h, cfg)[0]
+    h = _ffn_sublayer(lp, h, cfg, shard_fn)[0]
+    return h if shard_fn is None else shard_fn(h, "act_btd")
 
 
 def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
-                 write_rows=None):
+                 write_rows=None, shard_fn=None):
     """One attention + MLP block for one token per row, writing its K/V at
     ``pos`` into the per-layer cache views ``lc`` (``k``/``v``, or the int8
     leaves ``k_q``/``v_q``/``k_s``/``v_s``) in place (rows ``write_rows``
@@ -237,7 +253,7 @@ def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
                                write_rows)
         y = attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
                                backend=attn_backend)
-    return _ffn_sublayer(lp, h + y, cfg)[0]
+    return _ffn_sublayer(lp, h + y, cfg, shard_fn)[0]
 
 
 def _logits(params, h):
@@ -289,23 +305,25 @@ def lm_init_cache(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def lm_decode(params, cache, tokens, pos, cfg: ArchConfig, dims: PaddedDims,
-              *, attn_backend: str = "pallas", write_rows=None):
+              *, attn_backend: str = "pallas", write_rows=None,
+              shard_fn=None):
     """One decode step. tokens: (B,1) int; pos: (B,) int32 tensor -- the
     cache write index of each row. Writes the new K/V into ``cache`` in
     place (only rows ``write_rows``, an int index tensor, when given: the
     fleet's non-stepping rows keep their cache) and returns
     (logits (B, V), cache)."""
-    h = params["embed"][tokens]                              # (B,1,d)
+    h = lookup(params["embed"], tokens)                              # (B,1,d)
     for li, lp in enumerate(params["layers"]):
         h = block_decode(lp, h, cfg, dims,
                          {n: t[li] for n, t in cache.items()}, pos,
-                         attn_backend, write_rows)
+                         attn_backend, write_rows, shard_fn)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)[:, 0], cache
 
 
 def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
-               cache_dtype=torch.bfloat16, attn_backend: str = "pallas"):
+               cache_dtype=torch.bfloat16, attn_backend: str = "pallas",
+               shard_fn=None):
     """Prefill: full forward + cache fill. Returns (last-token logits, cache,
     pos (B,) int32). A vlm batch carries ``patch_embeds`` (B, P, d): the
     prefix runs first, causal attention covers all P + L positions, and
@@ -322,12 +340,11 @@ def lm_prefill(params, batch, cfg, dims, *, cache_len: int,
     h, text_start = embed_inputs(params, cfg, batch)
     B = h.shape[0]
     quant = is_int8(cache_dtype)
-    cache = lm_init_cache(cfg, dims, B, cache_len,
-                          torch.float32 if quant else cache_dtype,
-                          device=h.device)
+    cache = fresh_state(lm_init_cache, h, shard_fn, cfg, dims, B,
+                        cache_len, torch.float32 if quant else cache_dtype)
     for li, lp in enumerate(params["layers"]):
         h = block_prefill(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
-                          attn_backend)
+                          attn_backend, shard_fn)
     logits, pos = last_logits(params, h, cfg, batch.get("lengths"),
                               text_start)
     if quant:
@@ -352,7 +369,7 @@ def chunk_positions(offsets, C: int):
 
 
 def lm_prefill_chunk(params, cache, tokens, offsets, lengths, cfg, dims, *,
-                     rows=None, attn_backend: str = "pallas"):
+                     rows=None, attn_backend: str = "pallas", shard_fn=None):
     """Continue a prefill: run ``tokens`` (B, C) at per-row cache
     ``offsets`` (B,) against the float KV cache (leaves (L, R, S, G, hd)),
     row b in cache row ``rows[b]`` (default b), writing the chunk's K/V at
@@ -366,10 +383,10 @@ def lm_prefill_chunk(params, cache, tokens, offsets, lengths, cfg, dims, *,
     prefill end; the engine keeps int8 replicas on single-shot)."""
     if "k_q" in cache:
         raise ValueError("chunked prefill requires a float KV cache")
-    h = params["embed"][tokens]
+    h = lookup(params["embed"], tokens)
     posmat = chunk_positions(offsets, tokens.shape[1])
     for li, lp in enumerate(params["layers"]):
         h = block_chunk(lp, h, cfg, dims, cache["k"][li], cache["v"][li],
-                        posmat, lengths, rows, attn_backend)
+                        posmat, lengths, rows, attn_backend, shard_fn)
     logits, pos = chunk_logits(params, h, cfg, offsets, lengths)
     return logits, cache, pos

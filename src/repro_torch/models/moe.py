@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import gelu, he_init, silu
+from repro_torch.models.layers import gelu, he_init, per_shard, silu
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int,
@@ -102,33 +102,68 @@ def dispatch_slots(top_i: torch.Tensor, E: int, C: int) -> tuple:
     return flat_e, torch.where(slot < C, slot, C)
 
 
-def moe_apply(params, x, *, num_experts: int, top_k: int,
-              capacity_factor: float = 1.25, activation: str = "swiglu"):
-    """x: (B, S, d) -> (y (B, S, d), aux), the Switch load-balance loss
-    on the top-1 assignment. Capacity and slot order are per batch row, so
-    rows cannot displace each other's tokens (a fleet slab's empty rows
-    leave its live rows' routing alone)."""
-    B, S, d = x.shape
-    E, K = num_experts, top_k
-    probs, top_p, top_i = route(params["router"], x, K)
-    ids = torch.arange(E, device=x.device)
-    assign = (top_i[..., :1] == ids).float()                # top-1 one-hot
-    aux = E * torch.mean(assign.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+def _route_rows(x, router, k):
+    return route(router, x, k)
 
-    C = capacity(S, K, E, capacity_factor)
+
+def _dispatch(x, top_i, E: int, C: int):
+    """The (E, B, C, d) buffer of rows ``x`` (B, S, d) routed by ``top_i``
+    (B, S, k), and each pair's (expert, slot) (B, S·k)."""
+    B, S, d = x.shape
+    K = top_i.shape[-1]
     flat_e, slot = dispatch_slots(top_i, E, C)
     rows = torch.arange(B, device=x.device)[:, None]
     tok = torch.arange(S * K, device=x.device) // K     # pair -> token
     buf = x.new_zeros((E, B, C + 1, d))     # column C takes the drops
     buf[flat_e, rows, slot] = x[:, tok]
-    out = _expert_ffn(params, buf[:, :, :C].reshape(E, B * C, d),
-                      activation).reshape(E, B, C, d)
+    return buf[:, :, :C], flat_e, slot
+
+
+def _combine(flat_e, slot, top_p, out, K: int):
+    """Each token's k experts' outputs from ``out`` (E, B, C, d), weighted
+    by ``top_p`` (B, S, k) and summed: (B, S, d)."""
+    E, B, C, d = out.shape
+    S = top_p.shape[1]
     out = torch.cat([out, out.new_zeros((E, B, 1, d))], dim=2)
-    gathered = out[flat_e, rows, slot]                      # (B, S·k, d)
+    gathered = out[flat_e, torch.arange(B, device=out.device)[:, None],
+                   slot]                                    # (B, S·k, d)
     weighted = gathered * top_p.reshape(B, S * K, 1).to(gathered.dtype)
     # the reference adds the k terms of a token into zeros one by one; for
     # k <= 2 one sum rounded once is the same value
-    y = weighted.reshape(B, S, K, d).sum(dim=2)
+    return weighted.reshape(B, S, K, d).sum(dim=2)
+
+
+def moe_apply(params, x, *, num_experts: int, top_k: int,
+              capacity_factor: float = 1.25, activation: str = "swiglu",
+              shard_fn=None):
+    """x: (B, S, d) -> (y (B, S, d), aux), the Switch load-balance loss
+    on the top-1 assignment. Capacity and slot order are per batch row, so
+    rows cannot displace each other's tokens (a fleet slab's empty rows
+    leave its live rows' routing alone). ``shard_fn`` places the
+    dispatch buffer and the experts' output ("moe_buf")."""
+    B, S, d = x.shape
+    E, K = num_experts, top_k
+    # routing, dispatch and combine are per batch row: with DTensors each
+    # rank does its rows' (the router whole), and only the buffer moves
+    probs, top_p, top_i = per_shard(_route_rows, (x, params["router"]),
+                                    [(0,), (None,)], K, out_axes=[(0,)] * 3)
+    ids = torch.arange(E, device=x.device)
+    assign = (top_i[..., :1] == ids).float()                # top-1 one-hot
+    aux = E * torch.mean(assign.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+
+    C = capacity(S, K, E, capacity_factor)
+    buf, flat_e, slot = per_shard(_dispatch, (x, top_i), (0,), E, C,
+                                  out_axes=[(1,), (0,), (0,)])
+    if shard_fn is not None:
+        buf = shard_fn(buf, "moe_buf")
+    out = _expert_ffn(params, buf.reshape(E, B * C, d),
+                      activation).reshape(E, B, C, d)
+    if shard_fn is not None:
+        out = shard_fn(out, "moe_buf")
+    # the pairs first: the combine is split as the batch is (the experts'
+    # output comes back from the expert axes by the batch's)
+    y = per_shard(_combine, (flat_e, slot, top_p, out),
+                  [(0,), (0,), (0,), (1,)], K)
     if "shared" in params:
         y = y + _dense_ffn(params["shared"], x.reshape(B * S, d),
                            activation).reshape(B, S, d)

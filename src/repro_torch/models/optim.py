@@ -20,6 +20,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.tree import leaves, tree_map, unflatten
 
@@ -37,6 +38,28 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
                          * (1 + torch.cos(math.pi * t)))
         return torch.where(step < warmup, warm, cos)
     return lr
+
+
+def _local(x):
+    """A DTensor scalar's value on this rank (it is whole on every rank);
+    anything else as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _on_blocks(fn, *xs):
+    """``fn(*xs)``, elementwise over tensors of one shape. DTensors laid
+    out alike (a param, its gradient and moments) go through it block by
+    block on each rank, and the results take their layout: the blocks are
+    the whole answer, and DTensor's own rule search over an elementwise
+    op's placements cost ~0.1 s a new op on a 3-D mesh."""
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    mesh, lay = xs[0].device_mesh, tuple(xs[0].placements)
+    if any(tuple(x.placements) != lay for x in xs):
+        raise ValueError("elementwise blocks need one layout, got "
+                         f"{[tuple(x.placements) for x in xs]}")
+    return tuple(DTensor.from_local(o, mesh, lay, run_check=False)
+                 for o in fn(*(x.to_local() for x in xs)))
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -60,8 +83,8 @@ class AdamW:
             (), self.lr, dtype=torch.float32, device=step.device)
 
     def init(self, params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=self.moment_dtype,
-                                      device=p.device)
+        # zeros_like: a DTensor param's moments take its layout
+        zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32,
                                     device=leaves(params)[0].device)}
@@ -77,7 +100,7 @@ class AdamW:
         c1 = 1 - self.b1 ** stepf
         c2 = 1 - self.b2 ** stepf
 
-        def upd(g, mu, nu, p):
+        def upd(g, mu, nu, p, scale=_local(scale)):
             g = g.float() * scale
             mu1 = self.b1 * mu.float() + (1 - self.b1) * g
             nu1 = self.b2 * nu.float() + (1 - self.b2) * g * g
@@ -87,8 +110,9 @@ class AdamW:
             return (new_p.to(p.dtype), mu1.to(self.moment_dtype),
                     nu1.to(self.moment_dtype))
 
-        out = [upd(*a) for a in zip(leaves(grads), leaves(state["mu"]),
-                                    leaves(state["nu"]), leaves(params))]
+        out = [_on_blocks(upd, *a) for a in zip(
+            leaves(grads), leaves(state["mu"]), leaves(state["nu"]),
+            leaves(params))]
         new_state = {"mu": unflatten(params, [o[1] for o in out]),
                      "nu": unflatten(params, [o[2] for o in out]),
                      "step": step}

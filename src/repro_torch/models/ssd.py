@@ -27,9 +27,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import he_init, rms_norm, silu, softplus
+from repro_torch.models.layers import (he_init, per_shard, rms_norm, silu,
+                                       softplus)
 
 
 # --------------------------------------------------------------------- params
@@ -133,7 +135,21 @@ def ssd_decode_step(state, x, dt, A, Bm, Cm, rows=None):
     """One token. state: (B, H, P, N) f32, updated in place (only rows
     ``rows``, an int index tensor, when given: the others keep their state
     bit for bit); x: (B, H, P), dt: (B, H), Bm/Cm: (B, G, N). Returns
-    (y (B, H, P) f32, state)."""
+    (y (B, H, P) f32, state). A DTensor state (batch over data, heads over
+    model) is stepped block by block on each rank, every row."""
+    if isinstance(state, DTensor):
+        if rows is not None:
+            raise ValueError("a sharded state is stepped whole: rows=None")
+        # batch rows and heads are independent (B/C follow the batch)
+        y = per_shard(lambda *a: _decode_step(*a)[0],
+                      (state, x, dt, A, Bm, Cm),
+                      [(0, 1), (0, 1), (0, 1), (None, 0), (0, None),
+                       (0, None)], mutates=(0,))
+        return y, state
+    return _decode_step(state, x, dt, A, Bm, Cm, rows)
+
+
+def _decode_step(state, x, dt, A, Bm, Cm, rows=None):
     H = x.shape[1]
     rep = H // Bm.shape[1]
     bh = _per_head(Bm, rep, 1).float()

@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
-from repro_torch.models.layers import he_init, rms_norm
+from repro_torch.models.layers import fresh_state, he_init, lookup, rms_norm
 from repro_torch.models.lm import (block_chunk, block_decode, block_prefill,
                                    chunk_logits, chunk_positions, init_mlp,
                                    last_logits, remat_policy, train_block,
@@ -82,32 +82,44 @@ def init_ssm_lm(gen: torch.Generator, cfg: ArchConfig, dims: PaddedDims,
     return params
 
 
-def _train_layer(lp, shared, h, cfg, dims, positions):
+def _train_layer(lp, shared, h, cfg, dims, positions, shard_fn=None):
     """Layer ``lp`` over a whole sequence, after the hybrid's shared block
     when ``shared`` is given (einsum attention, ``ssd_chunked``)."""
     if shared is not None:
-        h, _ = train_block(shared, h, cfg, dims, positions)
+        h, _ = train_block(shared, h, cfg, dims, positions, shard_fn)
     return h + mamba2_forward(lp["mamba"],
                               rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
                               attn_backend="einsum")
 
 
 def ssm_forward(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
-                remat: str = "none", return_features: bool = False):
+                remat: str = "none", shard_fn=None,
+                return_features: bool = False):
     """Full-sequence training forward: (logits (B, S, V), aux = 0), or
     (features (B, S, d), 0) with ``return_features``. The hybrid's shared
     block runs before layer i when i % attn_every == 0; under ``remat``
-    it is recomputed with its layer."""
+    it is recomputed with its layer. ``shard_fn`` places the activations
+    ("act_btd" after the embedding and each layer, the shared block's
+    "qkv"/"kv", "logits")."""
     run = remat_policy(remat)
-    h = params["embed"][batch["tokens"]]
+    h = lookup(params["embed"], batch["tokens"])
+    if shard_fn is not None:
+        h = shard_fn(h, "act_btd")
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     for li, lp in enumerate(params["layers"]):
         shared = params["shared_attn"] \
             if _invocation(cfg, li) is not None else None
-        h = run(_train_layer, lp, shared, h, cfg, dims, positions)
+        h = run(_train_layer, lp, shared, h, cfg, dims, positions, shard_fn)
+        if shard_fn is not None:
+            h = shard_fn(h, "act_btd")
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return (h if return_features else _logits(params, h)), aux
+    if return_features:
+        return h, aux
+    logits = _logits(params, h)
+    if shard_fn is not None:
+        logits = shard_fn(logits, "logits")
+    return logits, aux
 
 
 def ssm_init_state(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -129,8 +141,11 @@ def ssm_init_state(cfg, dims, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
                 cache_len: int, cache_dtype=torch.bfloat16,
-                attn_backend: str = "pallas"):
+                attn_backend: str = "pallas", shard_fn=None):
     """Prefill: returns (last-token logits, serve state, pos (B,) int32).
+    ``shard_fn`` lays out a sharded run's fresh state ("serve_state");
+    no activation tag applies in this family's serve path, as in the
+    reference.
 
     ``batch["lengths"]`` (B,) enables right-padded bucketed prompts: padded
     steps are exactly inert for the SSM state (dt = 0), the conv state is
@@ -141,9 +156,9 @@ def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
     paths."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
-    h = params["embed"][tokens]
-    state = ssm_init_state(cfg, dims, tokens.shape[0], cache_len,
-                           cache_dtype, device=h.device)
+    h = lookup(params["embed"], tokens)
+    state = fresh_state(ssm_init_state, h, shard_fn, cfg, dims,
+                        tokens.shape[0], cache_len, cache_dtype)
     for li, lp in enumerate(params["layers"]):
         inv = _invocation(cfg, li)
         if inv is not None:
@@ -163,13 +178,14 @@ def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
 
 def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
                dims: PaddedDims, *, attn_backend: str = "pallas",
-               write_rows=None):
+               write_rows=None, shard_fn=None):
     """One decode step. tokens: (B, 1) int; pos: (B,) int32, each row's
-    cache write index (the hybrid's attention). Updates ``state`` in place
+    cache write index (the hybrid's attention). ``shard_fn``: as in
+    ``ssm_prefill``. Updates ``state`` in place
     -- only rows ``write_rows`` (an int index tensor) when given: the
     fleet's non-stepping rows keep their SSM, conv and attention state bit
     for bit -- and returns (logits (B, V), state)."""
-    h = params["embed"][tokens]                              # (B, 1, d)
+    h = lookup(params["embed"], tokens)                              # (B, 1, d)
     for li, lp in enumerate(params["layers"]):
         inv = _invocation(cfg, li)
         if inv is not None:
@@ -188,7 +204,7 @@ def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
 
 def ssm_prefill_chunk(params, state, tokens, offsets, lengths,
                       cfg: ArchConfig, dims: PaddedDims, *, rows=None,
-                      attn_backend: str = "pallas"):
+                      attn_backend: str = "pallas", shard_fn=None):
     """Continue a prefill one chunk at a time: ``state`` is the serve state
     left by earlier chunks (zeros for a first chunk), row b of the batch in
     state row ``rows[b]`` (default b); ``tokens`` (B, C) the next chunk
@@ -202,8 +218,8 @@ def ssm_prefill_chunk(params, state, tokens, offsets, lengths,
     (``attention.chunk_prefill_attention``), so chunk by chunk equals the
     single-shot prefill (pad steps are dt = 0, inert). The rows' state is
     updated in place. Returns (last-real-token logits, state, pos (B,) =
-    offset + length)."""
-    h = params["embed"][tokens]
+    offset + length). ``shard_fn``: as in ``ssm_prefill``."""
+    h = lookup(params["embed"], tokens)
     B = tokens.shape[0]
     if rows is None:
         rows = torch.arange(B, dtype=torch.int32, device=h.device)
