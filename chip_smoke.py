@@ -236,7 +236,21 @@ the script exits non-zero:
      on a one-card machine. (c) ``distributed.seq_kv.
      seq_sharded_flash_decode`` on a (1, 2) mesh over cuda:0 at granite's
      heads (32 q / 8 kv, hd 128), S 4,096, pos 0, 100, 2,047 and 4,095,
-     in f32 within 2e-5 of flash_decode's plain version.
+     in f32 within 2e-5 of flash_decode's plain version. (d) the fleet
+     mesh over ``model`` and ``data``, every device cuda:0: phase 6's
+     loop over (fleet 2, model 2), each replica's kv heads split 4 and 4,
+     counted and sync-checked -- every kernel of a dispatch once a model
+     device, counts (per tick too) equal to the unsharded run's, decode
+     steps as CUDA graphs, each model device's peak slab bytes half the
+     (fleet 2) run's, bf16 streams that differ and tok/s reported, one
+     dispatch's host and device ms split against whole; at 2 layers in
+     f32 the digests over (fleet 2, model 2) and (fleet 2, data 2) equal
+     phase 8's; flash_decode, flash_attention and ssd_scan against their
+     plain versions and timed at a model device's shapes (4 kv heads x
+     qpg 4 over the 32-row slab, the loop's fleet prefill; 32 and 40 SSD
+     heads). mamba2-1.3b and zamba2-2.7b, inside their own phases: the
+     f32 2-layer loop over (fleet 1, model 2) equal to their phase 8
+     digests, every leaf split, each kernel twice a dispatch.
 
  15. the parameter half of multi-device. (a) A one-rank NCCL process group
      on cuda:0 and a (data=1, model=1) ``DeviceMesh``: phase 13's
@@ -265,7 +279,9 @@ phase 11, where gcn_layer's are given too, with its times at the DDPG
 update's shapes under ``update``; the attention kernels' ``moe`` entries
 give their times at the MoE heads and their launches on the MoE paths,
 their ``vlm`` and ``audio`` entries those of phase 12, their ``fleet``
-and ``mesh`` entries those of phase 14); the last line is
+and ``mesh`` entries those of phase 14, and every serving kernel's
+``model_axis`` entry its launches on phase 14(d)'s split path and its
+parity and times at a model device's shapes); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -279,6 +295,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -373,6 +390,9 @@ MOE_ARCHS = tuple(MOE_DEPTH)
 # below any router margin, so every token routes alike and the gate is
 # F32_PATH_TOL over all rows
 MOE_F32_DEPTH = 1
+
+
+CARD = ""    # the card's name and power limit, as nvidia-smi prints them
 
 
 def log(msg: str) -> None:
@@ -747,10 +767,13 @@ def _per_dispatch(cfg) -> dict:
             "ssd_scan": (0 if dense else cfg.num_layers, 0)}
 
 
-def _check_launches(cfg, launches, prefill, decode, ticks=0) -> None:
+def _check_launches(cfg, launches, prefill, decode, ticks=0,
+                    heads=1) -> None:
     """The launch counts of one run against its dispatches; fails too when
-    a kernel of the run's path was never launched."""
-    want = {k: p * prefill + d * decode
+    a kernel of the run's path was never launched. ``heads``: the devices
+    of a fleet mesh's ``model`` axis, each running every kernel of a
+    dispatch on its head block (phase 14(d))."""
+    want = {k: heads * (p * prefill + d * decode)
             for k, (p, d) in _per_dispatch(cfg).items()}
     want["gcn_layer"] = ticks
     want["gcn_layer_bwd"] = 0         # the serve path never trains
@@ -923,7 +946,8 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False,
                   mesh=None) -> dict:
     """The main path, counted: the control loop at full width, its decode
     dispatches replaying captured CUDA graphs; with ``mesh``, every fleet
-    group's slab split over its shards (phase 14(b))."""
+    group's slab split over its shards (phase 14(b)), and each replica's
+    heads over its ``model`` axis (phase 14(d))."""
     from repro_torch.launch import serve
 
     from repro_torch.serving.elastic import async_tick_violations
@@ -983,7 +1007,8 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False,
     # the launches follow from the dispatches as the shards ran them (the
     # dispatches themselves when unsharded)
     shard_runs = fe.shard_dispatches()
-    _check_launches(cfg, launches, *shard_runs, len(ticks))
+    heads = 1 if mesh is None else mesh.shape.get("model", 1)
+    _check_launches(cfg, launches, *shard_runs, len(ticks), heads=heads)
     if mesh is None:
         _graph_report(torch, cfg, fe)
         _fleet_step_times(torch, model, params, fe.peak_slab_rows(),
@@ -1011,6 +1036,11 @@ def phase_control(torch, ops, cfg, model, params, plan_times=False,
             "per_tick": [(t["decode_dispatches"], t["prefill_dispatches"],
                           t["syncs"]) for t in ticks],
             "caps": sorted(g.cap for g in fe._fleets.values()),
+            "peak_bytes": {g.max_batch: g.peak_bytes
+                           for g in fe._fleets.values()},
+            "graphs": fe.graph_stats(),
+            "eager": any(p.graphs.eager for g in fe._fleets.values()
+                         for p in g.parts),
             "wall": out["wall"]}
 
 
@@ -1663,15 +1693,20 @@ def phase_step_times(torch, cfg, model, params, reps, workload):
 
 
 def _fleet_step_times(torch, model, params, rows: int, max_seq: int,
-                      cache_dtype=None) -> tuple:
+                      cache_dtype=None, layout=None) -> tuple:
     """One fleet decode dispatch at the run's largest slab (``rows`` rows of
     ``max_seq``, every row 24 positions deep, about a prompt and half its
     output) over a ``cache_dtype`` pool (bf16 by default): host clock
     ending in a synchronise, and the device time alone from a CUDA-graph
-    replay -- the control loop's idle share. Returns (host ms, device
+    replay -- the control loop's idle share. With ``layout`` (a
+    ``sharding.HeadLayout``) the slab is split by heads over its devices,
+    as a fleet mesh's ``model`` axis splits it. Returns (host ms, device
     ms)."""
     cache_dtype = cache_dtype or torch.bfloat16
-    slab = model.init_serve_state(rows, max_seq, cache_dtype, device="cuda")
+    slab = model.init_serve_state(rows, max_seq, cache_dtype,
+                                  device="cuda" if layout is None else "meta")
+    if layout is not None:
+        slab = layout(slab, "serve_state")
     tok = torch.ones((rows, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((rows,), 24, dtype=torch.int32, device="cuda")
 
@@ -1686,8 +1721,10 @@ def _fleet_step_times(torch, model, params, rows: int, max_seq: int,
         step().cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     host_ms = statistics.median(times[1:])
+    split = "" if layout is None else \
+        f", heads over {len(layout.devices)} model devices"
     log(f"[control] fleet decode dispatch eager, {rows} slab rows x "
-        f"{max_seq}, {cache_dtype} cache: {host_ms:.2f} ms host clock "
+        f"{max_seq}, {cache_dtype} cache{split}: {host_ms:.2f} ms host clock "
         f"(median of 5), device busy {device_ms:.2f} ms (CUDA-graph replay, "
         f"median of 5): idle share {1 - device_ms / host_ms:.2f}")
     return host_ms, device_ms
@@ -2437,6 +2474,12 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
     oracle = phase_oracles(torch, cfg, model, params, control, small)
     mesh = phase_mesh(torch, ops, ref, cfg, model, params, control, small,
                       oracle) if cfg.name == SERVED[0] else None
+    if mesh is not None:
+        mesh["model_axis"] = phase_model_axis(torch, F, ops, ref, cfg, model,
+                                              params, control, small, oracle,
+                                              mesh)
+    model_axis = phase_model_axis_ssm(torch, ops, cfg, small, oracle) \
+        if cfg.name in SSM_ARCHS else None
     del reps
     _free(torch)
     chunk = phase_chunk(torch, ops, cfg, model, params, workload, small) \
@@ -2446,7 +2489,7 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
     return {"launches": control["launches"], "rows": rows,
             "drain_shapes": shapes, "control_shapes": control["shapes"],
             "slab_rows": control["rows"], "chunk": chunk, "int8": int8,
-            "mesh": mesh}
+            "mesh": mesh, "model_axis": model_axis}
 
 
 def _largest(shapes, kind):
@@ -3854,7 +3897,8 @@ def phase_mesh(torch, ops, ref, cfg, model, params, control, small,
     return {"launches": sharded["launches"], "shard_runs": runs,
             "decode": sharded["decode"], "prefill": sharded["prefill"],
             "ratio": ratio, "seq_kv_err": err,
-            "unsharded": control["launches"]}
+            "unsharded": control["launches"],
+            "peak_bytes": sharded["peak_bytes"], "digest": sharded["digest"]}
 
 
 def phase_seq_kv(torch, ref) -> float:
@@ -3909,6 +3953,259 @@ def fleet_rows(rows: dict, families: dict, mesh: dict) -> None:
             launches_of=f"granite-3-8b's control loop over {MESH_SHARDS} "
                         "shards on cuda:0")
 
+
+
+# ------------------------------------------------------------ phase 14(d)
+# fleet meshes over the 'model' and data-like axes, every device cuda:0
+# (one card: the split's machinery, not a second card). granite-3-8b's
+# 8 kv heads go 4 a model device, mamba2-1.3b's 64 SSM heads 32 and
+# zamba2-2.7b's 80 heads (its shared block's 32 kv heads) 40 (16)
+MODEL_AXIS_MESH = ((2, 2), ("fleet", "model"))
+DATA_AXIS_MESH = ((2, 2), ("fleet", "data"))
+SSM_AXIS_MESH = ((1, 2), ("fleet", "model"))
+# the split kernels' shapes: the control loop's 32-row slab of
+# CONTROL_MAX_SEQ at granite's heads halved (4 kv x qpg 4, hd 128), its
+# largest fleet prefill there, and the ssm archs' heads halved at the
+# control loop's fleet prefill (8 x 16) and a drain-mode bucket (2 x 96)
+SPLIT_ROWS = 32
+SPLIT_SSD_CASES = ((8, 16), (2, 96))
+
+
+def _card_mesh(shape, axes):
+    """A mesh of ``shape`` whose every device is cuda:0."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh(shape, axes, devices=["cuda:0"] * math.prod(shape))
+
+
+def phase_split_kernels(torch, F, ops, ref, cfg, control) -> dict:
+    """Phase 14(d)'s kernels at the shapes a model device runs: each
+    against its plain version on the card (f32 2e-5, bf16 3e-2; ssd_scan
+    f32 1e-4), then timed as phase 7 times them. flash_decode over
+    ``SPLIT_ROWS`` rows of ``CONTROL_MAX_SEQ`` at granite's kv heads over
+    2 (ragged depths as the loop's), flash_attention at the loop's
+    largest fleet prefill there, ssd_scan at both ssm archs' heads over
+    2. Returns each kernel's max |err| and times."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    G = cfg.num_kv_heads // 2
+    qpg, hd = cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim
+    out = {}
+    pos = _ragged_pos(torch, gen, SPLIT_ROWS, *CONTROL_DEPTH)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(SPLIT_ROWS, G, qpg, hd, generator=gen,
+                        device="cuda").to(dt)
+        k, v = (torch.randn(SPLIT_ROWS, CONTROL_MAX_SEQ, G, hd, generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        worst = max(worst, _close("flash_decode (split)",
+                                  ops.flash_decode(q, k, v, pos),
+                                  ref.flash_decode_ref(q, k, v, pos),
+                                  str(dt).split(".")[1], torch))
+    views = [tuple(torch.randn(SPLIT_ROWS, CONTROL_MAX_SEQ, G, hd,
+                               generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(2))
+             for _ in range(cfg.num_layers)]
+    t = _time_decode(torch, F, ops, ref, q, views, pos,
+                     f"split (a model device's {G} of {cfg.num_kv_heads} "
+                     f"kv heads, {CARD})")
+    out["flash_decode"] = dict(max_abs_err=worst, timed_at=(
+        f"{SPLIT_ROWS} slab rows x {CONTROL_MAX_SEQ}, {G} kv heads x qpg "
+        f"{qpg}, hd {hd}, bf16"), **t)
+    del views
+    kb, sb = _largest(control["shapes"], "afleet_prefill")
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(kb, sb, G, qpg, hd, generator=gen,
+                        device="cuda").to(dt)
+        k, v = (torch.randn(kb, sb, G, hd, generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        worst = max(worst, _close(
+            "flash_attention (split)", ops.flash_attention(q, k, v,
+                                                           causal=True),
+            ref.flash_attention_ref(q, k, v, causal=True),
+            str(dt).split(".")[1], torch))
+    t = _time_attention(torch, F, ops, ref, gen, kb, sb, G, qpg, hd,
+                        f"split (fleet prefill, a model device's heads, "
+                        f"{CARD})")
+    out["flash_attention"] = dict(max_abs_err=worst, timed_at=(
+        f"fleet prefill K {kb} x bucket {sb}, {G} kv heads x qpg {qpg}, "
+        f"hd {hd}, causal, bf16"), **t)
+    worst, times = 0.0, {}
+    for name in SSM_ARCHS:
+        c = get_config(name)
+        H, P, N = c.ssm_heads // 2, c.ssm_head_dim, c.ssm_state
+        for B, T in SPLIT_SSD_CASES:
+            x, a, bm, cm = _ssd_inputs(torch, gen, B, T, H, P, N)
+            chunk = min(c.ssm_chunk, T)
+            y, st = ops.ssd_scan(x, a, bm, cm, chunk=chunk)
+            y_ref, st_ref = ref.ssd_scan_ref(x, a, bm, cm, chunk)
+            for got, want in ((y, y_ref), (st, st_ref)):
+                torch.testing.assert_close(got, want, **SSD_TOL, msg=lambda
+                                           m: f"ssd_scan {name} H {H}: {m}")
+            worst = max(worst, (y - y_ref).abs().max().item(),
+                        (st - st_ref).abs().max().item())
+        half = types.SimpleNamespace(
+            name=f"{name} (split, {H} of {c.ssm_heads} heads, {CARD})",
+            ssm_heads=H, ssm_head_dim=P, ssm_state=N, ssm_chunk=c.ssm_chunk)
+        times[name] = _time_ssd(torch, ops, ref, gen, half,
+                                *SPLIT_SSD_CASES[0], "control loop prefill")
+    log(f"[mesh] ssd_scan at {[get_config(n).ssm_heads // 2 for n in SSM_ARCHS]}"
+        f" heads, cases {list(SPLIT_SSD_CASES)}: max|err| {worst:.3e} "
+        f"(atol/rtol {SSD_TOL['atol']})")
+    out["ssd_scan"] = dict(max_abs_err=worst, timed_at=(
+        f"{SSM_ARCHS[0]}'s {get_config(SSM_ARCHS[0]).ssm_heads // 2} heads,"
+        f" fleet prefill {SPLIT_SSD_CASES[0][0]} x {SPLIT_SSD_CASES[0][1]}"),
+        **times[SSM_ARCHS[0]])
+    out["ssd_scan"]["zamba2"] = times[SSM_ARCHS[1]]
+    return out
+
+
+def phase_model_axis(torch, F, ops, ref, cfg, model, params, control, small,
+                     oracle, fleet_only) -> dict:
+    """Phase 14(d) for granite-3-8b. Phase 6's control loop at full width
+    and depth, bf16, over (fleet 2, model 2) on cuda:0, counted and
+    sync-checked as phase 6: every kernel of a dispatch once a model
+    device (a layer's flash_decode twice a shard step), its decode,
+    admission and sync counts, per tick too, equal to the unsharded run's,
+    its decode steps captured as CUDA graphs (every device of a row block
+    is cuda:0), each model device's peak slab bytes half those of phase
+    14(b)'s (fleet 2) run; bf16 streams that differ and tok/s reported,
+    and one decode dispatch's host and device ms over the split slab
+    beside the whole one. At 2 layers in f32 the digests over (fleet 2,
+    model 2) and (fleet 2, data 2) equal the unsharded loop's (phase 8's).
+    Then the kernels at the split shapes (``phase_split_kernels``)."""
+    from repro_torch.distributed.sharding import HeadLayout
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    mesh = _card_mesh(*MODEL_AXIS_MESH)
+    run = phase_control(torch, ops, cfg, model, params, mesh=mesh)
+    diff = {k: (run[k], control[k]) for k in
+            ("per_tick", "decode", "prefill", "syncs")
+            if run[k] != control[k]}
+    halves = {}
+    for key, blocks in run["peak_bytes"].items():
+        whole = fleet_only["peak_bytes"][key]
+        halves[key] = [(per, w[0]) for per, w in zip(blocks, whole)]
+    runs = run["shard_runs"]
+    L = cfg.num_layers
+    log(f"[mesh] {cfg.name} bf16 over (fleet 2, model 2) on cuda:0 "
+        f"({CARD}): decode dispatches {run['decode']}, admissions "
+        f"{run['prefill']}, syncs {run['syncs']} (unsharded "
+        f"{control['decode']}, {control['prefill']}, {control['syncs']}); "
+        f"the shards' runs: admissions {runs[0]}, decode steps {runs[1]}; "
+        f"launches {run['launches']} (flash_decode {L} x 2 model devices a "
+        f"shard step: {run['launches']['flash_decode'] == 2 * L * runs[1]})"
+        f"; streams differing from the unsharded run's "
+        f"{_differing(run['digest'], control['digest'])}/"
+        f"{len(control['digest'])}, from the (fleet 2) run's "
+        f"{_differing(run['digest'], fleet_only['digest'])} (bf16); "
+        f"{run['tok_s']:.1f} tok/s against {control['tok_s']:.1f} "
+        f"unsharded")
+    log(f"[mesh] peak slab bytes a device (group max_batch: per row block, "
+        f"the model devices' bytes | the (fleet 2) run's row block): "
+        + "; ".join(f"{key}: " + ", ".join(f"{per} | {w}" for per, w in hs)
+                    for key, hs in sorted(halves.items())))
+    log(f"[mesh] decode steps ran as "
+        f"{'eager steps' if run['eager'] else 'CUDA graphs'}: "
+        f"{run['graphs']}")
+    if diff:
+        raise AssertionError(f"(fleet 2, model 2) counts differ: {diff}")
+    if run["eager"] or not run["graphs"].get("replays"):
+        raise AssertionError("the split decode steps were not captured")
+    if any(2 * b != w for hs in halves.values() for per, w in hs
+           for b in per):
+        raise AssertionError(f"the model axis does not halve the slab: "
+                             f"{halves}")
+    rows = max(run["rows"] // 2, 1)
+    layout = HeadLayout(mesh, ["cuda:0"] * 2)
+    host, dev = _fleet_step_times(torch, model, params, rows,
+                                  CONTROL_MAX_SEQ, layout=layout)
+    host1, dev1 = _fleet_step_times(torch, model, params, rows,
+                                    CONTROL_MAX_SEQ)
+    log(f"[mesh] a row block's decode dispatch, {rows} rows ({CARD}): "
+        f"split over 2 model devices {host:.2f} ms host / {dev:.2f} ms "
+        f"device; whole {host1:.2f} / {dev1:.2f}")
+
+    cfg2, model2, params2 = small
+    for label, spec in (("fleet 2, model 2", MODEL_AXIS_MESH),
+                        ("fleet 2, data 2", DATA_AXIS_MESH)):
+        out = serve.run_control_loop(_control_args(serve), cfg2, model2,
+                                     params2, cache_dtype=torch.float32,
+                                     mesh=_card_mesh(*spec))
+        same = _digest(out["fe"]) == oracle
+        log(f"[mesh] f32 full width, 2 layers, ({label}): digest equal to "
+            f"the unsharded loop's: {same}")
+        if not same:
+            raise AssertionError(f"the ({label}) f32 control loop differs")
+        del out
+        _free(torch)
+    kernels = phase_split_kernels(torch, F, ops, ref, cfg, control)
+    log(f"[mesh] phase 14(d), granite-3-8b: "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {"launches": run["launches"], "shard_runs": runs,
+            "tok_s": run["tok_s"], "kernels": kernels,
+            "step_ms": (host, dev, host1, dev1)}
+
+
+def phase_model_axis_ssm(torch, ops, cfg, small, oracle) -> dict:
+    """Phase 14(d) for an ssm arch: the control loop at full width cut to
+    2 layers in f32 over (fleet 1, model 2) on cuda:0 -- each replica's
+    SSM heads and conv channels (the hybrid's shared block's kv heads
+    too) split over the model devices -- counted: its digest equals the
+    unsharded loop's (phase 8's), and every kernel of a dispatch ran once
+    a model device."""
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import HeadBlocks
+
+    t0 = time.perf_counter()
+    cfg2, model2, params2 = small
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    out = serve.run_control_loop(_control_args(serve), cfg2, model2,
+                                 params2, cache_dtype=torch.float32,
+                                 mesh=_card_mesh(*SSM_AXIS_MESH))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    fe = out["fe"]
+    same = _digest(fe) == oracle
+    runs = fe.shard_dispatches()
+    split = all(isinstance(leaf, HeadBlocks) and not leaf.whole
+                for g in fe._fleets.values() for p in g.parts
+                for leaf in p.slab.values())
+    log(f"[mesh] {cfg.name} f32 full width, 2 layers, (fleet 1, model 2) "
+        f"on cuda:0: digest equal to the unsharded loop's: {same}; every "
+        f"leaf split: {split}; launches {launches} over the shards' "
+        f"admissions {runs[0]} and decode steps {runs[1]}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    _check_launches(cfg2, launches, *runs, len(out["ticks"]), heads=2)
+    if not (same and split):
+        raise AssertionError(f"{cfg.name} over (fleet 1, model 2): digest "
+                             f"equal {same}, split {split}")
+    del out
+    _free(torch)
+    return {"launches": launches, "shard_runs": runs}
+
+
+def model_axis_rows(rows: dict, served: dict) -> None:
+    """Phase 14(d)'s entries in the kernels line: under each serving
+    kernel, ``model_axis`` -- its launches on the split path (granite's
+    control loop over (fleet 2, model 2) for the attention kernels,
+    mamba2-1.3b's f32 loop over (fleet 1, model 2) for ssd_scan), its
+    parity and times at the split shapes."""
+    g = served["granite-3-8b"]["mesh"]["model_axis"]
+    m = served[SSM_ARCHS[0]]["model_axis"]
+    for kernel in ("flash_decode", "flash_attention", "ssd_scan"):
+        counted, of = (m, f"{SSM_ARCHS[0]}'s f32 control loop at 2 layers "
+                          "over (fleet 1, model 2) on cuda:0") \
+            if kernel == "ssd_scan" else \
+            (g, "granite-3-8b's control loop over (fleet 2, model 2) on "
+                "cuda:0")
+        rows[kernel]["model_axis"] = dict(
+            launches=counted["launches"][kernel], launches_of=of,
+            **g["kernels"][kernel])
 
 
 # --------------------------------------------------------------- phase 13
@@ -4536,8 +4833,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
 
+    global CARD
     t_start = time.perf_counter()
-    smi = phase_card(torch)
+    smi = CARD = phase_card(torch)
     phase_build(build)
     errs = phase_parity(torch, ops, ref)
     variant_errs = phase_parity_variants(
@@ -4612,6 +4910,7 @@ def main() -> int:
     families = phase_families(torch, F, ops, ref, smi, errs)
     extras_rows(rows, families)
     fleet_rows(rows, families, served["granite-3-8b"]["mesh"])
+    model_axis_rows(rows, served)
     _free(torch)
     train = phase_train(torch, ops, smi)
     _free(torch)

@@ -37,8 +37,10 @@ kinds and ring factors, over the ``torch.ops._c10d_functional``
 collectives a block of DTensor code issues.
 
 The serving half: ``serve_state_shardings`` and ``fleet_slab_shardings``
-(``serving.engine.FleetGroup`` lays its slab out by the latter for a pure
-``('fleet',)`` mesh, its rows in one contiguous block a shard). The port's
+(``serving.engine.FleetGroup`` lays its slab out by the latter: its rows
+in contiguous blocks over ``fleet`` x the data-like axes, and over
+``model`` each leaf's heads by ``HeadLayout``, the reference's head
+ranges). The port's
 fleet slab is FLAT (``(L, cap * max_batch, ...)``: member f's slot s is
 row f * max_batch + s), so its rows dim carries the reference's leading
 fleet axis and the per-replica batch axis together: entry ``("fleet",) +
@@ -450,6 +452,70 @@ def fleet_slab_shardings(mesh, slab) -> dict:
         entries = (per[0], rows if len(rows) > 1 else "fleet") + per[2:]
         out[name] = _fitted(entries, shape, mesh)
     return out
+
+
+def _head_dim(name: str, ndim: int) -> int:
+    """The dim a ``model`` axis splits in leaf ``name`` by the rule; for
+    the int8 cache's leaves, which no rule names, their kv-head dim."""
+    per = _serve_state_entries(name, ndim, None, "model")
+    return next((i for i, e in enumerate(per) if e == "model"),
+                min(3, ndim - 1))
+
+
+class HeadLayout:
+    """The ``model`` half of a fleet slab's layout, for one row block of a
+    ``FleetGroup`` (one index of the ``fleet`` and data-like axes):
+    ``devices`` are that block's devices along ``model``, index 0 (the
+    lead, which runs the work the split leaves whole) first. A leaf whose
+    ``fleet_slab_shardings`` entry puts ``model`` on a dim -- the kv
+    heads of an attention cache, the heads of the SSM state, the conv
+    window's channels -- splits there, device m holding the block the
+    reference's ``devices_indices_map`` gives model index m
+    (``local_block``); a leaf that the axis does not divide, and the int8
+    cache's four leaves, which no rule names, are whole on every device,
+    as the reference replicates them. Leaves are ``layers.HeadBlocks``.
+
+    As a ``shard_fn`` it lays out a prefill's fresh state (the
+    "serve_state" tag) and leaves every other tag's value as it is."""
+
+    lays_out_blocks = True
+
+    def __init__(self, mesh, devices):
+        self.mesh = mesh
+        self.devices = [torch.device(d) for d in devices]
+
+    def split(self, name: str, shape) -> tuple:
+        """(dim, [(lo, hi)] a device along ``model``) of leaf ``name`` of
+        ``shape``."""
+        shape = tuple(shape)
+        dim = _head_dim(name, len(shape))
+        entries = fleet_slab_shardings(self.mesh, {name: shape})[name]
+        if "model" not in _axes(entries[dim]):
+            return dim, [(0, shape[dim])] * len(self.devices)
+        model_only = [e if d == dim else None for d, e in enumerate(entries)]
+        names = list(_mesh_shape(self.mesh))
+        bounds = []
+        for m in range(len(self.devices)):
+            coords = [m if a == "model" else 0 for a in names]
+            off, n = local_block(self.mesh, model_only, shape, coords)[dim]
+            bounds.append((off, off + n))
+        return dim, bounds
+
+    def zeros(self, name: str, shape, dtype):
+        """Zeros of leaf ``name`` of ``shape``, laid out."""
+        from repro_torch.models.layers import HeadBlocks
+
+        shape = tuple(shape)
+        dim, bounds = self.split(name, shape)
+        parts = [torch.zeros(shape[:dim] + (hi - lo,) + shape[dim + 1:],
+                             dtype=dtype, device=d)
+                 for d, (lo, hi) in zip(self.devices, bounds)]
+        return HeadBlocks(parts, dim, bounds)
+
+    def __call__(self, x, tag: str):
+        if tag != "serve_state":
+            return x
+        return {n: self.zeros(n, t.shape, t.dtype) for n, t in x.items()}
 
 
 # -------------------------------------------------- collective accounting

@@ -12,7 +12,9 @@ silently. On the CPU, ``set_host_device_count(n)`` is the counterpart of
 the reference's virtual host devices (``--xla_force_host_platform_
 device_count``): it exposes n shards that all live on ``cpu``. A mesh
 over a repeated device (two shards on one card) is built only from an
-explicit device list passed to ``make_mesh``.
+explicit device list passed to ``make_mesh``. ``Mesh.row_blocks`` gives a
+fleet group its row blocks (``fleet`` x the data-like axes), each with
+its devices along ``model``.
 
 The parameter half runs SPMD instead: one process a device under a
 ``torch.distributed`` process group, the parameters ``DTensor``s over a
@@ -55,6 +57,24 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def row_blocks(self, rows, along: str) -> list:
+        """For each index over the axes ``rows`` that the mesh has
+        (row-major, in the order given), the devices along ``along`` (one
+        device when the mesh has no such axis); every other axis at index
+        0. A fleet group's row blocks over ``("fleet", "pod", "data",
+        "expert")``, each with its ``model`` devices."""
+        names = self.axis_names
+        order = [a for a in rows if a in names]
+        n = int(np.prod([self.shape[a] for a in order]))
+        if along in names:
+            order.append(along)
+        rest = [a for a in names if a not in order]
+        arr = np.transpose(self.devices,
+                           [names.index(a) for a in order + rest])
+        arr = arr[(Ellipsis,) + (0,) * len(rest)]
+        return [list(r) for r in np.asarray(arr, dtype=object).reshape(
+            n, -1)]
 
     def axis_devices(self, axis: str) -> list:
         """The devices along ``axis``, at index 0 of every other axis."""

@@ -57,9 +57,13 @@ an N-way ``('fleet',)`` mesh (``launch.mesh``): shard d on ``cuda:d``, and
 fewer than N cards is an error (never N shards on fewer cards). With
 ``--device cpu`` the N shards are virtual, all on the CPU, as the
 reference's virtual host devices are; streams, clocks and dispatch/sync
-counts equal the unsharded run's. ``--mesh '4:fleet'`` passes an explicit
-mesh spec over the visible devices instead. Both apply to the control
-loop; drain mode notes that and runs its standalone replicas.
+counts equal the unsharded run's. ``--mesh SPEC`` passes an explicit
+mesh spec over the visible devices instead: ``'4:fleet'``, or with the
+data-like and ``model`` axes, ``'2x2:fleet,model'`` (each replica's
+heads over two devices), ``'2x2:fleet,data'``, ``'1x2x2:fleet,data,
+model'`` (``FleetGroup``'s shard contract); with ``--device cpu`` its
+devices are virtual, as many as the spec names. Both apply to the
+control loop; drain mode notes that and runs its standalone replicas.
 
 The CLI refuses the vlm and audio families, as the reference's CLI fails
 on them (their requests carry extras its workload does not make); both
@@ -602,15 +606,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 def serve_mesh(args):
     """The serving mesh that ``--devices`` / ``--mesh`` ask for, or None.
-    With ``--device cpu`` the ``--devices`` shards are virtual: the host
-    device count is set while the mesh is built and restored after."""
+    With ``--device cpu`` the devices are virtual: the host device count
+    (``--devices``, else the size of ``--mesh``'s spec) is set while the
+    mesh is built and restored after."""
     if not (args.devices > 0 or args.mesh):
         return None
     from repro_torch.launch.mesh import (host_device_count, make_fleet_mesh,
                                          parse_mesh_spec)
 
-    virtual = args.devices > 0 and torch.device(args.device).type == "cpu"
-    with host_device_count(args.devices if virtual else None):
+    count = None
+    if torch.device(args.device).type == "cpu":   # virtual host devices
+        count = args.devices or (int(np.prod([int(n) for n in args.mesh.split(
+            ":")[0].split("x")])) if args.mesh else None)
+    with host_device_count(count):
         if args.mesh:
             return parse_mesh_spec(args.mesh, device=args.device)
         return make_fleet_mesh(args.devices, device=args.device)
@@ -632,7 +640,12 @@ def main(argv=None):
 
     mesh = serve_mesh(args)
     if mesh is not None:
-        print(f"[serve] mesh: {mesh.shape} over {mesh.size} device(s)")
+        blocks = mesh.row_blocks(("fleet", "pod", "data", "expert"),
+                                 "model")
+        graphs = torch.device(args.device).type == "cuda" \
+            and all(len(set(b)) == 1 for b in blocks)
+        print(f"[serve] mesh: {mesh.shape} over {mesh.size} device(s); "
+              f"decode steps {'as CUDA graphs' if graphs else 'eager'}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -34,7 +34,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models.dims import PaddedDims, q_head_mask
-from repro_torch.models.layers import apply_rope, he_init, per_shard
+from repro_torch.models.layers import (HeadBlocks, apply_rope, he_init,
+                                       per_shard)
 
 NEG_INF = -1e9
 
@@ -110,6 +111,17 @@ def _attend(q, k, v, q_pos, k_pos, causal: bool):
     return torch.einsum("bgqst,btgh->bsgqh", probs.to(v.dtype), v)
 
 
+def _attend_ctx(q, k, v, q_pos, k_pos, causal: bool, backend: str):
+    """The attention context of q over k, v on ``backend``: the kernel
+    (``ops.flash_attention``, whose causal call needs T == S) or the
+    reference's dense path."""
+    if backend == "pallas":
+        return ops.flash_attention(q, k, v, causal=causal)
+    if backend == "einsum":
+        return _attend(q, k, v, q_pos, k_pos, causal)
+    raise ValueError(f"unknown attention backend {backend!r}")
+
+
 def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
               causal=True, kv_x=None, backend: str = "pallas", kv_out=None,
               shard_fn=None):
@@ -123,7 +135,9 @@ def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
     (the decoder's cross cache), in place. ``"pallas"`` attends through
     ``ops.flash_attention`` (a causal call needs T == S), ``"einsum"``
     through the reference's dense path. ``shard_fn`` places q ("qkv")
-    and k, v ("kv") after RoPE. Returns (B, S, d_model)."""
+    and k, v ("kv") after RoPE. With a head-split ``kv_out`` (a fleet
+    group's cross cache, ``layers.HeadBlocks``) the attention runs on its
+    head blocks, each on its device. Returns (B, S, d_model)."""
     S = x.shape[1]
     q, k, v = _project_qkv(params, x, dims, kv_x)
     T = k.shape[1]
@@ -138,13 +152,10 @@ def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
     if kv_out is not None:
         kv_out[0].copy_(k)
         kv_out[1].copy_(v)
-    if backend == "pallas":
-        ctx = ops.flash_attention(q, k, v, causal=causal)
-    elif backend == "einsum":
-        # batch rows (dim 0) and kv-head groups (dim 2) are independent
-        ctx = per_shard(_attend, (q, k, v), (0, 2), positions, k_pos, causal)
-    else:
-        raise ValueError(f"unknown attention backend {backend!r}")
+    # batch rows (dim 0) and kv-head groups (dim 2) are independent
+    ctx = per_shard(_attend_ctx, (q, k, v), (0, 2), positions, k_pos, causal,
+                    backend, over=None if kv_out is None else kv_out[0],
+                    blocks_only=backend == "pallas")
     return _out_proj(params, ctx, dims)
 
 
@@ -152,6 +163,8 @@ def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
                       rope_theta=0.0, backend: str = "pallas"):
     """Causal attention over the prompt that also writes its K/V into
     positions [0, S) of the per-layer caches (B, S_cache, G, hd), in place.
+    Head-split caches (``layers.HeadBlocks``) take their blocks of K/V,
+    and the attention runs on each block at its device's kv heads.
     Returns (B, S, d_model)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, dims)
@@ -161,13 +174,9 @@ def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
         k = apply_rope(k, positions, rope_theta)
     k_cache[:, :S].copy_(k)
     v_cache[:, :S].copy_(v)
-    if backend == "pallas":
-        ctx = ops.flash_attention(q, k, v, causal=True)
-    elif backend == "einsum":
-        ctx = per_shard(_attend, (q, k, v), (0, 2), positions, positions,
-                        True)
-    else:
-        raise ValueError(f"unknown attention backend {backend!r}")
+    ctx = per_shard(_attend_ctx, (q, k, v), (0, 2), positions, positions,
+                    True, backend, over=k_cache,
+                    blocks_only=backend == "pallas")
     return _out_proj(params, ctx, dims)
 
 
@@ -192,7 +201,8 @@ def chunk_prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache,
     are computed and discarded, as in the reference. ``"pallas"`` attends
     through ``ops.flash_attention`` in the cache's dtype (q is cast to
     it); ``"einsum"`` is the reference's math, the cache cast to q's dtype.
-    Returns (B, C, d_model)."""
+    Head-split caches (``layers.HeadBlocks``): the write and the attention
+    run on each head block on its device. Returns (B, C, d_model)."""
     B, C, _ = x.shape
     q, k, v = _project_qkv(params, x, dims)
     if rope_theta:
@@ -203,6 +213,18 @@ def chunk_prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache,
     wpos = torch.where(j[None, :] < lengths[:, None], positions, S - 1)
     if rows is None:
         rows = torch.arange(B, dtype=torch.int32, device=x.device)
+    ctx = per_shard(_chunk_ctx, (q, k, v, k_cache, v_cache, positions, wpos,
+                                 rows), (0, 2), backend, blocks_only=True)
+    return _out_proj(params, ctx, dims)
+
+
+def _chunk_ctx(q, k, v, k_cache, v_cache, positions, wpos, rows,
+               backend: str):
+    """``chunk_prefill_attention``'s write of the chunk's K/V at ``wpos``
+    into cache rows ``rows`` and its attention over the cache: the
+    context (B, C, G, qpg, hd) in q's dtype."""
+    B, C = wpos.shape
+    S = k_cache.shape[1]
     r = rows.long()[:, None].expand(B, C)
     k_cache[r, wpos.long()] = k.to(k_cache.dtype)
     v_cache[r, wpos.long()] = v.to(v_cache.dtype)
@@ -213,7 +235,7 @@ def chunk_prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache,
                                   kv_rows=rows.contiguous()).to(q.dtype)
     elif backend == "einsum":
         kc, vc = k_cache[rows.long()], v_cache[rows.long()]
-        k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        k_pos = torch.arange(S, dtype=torch.int32, device=q.device)
         scale = 1.0 / math.sqrt(q.shape[-1])
         scores = torch.einsum("bsgqh,btgh->bgqst", q.float(),
                               kc.to(q.dtype).float()) * scale
@@ -224,7 +246,7 @@ def chunk_prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache,
                            vc).to(q.dtype)
     else:
         raise ValueError(f"unknown attention backend {backend!r}")
-    return _out_proj(params, ctx, dims)
+    return ctx
 
 
 def project_decode_qkv(params, x, dims: PaddedDims, pos, rope_theta):
@@ -245,12 +267,15 @@ def write_kv(k_cache, v_cache, k_new, v_new, pos, rows=None):
     request retired there); the reference's scatter drops that write, and
     here it lands on S - 1, which a slot's next request writes before it
     reads. DTensor caches (batch over data, kv groups over model) are
-    written block by block on each rank, every row (no ``rows``)."""
-    if isinstance(k_cache, DTensor):
-        if rows is not None:
+    written block by block on each rank, every row (no ``rows``);
+    head-split caches (``layers.HeadBlocks``) block by block on each
+    device, ``rows`` too."""
+    if isinstance(k_cache, (DTensor, HeadBlocks)):
+        if rows is not None and isinstance(k_cache, DTensor):
             raise ValueError("a sharded cache is written whole: rows=None")
-        per_shard(write_kv, (k_cache, v_cache, k_new, v_new, pos), (0, 2),
-                  mutates=(0, 1), out_axes=[])
+        xs = (k_cache, v_cache, k_new, v_new, pos)
+        per_shard(write_kv, xs + ((rows,) if rows is not None else ()),
+                  (0, 2), mutates=(0, 1), out_axes=[])
         return k_cache, v_cache
     if rows is None:
         rows = torch.arange(k_cache.shape[0], device=k_cache.device)
@@ -272,25 +297,32 @@ def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
     dequantizes an int8 one in its loads; a float cache in another dtype
     than q is read in its own, q cast to it); ``"einsum"`` is the reference's
     dense path over the whole cache with a mask (an int8 cache dequantized
-    whole to q's dtype first, as the reference does). Returns
+    whole to q's dtype first, as the reference does). Head-split caches
+    (``layers.HeadBlocks``) are read block by block, each on its device at
+    its kv heads, and the contexts joined on the lead device. Returns
     (B, 1, d_model)."""
-    if backend == "pallas":
-        # a float cache in another dtype than q (an f32 cache under bf16
-        # weights, as chunked prefill needs) is read in its own dtype, q
-        # cast to it: the kernel reads the pool as it lies
-        qk = q[:, 0] if k_scale is not None else q[:, 0].to(k_cache.dtype)
-        ctx = ops.flash_decode(qk, k_cache, v_cache, pos, k_scale,
-                               v_scale)[:, None].to(q.dtype)
-        return _out_proj(params, ctx, dims)
-    if backend != "einsum":
+    if backend not in ("pallas", "einsum"):
         raise ValueError(f"unknown attention backend {backend!r}")
+    scales = () if k_scale is None else (k_scale, v_scale)
     # batch rows (dim 0) and kv-head groups (dim 2) are independent
-    ctx = per_shard(_decode_ctx, (q, k_cache, v_cache, pos), (0, 2),
-                    k_scale, v_scale)
+    ctx = per_shard(_kernel_decode_ctx if backend == "pallas"
+                    else _decode_ctx, (q, k_cache, v_cache, pos) + scales,
+                    (0, 2), blocks_only=backend == "pallas")
     return _out_proj(params, ctx, dims)
 
 
-def _decode_ctx(q, k_cache, v_cache, pos, k_scale, v_scale):
+def _kernel_decode_ctx(q, k_cache, v_cache, pos, k_scale=None,
+                       v_scale=None):
+    """The kernel decode's context (B, 1, G, qpg, hd) in q's dtype. A
+    float cache in another dtype than q (an f32 cache under bf16 weights,
+    as chunked prefill needs) is read in its own dtype, q cast to it: the
+    kernel reads the pool as it lies."""
+    qk = q[:, 0] if k_scale is not None else q[:, 0].to(k_cache.dtype)
+    return ops.flash_decode(qk, k_cache, v_cache, pos, k_scale,
+                            v_scale)[:, None].to(q.dtype)
+
+
+def _decode_ctx(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
     """The einsum decode's context (B, 1, G, qpg, hd) in q's dtype."""
     if k_scale is not None:
         k_cache = ref.dequantize_kv(k_cache, k_scale, q.dtype)

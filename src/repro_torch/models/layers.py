@@ -2,6 +2,7 @@
 (the port of ``repro.models.layers``)."""
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -137,7 +138,197 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def per_shard(fn, xs, axes, *args, mutates=(), out_axes=None):
+class HeadBlocks:
+    """One serve-state leaf of a fleet group over a mesh whose ``model``
+    axis is larger than 1 (``sharding.HeadLayout``): ``parts[i]``, on its
+    own device (the ``model`` axis's i-th), holds the indices ``bounds[i]
+    = (lo, hi)`` of dim ``dim`` -- the kv heads of an attention cache, the
+    heads of an SSM state, the channels of a conv window. A leaf that the
+    axis does not divide is whole on every device (each bound the full
+    dim), as the reference replicates it. ``parts[0]``'s device is the
+    lead, where the work that is not split runs.
+
+    It is no tensor: indexing that leaves ``dim`` whole (a layer, rows,
+    positions) gives the blocks' views, ``copy_`` and item assignment
+    write each block its range of the value, and compute on it goes
+    through ``per_shard``, which runs a function on each block on the
+    block's device."""
+
+    def __init__(self, parts, dim: int, bounds):
+        self.parts = list(parts)
+        self.dim = int(dim)
+        self.bounds = [tuple(b) for b in bounds]
+
+    @property
+    def size(self) -> int:
+        """The full extent of ``dim``."""
+        return max(hi for _, hi in self.bounds)
+
+    @property
+    def whole(self) -> bool:
+        return all(b == (0, self.size) for b in self.bounds)
+
+    @property
+    def shape(self) -> tuple:
+        s = list(self.parts[0].shape)
+        s[self.dim] = self.size
+        return tuple(s)
+
+    @property
+    def ndim(self) -> int:
+        return self.parts[0].ndim
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        """The lead device."""
+        return self.parts[0].device
+
+    def _key(self, key, device) -> tuple:
+        """``key`` with its index tensors on ``device``, and where ``dim``
+        lands after it. An int, a slice or one 1-D index tensor a dim;
+        ``dim`` itself only as ``:``."""
+        key = key if isinstance(key, tuple) else (key,)
+        if sum(isinstance(k, torch.Tensor) for k in key) > 1:
+            raise IndexError("HeadBlocks takes one index tensor at most")
+        if len(key) > self.dim and not (isinstance(key[self.dim], slice)
+                                        and key[self.dim] == slice(None)):
+            raise IndexError(f"HeadBlocks: dim {self.dim} is split; index "
+                             f"it through per_shard")
+        moved = tuple(k.to(device) if isinstance(k, torch.Tensor) else k
+                      for k in key)
+        return moved, self.dim - sum(isinstance(k, int)
+                                     for k in key[:self.dim])
+
+    def __getitem__(self, key):
+        parts, dim = [], self.dim
+        for p in self.parts:
+            k, dim = self._key(key, p.device)
+            parts.append(p[k])
+        return HeadBlocks(parts, dim, self.bounds)
+
+    def piece(self, value, i: int, dim: int):
+        """Block ``i``'s range of ``value`` (a number, a tensor laid along
+        ``dim`` or a HeadBlocks) on block ``i``'s device."""
+        if not isinstance(value, (torch.Tensor, HeadBlocks)):
+            return value
+        lo, hi = self.bounds[i]
+        dev = self.parts[i].device
+        if isinstance(value, HeadBlocks):
+            return value.take(lo, hi, dev)
+        if hi - lo != value.shape[dim]:
+            value = value.narrow(dim, lo, hi - lo)
+        return value.to(dev)
+
+    def __setitem__(self, key, value):
+        for i, p in enumerate(self.parts):
+            k, dim = self._key(key, p.device)
+            p[k] = self.piece(value, i, dim)
+
+    def copy_(self, src):
+        for i, p in enumerate(self.parts):
+            p.copy_(self.piece(src, i, self.dim))
+        return self
+
+    def take(self, lo: int, hi: int, device) -> torch.Tensor:
+        """Indices [lo, hi) of ``dim`` on ``device``: from one block that
+        holds them (one on ``device`` first), else joined from the blocks
+        in order."""
+        device = torch.device(device)
+        holders = [(p, b) for p, b in zip(self.parts, self.bounds)
+                   if b[0] <= lo and hi <= b[1]]
+        if holders:
+            p, (plo, phi) = next(
+                (h for h in holders if h[0].device == device), holders[0])
+            if (plo, phi) != (lo, hi):
+                p = p.narrow(self.dim, lo - plo, hi - lo)
+            return p.to(device)
+        pieces, at = [], lo
+        for p, (plo, phi) in sorted(zip(self.parts, self.bounds),
+                                    key=lambda x: x[1]):
+            if plo <= at < phi:
+                end = min(phi, hi)
+                pieces.append(p.narrow(self.dim, at - plo, end - at)
+                              .to(device))
+                at = end
+        if at != hi:
+            raise ValueError(f"HeadBlocks {self.bounds} do not cover "
+                             f"[{lo}, {hi})")
+        return torch.cat(pieces, dim=self.dim)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole leaf on ``device`` (the lead's by default)."""
+        return self.take(0, self.size, device or self.device)
+
+    def map(self, fn):
+        """``fn`` on each block (an op that keeps ``dim``'s blocks
+        independent, such as a per-head quantizer): its results as
+        HeadBlocks, a tuple of them for a tuple result."""
+        outs = []
+        for p in self.parts:
+            with _on_device(p.device):
+                o = fn(p)
+            outs.append(o if isinstance(o, tuple) else (o,))
+        res = tuple(HeadBlocks(o, self.dim, self.bounds) for o in zip(*outs))
+        return res if len(res) > 1 else res[0]
+
+
+def _on_device(device: torch.device):
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _per_block(fn, xs, axes, args, over, out_axes):
+    """``per_shard`` over HeadBlocks: ``fn`` once a block of ``over`` (the
+    first HeadBlocks of ``xs`` when None), on the block's device. A
+    HeadBlocks splits the call's LAST logical axis: a plain tensor gives
+    each block its range of that axis's dim (the whole tensor where the
+    axis is not its, or the layout is whole), another HeadBlocks its
+    block. The results join on the lead device along their dims of that
+    axis (``out_axes`` as in ``per_shard``; None: one tensor laid out as
+    ``xs[0]``); a whole layout's results are its lead block's, every
+    block having computed them."""
+    lay = over if isinstance(over, HeadBlocks) else \
+        next(x for x in xs if isinstance(x, HeadBlocks))
+    outs = []
+    for i, part in enumerate(lay.parts):
+        local = []
+        for x, dims in zip(xs, axes):
+            d = dims[-1] if dims else None
+            if isinstance(x, HeadBlocks):
+                same = x.bounds == lay.bounds and \
+                    x.parts[i].device == part.device
+                local.append(x.parts[i] if same else lay.piece(x, i, x.dim))
+            elif isinstance(x, torch.Tensor) and d is not None:
+                t = lay.piece(x, i, d)
+                local.append(t if t.is_contiguous() else t.contiguous())
+            elif isinstance(x, torch.Tensor):
+                local.append(x.to(part.device))
+            else:
+                local.append(x)
+        with _on_device(part.device):
+            outs.append(fn(*local, *args))
+    if out_axes is not None and not out_axes:
+        return None
+    if lay.whole:
+        return outs[0]
+    lead = lay.device
+
+    def join(parts, dims):
+        if parts[0] is None:
+            return None
+        return torch.cat([p.to(lead) for p in parts], dim=dims[-1])
+    if out_axes is None:
+        return join(outs, axes[0])
+    return tuple(join(ps, dims) for ps, dims in zip(zip(*outs), out_axes))
+
+
+def per_shard(fn, xs, axes, *args, mutates=(), out_axes=None, over=None,
+              blocks_only=False):
     """``fn(*xs, *args)`` for an ``fn`` that is independent along some
     logical axes of its inputs (batch rows and kv-head groups for
     attention; batch rows and heads for an SSM step). ``axes`` names, for
@@ -155,11 +346,27 @@ def per_shard(fn, xs, axes, *args, mutates=(), out_axes=None):
     tuples, one a tensor of a tuple result (empty: ``fn`` returns nothing
     kept). ``fn`` may write into the blocks of the ``xs`` at the indices
     ``mutates``, which must already lie so (a redistributed copy would
-    take the write)."""
-    if not any(isinstance(x, DTensor) for x in xs):
+    take the write).
+
+    HeadBlocks (a fleet group's head-split state, ``over`` or the first
+    of ``xs``): ``fn`` runs once a block, on the block's device, over the
+    call's last logical axis (``_per_block``); ``xs`` may then hold None,
+    passed as it is. ``over`` names the state whose layout a call over
+    plain tensors follows (a prefill's attention, which reads the
+    projected K/V rather than the cache they are written to); a plain or
+    DTensor ``over`` changes nothing. ``blocks_only``: DTensors call
+    ``fn`` whole, under DTensor's own propagation, as plain tensors do
+    (a site that only a fleet group's head split runs block by block)."""
+    blocks = isinstance(over, HeadBlocks) or any(isinstance(x, HeadBlocks)
+                                                 for x in xs)
+    if not blocks and (blocks_only
+                       or not any(isinstance(x, DTensor) for x in xs)):
         return fn(*xs, *args)
     if not isinstance(axes[0], (tuple, list)):
-        axes = [tuple(d if d < x.ndim else None for d in axes) for x in xs]
+        axes = [tuple(d if x is not None and d < x.ndim else None
+                      for d in axes) for x in xs]
+    if blocks:
+        return _per_block(fn, xs, axes, args, over, out_axes)
     first = next(i for i, x in enumerate(xs) if isinstance(x, DTensor))
     mesh = xs[first].device_mesh
     # the logical axis each mesh dim splits, or None
@@ -202,8 +409,11 @@ def fresh_state(init, like, shard_fn, *args):
     device=like.device)``; for a DTensor ``like``, ``init`` gives the
     leaves' shapes on ``meta`` and ``shard_fn(state, "serve_state")``
     lays them out (``sharding.make_shard_fn``: zeros by the plan's
-    serve-state rule, each rank making only its blocks)."""
-    if not isinstance(like, DTensor):
+    serve-state rule, each rank making only its blocks); so does a fleet
+    group's head layout (``sharding.HeadLayout``, whose ``lays_out_blocks``
+    is set: HeadBlocks on its ``model`` devices) for a plain ``like``."""
+    if not isinstance(like, DTensor) \
+            and not getattr(shard_fn, "lays_out_blocks", False):
         return init(*args, device=like.device)
     if shard_fn is None:
         raise ValueError("a sharded prefill lays out its state by shard_fn")

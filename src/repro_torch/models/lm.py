@@ -44,7 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.dims import PaddedDims
 from repro_torch.models.layers import (fresh_state, gelu, he_init, lookup,
-                                       rms_norm, silu)
+                                       per_shard, rms_norm, silu)
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.serving import kv_quant
 
@@ -244,7 +244,10 @@ def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
     q, k_new, v_new = attn.project_decode_qkv(lp["attn"], x, dims, pos,
                                               cfg.rope_theta)
     if "k_q" in lc:
-        kv_quant.write_kv_quant(lc, k_new, v_new, pos, write_rows)
+        quant = tuple(lc[n] for n in ("k_q", "v_q", "k_s", "v_s"))
+        rows = () if write_rows is None else (write_rows,)
+        per_shard(_write_quant, quant + (k_new, v_new, pos) + rows, (0, 2),
+                  out_axes=[], blocks_only=True)
         y = attn.decode_attend(lp["attn"], q, lc["k_q"], lc["v_q"], pos,
                                dims, backend=attn_backend,
                                k_scale=lc["k_s"], v_scale=lc["v_s"])
@@ -254,6 +257,13 @@ def block_decode(lp, h, cfg, dims, lc: dict, pos, attn_backend,
         y = attn.decode_attend(lp["attn"], q, kc, vc, pos, dims,
                                backend=attn_backend)
     return _ffn_sublayer(lp, h + y, cfg, shard_fn)[0]
+
+
+def _write_quant(k_q, v_q, k_s, v_s, k_new, v_new, pos, rows=None):
+    """``kv_quant.write_kv_quant`` over the int8 leaves given one by one
+    (``per_shard`` passes tensors)."""
+    kv_quant.write_kv_quant({"k_q": k_q, "v_q": v_q, "k_s": k_s,
+                             "v_s": v_s}, k_new, v_new, pos, rows)
 
 
 def _logits(params, h):

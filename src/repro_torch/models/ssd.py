@@ -30,8 +30,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (he_init, per_shard, rms_norm, silu,
-                                       softplus)
+from repro_torch.models.layers import (HeadBlocks, he_init, per_shard,
+                                       rms_norm, silu, softplus)
 
 
 # --------------------------------------------------------------------- params
@@ -136,15 +136,17 @@ def ssd_decode_step(state, x, dt, A, Bm, Cm, rows=None):
     ``rows``, an int index tensor, when given: the others keep their state
     bit for bit); x: (B, H, P), dt: (B, H), Bm/Cm: (B, G, N). Returns
     (y (B, H, P) f32, state). A DTensor state (batch over data, heads over
-    model) is stepped block by block on each rank, every row."""
-    if isinstance(state, DTensor):
-        if rows is not None:
+    model) is stepped block by block on each rank, every row; a head-split
+    state (``layers.HeadBlocks``) block by block on each device, ``rows``
+    too."""
+    if isinstance(state, (DTensor, HeadBlocks)):
+        if rows is not None and isinstance(state, DTensor):
             raise ValueError("a sharded state is stepped whole: rows=None")
         # batch rows and heads are independent (B/C follow the batch)
-        y = per_shard(lambda *a: _decode_step(*a)[0],
-                      (state, x, dt, A, Bm, Cm),
+        xs = (state, x, dt, A, Bm, Cm) + (() if rows is None else (rows,))
+        y = per_shard(lambda *a: _decode_step(*a)[0], xs,
                       [(0, 1), (0, 1), (0, 1), (None, 0), (0, None),
-                       (0, None)], mutates=(0,))
+                       (0, None), (None, None)][:len(xs)], mutates=(0,))
         return y, state
     return _decode_step(state, x, dt, A, Bm, Cm, rows)
 
@@ -216,9 +218,50 @@ def _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk: int, init_state=None):
     return y[:, :T], state
 
 
+def _conv_and_tail(x, w, b, left, lengths, W: int, tail: bool):
+    """``causal_conv`` of the raw ``x`` (B, T, C) from the carried window
+    ``left``, and with ``tail`` the next decode window (B, W - 1, C): the
+    last W - 1 real raw rows of [left | x] (``lengths`` (B,) real rows of
+    a right-padded x), zeros before a fresh prompt's start. Both are per
+    channel. Returns (conv output, window or None)."""
+    out = causal_conv(x, w, b, left=left)
+    if not tail:
+        return out, None
+    if left is not None:
+        # the cumulative raw sequence is [carry | chunk], so the next window
+        # is its last W - 1 real rows, always in bounds (the carry supplies
+        # the left context even for a chunk shorter than the window)
+        window = torch.cat([left.to(x.dtype), x], dim=1)
+        if lengths is None:
+            return out, window[:, -(W - 1):]
+        idx = lengths[:, None].long() + torch.arange(
+            W - 1, device=x.device)[None, :]                     # (B, W-1)
+        return out, torch.gather(
+            window, 1, idx[:, :, None].expand(-1, -1, window.shape[-1]))
+    if lengths is None:
+        conv_tail = x[:, -(W - 1):]             # raw window for decode conv
+        if conv_tail.shape[1] < W - 1:          # prompt shorter than window
+            conv_tail = F.pad(conv_tail, (0, 0, W - 1 - conv_tail.shape[1], 0))
+        return out, conv_tail
+    offs = torch.arange(-(W - 1), 0, dtype=torch.int32, device=x.device)
+    idx = lengths[:, None].to(torch.int32) + offs[None, :]       # (B, W-1)
+    gathered = torch.gather(
+        x, 1, idx.clamp(min=0).long()[:, :, None].expand(-1, -1, x.shape[-1]))
+    return out, torch.where((idx >= 0)[:, :, None], gathered, 0.0)
+
+
+def _scan(xh, dt, A, Bm, Cm, init_state, backend: str, chunk: int):
+    """The prefill scan on ``backend``: (y, final state)."""
+    if backend == "pallas":
+        return _ssd_kernel_path(xh, dt, A, Bm, Cm, chunk, init_state)
+    if backend == "einsum":
+        return ssd_chunked(xh, dt, A, Bm, Cm, chunk, init_state)
+    raise ValueError(f"unknown attention backend {backend!r}")
+
+
 def mamba2_forward(params, x, cfg, *, init_state=None, conv_state=None,
                    return_state=False, lengths=None,
-                   attn_backend: str = "pallas"):
+                   attn_backend: str = "pallas", over=None):
     """Full-sequence Mamba-2 block. x: (B, T, d_model).
 
     ``lengths`` (B,) marks the true length of each right-padded row:
@@ -231,13 +274,26 @@ def mamba2_forward(params, x, cfg, *, init_state=None, conv_state=None,
     chunk (chunked prefill): ``init_state`` (B, H, P, N) seeds the scan and
     ``conv_state`` (B, W - 1, C) is the carried raw conv window (the layout
     the decode path keeps), so a prompt run chunk by chunk reproduces the
-    single-shot forward. None is a fresh sequence."""
+    single-shot forward. None is a fresh sequence.
+
+    ``over``: the layer's serve state ({"ssm", "conv"}) the final state
+    is written to, when a fleet group splits it over a ``model`` axis
+    (``layers.HeadBlocks``): the conv then runs on each of the conv
+    state's channel blocks and the scan on each of the SSM state's head
+    blocks, each on its device, their outputs joined on the lead device
+    (each head block needs x-channels and all of B and C, which do not
+    line up with the conv's channel blocks)."""
     N, G = cfg.ssm_state, cfg.ssm_groups
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     Bsz, T = x.shape[:2]
+    over = over or {}
     z, xBC_raw, dt_raw = _split_proj(x @ params["in_proj"], cfg)
-    xBC = silu(causal_conv(xBC_raw, params["conv_w"], params["conv_b"],
-                           left=conv_state))
+    conv_out, conv_tail = per_shard(
+        _conv_and_tail, (xBC_raw, params["conv_w"], params["conv_b"],
+                         conv_state, lengths),
+        [(2,), (1,), (0,), (2,), ()], cfg.ssm_conv_width, return_state,
+        out_axes=[(2,), (2,)], over=over.get("conv"), blocks_only=True)
+    xBC = silu(conv_out)
     d_inner = cfg.d_inner
     xs = xBC[..., :d_inner]
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(Bsz, T, G, N)
@@ -249,42 +305,15 @@ def mamba2_forward(params, x, cfg, *, init_state=None, conv_state=None,
                          0.0)
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(Bsz, T, H, P)
-    if attn_backend == "pallas":
-        y, state = _ssd_kernel_path(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
-                                    init_state)
-    elif attn_backend == "einsum":
-        y, state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk,
-                               init_state)
-    else:
-        raise ValueError(f"unknown attention backend {attn_backend!r}")
+    # batch rows and heads are independent (B/C follow the batch)
+    y, state = per_shard(
+        _scan, (xh, dt, A, Bm, Cm, init_state),
+        [(0, 2), (0, 2), (None, 0), (0, None), (0, None), (0, 1)],
+        attn_backend, cfg.ssm_chunk, out_axes=[(0, 2), (0, 1)],
+        over=over.get("ssm"), blocks_only=True)
     out = _gate_out(params, y, xh, z, cfg, x.dtype)
     if not return_state:
         return out
-    W = cfg.ssm_conv_width
-    if conv_state is not None:
-        # the cumulative raw sequence is [carry | chunk], so the next window
-        # is its last W - 1 real rows, always in bounds (the carry supplies
-        # the left context even for a chunk shorter than the window)
-        window = torch.cat([conv_state.to(xBC_raw.dtype), xBC_raw], dim=1)
-        if lengths is None:
-            conv_tail = window[:, -(W - 1):]
-        else:
-            idx = lengths[:, None].long() + torch.arange(
-                W - 1, device=x.device)[None, :]                 # (B, W-1)
-            conv_tail = torch.gather(
-                window, 1, idx[:, :, None].expand(-1, -1, window.shape[-1]))
-    elif lengths is None:
-        conv_tail = xBC_raw[:, -(W - 1):]       # raw window for decode conv
-        if conv_tail.shape[1] < W - 1:          # prompt shorter than window
-            conv_tail = F.pad(conv_tail,
-                              (0, 0, W - 1 - conv_tail.shape[1], 0))
-    else:
-        offs = torch.arange(-(W - 1), 0, dtype=torch.int32, device=x.device)
-        idx = lengths[:, None].to(torch.int32) + offs[None, :]   # (B, W-1)
-        gathered = torch.gather(
-            xBC_raw, 1, idx.clamp(min=0).long()[:, :, None].expand(
-                -1, -1, xBC_raw.shape[-1]))
-        conv_tail = torch.where((idx >= 0)[:, :, None], gathered, 0.0)
     return out, {"ssm": state, "conv": conv_tail}
 
 
@@ -300,6 +329,19 @@ def mamba2_init_state(batch: int, cfg, dtype=torch.float32,
     }
 
 
+def _conv_step(x_new, conv, w, b, rows=None):
+    """One decode step of the depthwise conv over the carried raw window
+    ``conv`` (B, W - 1, C), which shifts in ``x_new`` (B, C) in place
+    (rows ``rows`` only, when given): the conv's output (B, C)."""
+    window = torch.cat([conv, x_new[:, None].to(conv.dtype)], dim=1)
+    out = (window * w).sum(dim=1) + b
+    if rows is None:
+        conv.copy_(window[:, 1:])
+    else:
+        conv[rows] = window[rows, 1:]
+    return out
+
+
 def mamba2_decode(params, x, cfg, state, rows=None):
     """One-token decode. x: (B, 1, d_model); state: {"ssm", "conv"}, both
     updated in place (only rows ``rows``, an int index tensor, when given:
@@ -308,14 +350,11 @@ def mamba2_decode(params, x, cfg, state, rows=None):
     N, G = cfg.ssm_state, cfg.ssm_groups
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC_new, dt_raw = _split_proj(x[:, 0] @ params["in_proj"], cfg)
-    conv = state["conv"]
-    window = torch.cat([conv, xBC_new[:, None].to(conv.dtype)], dim=1)
-    conv_out = (window * params["conv_w"]).sum(dim=1) + params["conv_b"]
-    xBC = silu(conv_out)
-    if rows is None:
-        conv.copy_(window[:, 1:])
-    else:
-        conv[rows] = window[rows, 1:]
+    # per channel: a head-split conv state steps on its channel blocks
+    xBC = silu(per_shard(
+        _conv_step, (xBC_new, state["conv"], params["conv_w"],
+                     params["conv_b"]) + (() if rows is None else (rows,)),
+        [(1,), (2,), (1,), (0,), ()], blocks_only=True))
     d_inner = cfg.d_inner
     xs = xBC[..., :d_inner]
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(-1, G, N)

@@ -153,7 +153,9 @@ def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
     ``lengths - 1``. ``attn_backend="pallas"`` runs every layer's scan
     through ``ops.ssd_scan`` and the shared block through
     ``ops.flash_attention``; ``"einsum"`` runs the reference's dense
-    paths."""
+    paths. A fleet group's head layout as ``shard_fn``
+    (``sharding.HeadLayout``) lays the state out in head blocks: the
+    scans, convs and the shared block's attention run on them."""
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     h = lookup(params["embed"], tokens)
@@ -165,13 +167,14 @@ def ssm_prefill(params, batch, cfg: ArchConfig, dims: PaddedDims, *,
             h = block_prefill(params["shared_attn"], h, cfg, dims,
                               state["attn_k"][inv], state["attn_v"][inv],
                               attn_backend)
+        layer = {n: state[n][li] for n in ("ssm", "conv")}
         y, st = mamba2_forward(lp["mamba"],
                                rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
                                return_state=True, lengths=lengths,
-                               attn_backend=attn_backend)
+                               attn_backend=attn_backend, over=layer)
         h = h + y
-        state["ssm"][li].copy_(st["ssm"])
-        state["conv"][li].copy_(st["conv"])
+        layer["ssm"].copy_(st["ssm"])
+        layer["conv"].copy_(st["conv"])
     logits, pos = last_logits(params, h, cfg, lengths)
     return logits, state, pos
 
@@ -236,7 +239,8 @@ def ssm_prefill_chunk(params, state, tokens, offsets, lengths,
                                rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
                                init_state=ssm[r], conv_state=conv[r],
                                return_state=True, lengths=lengths,
-                               attn_backend=attn_backend)
+                               attn_backend=attn_backend,
+                               over={"ssm": ssm, "conv": conv})
         h = h + y
         ssm[r] = st["ssm"]
         conv[r] = st["conv"].to(conv.dtype)

@@ -51,10 +51,11 @@ reference's keys, plus the async tick's sync accounting (``reconciles``,
 
 **Fleet-mesh sharding.** Pass ``mesh=`` (a ``launch.mesh.Mesh`` with a
 ``fleet`` axis, e.g. ``launch.mesh.make_fleet_mesh``) and every fleet group
-splits its slab rows over the mesh's shards: one logical dispatch and one
-sync a tick as before, each run once a shard on its device, with the same
-streams, clocks and counts as unsharded (``FleetGroup``'s shard
-contract). On the CPU the shards are virtual
+splits its slab rows over the mesh's ``fleet`` x data-like row blocks,
+and over a ``model`` axis each replica's heads: one logical dispatch and
+one sync a tick as before, each run once a block on its devices, with the
+same streams, clocks and counts as unsharded (``FleetGroup``'s shard
+contract). On the CPU the devices are virtual
 (``launch.mesh.set_host_device_count``).
 """
 from __future__ import annotations

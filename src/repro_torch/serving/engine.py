@@ -147,18 +147,25 @@ its (K, cap, B) results reconcile at the block's end with finish clocks
 decoding at its end (a lag of at most K - 1 ticks).
 
 **Fleet-mesh sharding.** A ``FleetGroup`` built with ``mesh=`` (a
-``launch.mesh.Mesh`` with a ``fleet`` axis of N shards) splits its slab
-rows, its async operands and masks over the shards: shard d owns a
-contiguous block of ``cap / N`` fleet rows on its device, with the
-weights copied there once, and capacity grows as ``N * pow2_bucket(ceil(F
-/ N))`` so the rows always divide; pad rows stay inactive. One host loop
-drives every shard (the reference's single controller): a logical decode
-dispatch runs the same decode, or its captured graph, once a shard on
-that shard's device, the fleet prefill and chunk dispatches run on the
-shards that own their rows, and a logical sync gathers the shards'
-results into one host buffer behind one wait. The counters count logical
-dispatches and syncs, so streams, finish clocks and counts equal the
-unsharded group's (``FleetGroup``'s shard contract).
+``launch.mesh.Mesh`` with a ``fleet`` axis, and any of the data-like axes
+``pod``, ``data``, ``expert`` and ``model``) splits its slab rows, its
+async operands and masks over N row blocks, one per index of ``fleet`` x
+the data-like axes: block d owns a contiguous run of ``cap / N`` fleet
+rows, with the weights copied once to its lead device, and capacity
+grows as ``N * pow2_bucket(ceil(F / N))`` so the rows always divide; pad
+rows stay inactive. Over a ``model`` axis each block's state leaves are
+split by heads over the block's ``model`` devices (``sharding.
+HeadLayout``: kv heads, SSM heads and conv channels, as the reference's
+``fleet_slab_shardings`` lays them out); the model runs each
+head-independent site on each device's block and the rest on the lead
+(``layers.per_shard``). One host loop drives every block (the
+reference's single controller): a logical decode dispatch runs the same
+decode, or its captured graph, once a block, the fleet prefill and chunk
+dispatches run on the blocks that own their rows, and a logical sync
+gathers the blocks' results into one host buffer behind one wait. The
+counters count logical dispatches and syncs, so streams, finish clocks
+and counts equal the unsharded group's (``FleetGroup``'s shard
+contract).
 """
 from __future__ import annotations
 
@@ -175,9 +182,17 @@ import torch
 
 from repro_torch.core.tree import tree_map
 from repro_torch.device import host_to_device, resolve_device
+from repro_torch.distributed.sharding import HeadLayout
+from repro_torch.models.layers import HeadBlocks
 from repro_torch.models.model import SEQ_LEAVES, Model
 from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
+
+# the mesh axes a fleet group's slab rows split over (fleet major, then
+# the reference's data-like axes) and the one that splits each replica's
+# heads
+_ROW_AXES = ("fleet", "pod", "data", "expert")
+_HEAD_AXIS = "model"
 
 # families whose prefill accepts per-row ``lengths`` (bucketed prompts are
 # exact). moe is absent: expert capacity scales with the padded bucket
@@ -261,6 +276,12 @@ def _chunk_dispatch(model, params, state: dict, device, attn_backend: str,
     logits, _, pos = model.prefill_chunk(params, state, toks, offs, lens,
                                          rows=rows, attn_backend=attn_backend)
     return torch.argmax(logits, dim=-1).to(torch.int32), pos
+
+
+def _whole(leaf) -> torch.Tensor:
+    """A slab leaf's view as one tensor: a HeadBlocks view gathered on its
+    lead device, a tensor as it is."""
+    return leaf.gather() if isinstance(leaf, HeadBlocks) else leaf
 
 
 def _timed_get(owner, tensors) -> list:
@@ -712,14 +733,17 @@ class ReplicaEngine:
     def _admit_batch(self, slots: list, reqs: list, finished: list,
                      bucketed: bool):
         # a fleet member's prefill runs where its rows live (the shard
-        # that owns them, under a mesh)
-        device, params = (self.device, self.params) if self._fleet is None \
+        # that owns them, under a mesh; its state in that shard's head
+        # blocks over a model axis)
+        device, params, layout = (self.device, self.params, None) \
+            if self._fleet is None \
             else self._fleet.placement(self._fleet_row)
         with _on(device):
-            self._admit_on(device, params, slots, reqs, finished, bucketed)
+            self._admit_on(device, params, slots, reqs, finished, bucketed,
+                           layout)
 
     def _admit_on(self, device, params, slots: list, reqs: list,
-                  finished: list, bucketed: bool):
+                  finished: list, bucketed: bool, layout=None):
         if bucketed:
             # a prompt longer than the KV pool keeps only its last
             # max_seq - 1 tokens (one slot must remain for generation)
@@ -752,7 +776,7 @@ class ReplicaEngine:
         sb = batch["tokens"].shape[1]
         logits, small, plen = self.model.prefill(
             params, batch, cache_len=sb, cache_dtype=self.cache_dtype,
-            attn_backend=self.attn_backend)
+            attn_backend=self.attn_backend, shard_fn=layout)
         self.prefill_dispatches += 1
         first, plen = _timed_get(self, (torch.argmax(logits, dim=-1), plen))
         for i, (slot, req) in enumerate(zip(slots, reqs)):
@@ -1053,21 +1077,46 @@ class ReplicaEngine:
 
 
 class _Shard:
-    """One shard of a fleet group's slab: fleet rows [lo, lo + rows) on
-    ``device`` (fleet row lo + i is its local row i; member f's slot s is
-    local slab row (f - lo) * max_batch + s), with the weights there, its
-    part of the slab, of the async decode operands and of the masked
-    dispatch's masks, and its own decode graphs."""
+    """One row block of a fleet group's slab: fleet rows [lo, lo + rows)
+    (fleet row lo + i is its local row i; member f's slot s is local slab
+    row (f - lo) * max_batch + s) on ``devices``, the block's devices
+    along the mesh's ``model`` axis (one without one). The lead,
+    ``device`` (model index 0), holds the weights, the async decode
+    operands, the masked dispatch's masks and the decode graphs, and runs
+    the work that is not split by heads. The slab's leaves are plain
+    tensors on the lead with one device, else ``layers.HeadBlocks`` laid
+    out by ``layout`` (``sharding.HeadLayout``), which the prefills also
+    take as their ``shard_fn``. The decode graphs capture a step only
+    when every device of the block is one device (a step over several
+    cards crosses devices inside each layer, and runs eagerly)."""
 
-    def __init__(self, device: torch.device, params):
-        self.device = device
+    def __init__(self, devices: list, params, layout=None):
+        self.devices = devices
+        self.device = devices[0]
         self.params = params
+        self.layout = layout
         self.lo = 0                 # first fleet row owned
         self.rows = 0               # fleet rows owned
         self.slab = None            # {leaf: (L, rows * max_batch, ...)}
         self.ops = None             # async operands, (rows, max_batch) each
         self.masks = None           # the masked dispatch's rows / write
-        self.graphs = DecodeGraphs(device)
+        self.graphs = DecodeGraphs(self.device,
+                                   eager=len(set(devices)) > 1)
+
+    def zeros(self, name: str, shape, dtype):
+        """A zero slab leaf of ``shape``, laid out."""
+        if self.layout is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        return self.layout.zeros(name, shape, dtype)
+
+    def slab_bytes(self) -> list:
+        """The slab's bytes on each of ``devices``, in order."""
+        out = [0] * len(self.devices)
+        for leaf in (self.slab or {}).values():
+            parts = leaf.parts if isinstance(leaf, HeadBlocks) else [leaf]
+            for m, t in enumerate(parts):
+                out[m] += t.numel() * t.element_size()
+        return out
 
 
 class FleetGroup:
@@ -1096,24 +1145,38 @@ class FleetGroup:
     the reference's rules allow (module docstring). ``decode_steps``
     counts the micro-steps run (K a block).
 
-    **Shard contract** (``mesh`` with a ``fleet`` axis of N shards; the
-    reference's, ``src/repro/serving/engine.py`` ``FleetGroup``). The slab
-    rows split over the fleet axis: shard d (``parts[d]``) owns the
-    contiguous fleet rows [d * cap / N, (d + 1) * cap / N) on the d-th
-    device of the fleet axis, with its part of the async operands and
-    masks and its own graphs; the weights are copied
-    once to each distinct device. ``cap = N * pow2_bucket(ceil(F / N))``
-    (``_cap_for``), so the rows always divide; pad rows are inactive and
-    never in ``movers``. A logical dispatch (decode, prefill, chunk) runs
-    once on each shard that holds its rows (a full decode round on every
-    shard), under that shard's device, and counts once in ``dispatches``
-    / ``prefill_dispatches``; its small results gather into one host
-    buffer behind one wait (one ``syncs``). A growth re-partitions the
-    rows (a row may move to another shard) and drops every graph; a
-    backfill on remove may copy a row across devices. Streams and finish
-    clocks equal the unsharded group's. Other mesh axes must have size 1:
-    the port splits no replica's cache. Unsharded, ``parts`` is one shard
-    on ``device``, and ``slab``, ``ops``, ``graphs`` are its."""
+    **Shard contract** (``mesh`` with a ``fleet`` axis; the reference's,
+    ``src/repro/serving/engine.py`` ``FleetGroup``). The slab rows split
+    over N row blocks, one per index of ``fleet`` x the data-like axes
+    (``pod``, ``data``, ``expert``; ``launch.mesh.Mesh.row_blocks``, fleet
+    major): block d (``parts[d]``) owns the contiguous fleet rows
+    [d * cap / N, (d + 1) * cap / N), whole members, with its part of the
+    async operands and masks and its own graphs on its lead device; the
+    weights are copied once to each distinct lead device. ``cap = N *
+    pow2_bucket(ceil(F / N))`` (``_cap_for``), so the rows, and ``cap *
+    max_batch``, always divide; pad rows are inactive and never in
+    ``movers``. The reference splits the fleet axis over ``fleet`` and
+    each replica's slots over the data-like axes; the port's flat slab
+    keeps a member's slots together and splits members over both, so a
+    device may hold other rows than the reference's device of the same
+    coordinates (the values and every count are the same). Over a
+    ``model`` axis of M devices (``heads``) each block's leaves are
+    ``layers.HeadBlocks`` over its M devices, split where the reference
+    splits them (the kv heads of every attention cache, the SSM heads,
+    the conv channels; the same head ranges) and whole on each device
+    where M does not divide the dim, as the reference replicates them.
+    A logical dispatch (decode, prefill, chunk) runs once on each block
+    that holds its rows (a full decode round on every block), under the
+    block's lead device, its head-independent work once a ``model``
+    device, and counts once in ``dispatches`` / ``prefill_dispatches``;
+    its small results gather into one host buffer behind one wait (one
+    ``syncs``). A growth re-partitions the rows (a row may move to
+    another block) and drops every graph; a backfill on remove may copy a
+    row across devices. A block captures its decode steps as graphs only
+    when its devices are one device (``_Shard``). Streams and finish
+    clocks equal the unsharded group's. Axes other than these must have
+    size 1. Unsharded, ``parts`` is one block on ``device``, and
+    ``slab``, ``ops``, ``graphs`` are its."""
 
     def __init__(self, model: Model, params, *, max_batch: int, max_seq: int,
                  cache_dtype=torch.float32, async_mode: bool = False,
@@ -1122,26 +1185,31 @@ class FleetGroup:
         self.device = resolve_device(device)
         self.mesh = mesh
         if mesh is None:
-            devices = [self.device]
+            blocks = [[self.device]]
         else:
             if "fleet" not in mesh.axis_names:
                 raise ValueError(f"FleetGroup mesh needs a 'fleet' axis, "
                                  f"got {mesh.axis_names}")
-            wide = {a: n for a, n in mesh.shape.items()
-                    if a != "fleet" and n > 1}
-            if wide:
+            other = {a: n for a, n in mesh.shape.items()
+                     if a not in _ROW_AXES + (_HEAD_AXIS,) and n > 1}
+            if other:
                 raise ValueError(
-                    f"the fleet slab splits over the 'fleet' axis only; "
-                    f"mesh axes {wide} would split each replica's cache")
-            devices = [resolve_device(d) for d in mesh.axis_devices("fleet")]
+                    f"a fleet slab splits over {_ROW_AXES + (_HEAD_AXIS,)}"
+                    f"; mesh axes {other} name no part of it")
+            blocks = [[resolve_device(d) for d in b]
+                      for b in mesh.row_blocks(_ROW_AXES, _HEAD_AXIS)]
         self.model = model
         self.params = params
         copies = {params["embed"].device: params}
-        for d in devices:
-            if d not in copies:        # the weights, once a device
-                copies[d] = tree_map(lambda t, d=d: t.to(d), params)
-        self.shards = len(devices)
-        self.parts = [_Shard(d, copies[d]) for d in devices]
+        for b in blocks:
+            if b[0] not in copies:     # the weights, once a lead device
+                copies[b[0]] = tree_map(lambda t, d=b[0]: t.to(d), params)
+        self.shards = len(blocks)
+        self.heads = len(blocks[0])     # devices a replica's heads span
+        self.parts = [_Shard(b, copies[b[0]], HeadLayout(mesh, b)
+                             if len(b) > 1 else None) for b in blocks]
+        # most slab bytes each device of each row block ever held
+        self.peak_bytes = [[0] * self.heads for _ in blocks]
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.cache_dtype = cache_dtype
@@ -1222,10 +1290,11 @@ class FleetGroup:
         return p, f - p.lo
 
     def placement(self, f: int) -> tuple:
-        """(device, weights) of the shard owning fleet row ``f``: where a
-        member's own prefill runs (its rows' state is written there)."""
+        """(device, weights, head layout or None) of the shard owning
+        fleet row ``f``: where a member's own prefill runs (its rows' state
+        is written there)."""
         p = self._where(f)[0]
-        return p.device, p.params
+        return p.device, p.params, p.layout
 
     def _by_shard(self, rows) -> list:
         """[(shard, [indices into ``rows``])] for the shards owning the
@@ -1257,10 +1326,11 @@ class FleetGroup:
         live = len(self.members)
         for d, p in enumerate(self.parts):
             p.lo, p.rows = d * per, per
-            p.slab = {n: torch.zeros((c.shape[0], per * B)
-                                     + tuple(c.shape[2:]), dtype=c.dtype,
-                                     device=p.device)
+            p.slab = {n: p.zeros(n, (c.shape[0], per * B)
+                                 + tuple(c.shape[2:]), c.dtype)
                       for n, c in like.items()}
+            self.peak_bytes[d] = [max(a, b) for a, b in
+                                  zip(self.peak_bytes[d], p.slab_bytes())]
             if self.async_mode:
                 p.ops = _init_ops(per, B, p.device)
                 p.masks = {
@@ -1334,8 +1404,8 @@ class FleetGroup:
         part, i = self._where(row)
         B = self.max_batch
         if restore:
-            eng.cache = {n: s[:, i * B:(i + 1) * B].clone().to(eng.device)
-                         for n, s in part.slab.items()}
+            eng.cache = {n: _whole(s[:, i * B:(i + 1) * B]).clone().to(
+                eng.device) for n, s in part.slab.items()}
         last = self.members.pop()
         if last is not eng:          # backfill the hole with the last rows
             src, si = self._where(len(self.members))
@@ -1436,7 +1506,7 @@ class FleetGroup:
                 logits, small, plen = self.model.prefill(
                     part.params, {"tokens": toks, "lengths": lens},
                     cache_len=sb, cache_dtype=self.cache_dtype,
-                    attn_backend=self.attn_backend)
+                    attn_backend=self.attn_backend, shard_fn=part.layout)
                 first = torch.argmax(logits, dim=-1).to(torch.int32)
                 _write_state(part.slab, rows, small, slice(0, m))
                 if self.async_mode:
@@ -1837,7 +1907,8 @@ class ClusterFrontend:
     ``fleet_prefill`` (default: follows ``fleet_batch``) batches admission
     the same way; set it False to keep per-replica admission as the parity
     oracle. ``mesh`` (a ``launch.mesh.Mesh`` with a ``fleet`` axis) splits
-    every group's slab rows over its shards (``FleetGroup``)."""
+    every group's slab rows over its row blocks and each replica's heads
+    over its ``model`` axis (``FleetGroup``)."""
 
     def __init__(self, replicas: list, policy: str = "lc",
                  fractions_fn=None, seed: int = 0, fleet_batch: bool = False,

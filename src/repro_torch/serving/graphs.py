@@ -22,6 +22,12 @@ weights), and returns a tuple of its small outputs.
     eagerly every time. The keys, the counts and the drop rule are the same
     on the CPU, so the CPU tests exercise the bookkeeping.
 
+A fleet group's row block over several ``model`` devices
+(``engine._Shard``) captures its steps only when those devices are one
+device (a mesh that repeats one card); across cards a step crosses
+devices inside each layer, and its ``DecodeGraphs`` is made ``eager``.
+The mesh decides it, never a failed capture.
+
 ``drop()`` forgets every graph: the owner calls it when its state or
 operand tensors are reallocated (a slab growth), never when they change in
 place (a backfill on remove, an admission, a chunk, a staged mask). The
@@ -49,6 +55,8 @@ one buffer a device) are never used by two launches at once. A capture
 synchronizes the device (``torch.cuda.graph`` does), once a key.
 """
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -144,11 +152,21 @@ class DecodeGraphs:
 
     def _capture(self, fn):
         """A replay of ``fn`` captured into a CUDA graph in the pool: it
-        runs the graph and returns the static outputs."""
+        runs the graph and returns the static outputs. Python's cyclic
+        garbage collector is off during the capture: a collection there
+        can free an unreachable owner's graphs, and destroying a graph is
+        a CUDA call that invalidates the capture (seen on the card as a
+        failed cuBLAS call inside the capture)."""
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              stream=_capture_stream(self.device)):
-            outs = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  stream=_capture_stream(self.device)):
+                outs = fn()
+        finally:
+            if collecting:
+                gc.enable()
 
         def replay():
             graph.replay()

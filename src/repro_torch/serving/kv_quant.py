@@ -20,10 +20,15 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import HeadBlocks
 
 
 def quantize(x: torch.Tensor, axis: int = -1) -> tuple:
-    """x: (..., d) -> (int8 values, f32 scales with ``axis`` reduced)."""
+    """x: (..., d) -> (int8 values, f32 scales with ``axis`` reduced). A
+    head-split cache (``layers.HeadBlocks``, split on another axis than
+    ``axis``) is quantized block by block, its results split alike."""
+    if isinstance(x, HeadBlocks):
+        return x.map(lambda t: quantize(t, axis))
     xf = x.float()
     absmax = xf.abs().amax(dim=axis, keepdim=True)
     scale = torch.where(absmax > 0, absmax / 127.0, 1.0)

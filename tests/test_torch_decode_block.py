@@ -337,3 +337,29 @@ def test_replays_add_the_captured_launches():
         assert ops.LAUNCHES["flash_decode"] == 6 * 40
     finally:
         ops.LAUNCHES.update(saved)
+
+
+def test_capture_runs_with_the_collector_off(monkeypatch):
+    """Python's cyclic collector is off while a graph is captured, and on
+    again after (a failed capture too): a collection inside a capture
+    that frees a dead owner's graphs invalidates the capture."""
+    import contextlib
+    import gc
+
+    from repro_torch.serving import graphs
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: None)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(graphs, "_capture_stream", lambda device: None)
+    g = DecodeGraphs(torch.device("cpu"), eager=True)
+    seen = []
+    assert gc.isenabled()
+    g._capture(lambda: seen.append(gc.isenabled()) or (torch.ones(1),))
+    assert seen == [False] and gc.isenabled()
+
+    def fails():
+        raise RuntimeError("capture failed")
+    with pytest.raises(RuntimeError, match="capture failed"):
+        g._capture(fails)
+    assert gc.isenabled()

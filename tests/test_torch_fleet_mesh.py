@@ -36,7 +36,8 @@ from repro_torch.launch.mesh import (Mesh, make_fleet_mesh, make_host_mesh,
                                      set_host_device_count)
 from repro_torch.models.model import make_model
 from repro_torch.serving.elastic import ElasticClusterFrontend
-from repro_torch.serving.engine import FleetGroup, ReplicaEngine, Request
+from repro_torch.serving.engine import (ClusterFrontend, FleetGroup,
+                                        ReplicaEngine, Request)
 from test_torch_vlm import _one_torch_thread  # noqa: F401
 
 MAX_SEQ = 64
@@ -152,10 +153,21 @@ def test_mesh_builders_and_spec():
     with pytest.raises(ValueError, match="'fleet' axis"):
         FleetGroup(*model_for("granite-3-8b"), max_batch=2, max_seq=8,
                    mesh=m2, device="cpu")
-    with pytest.raises(ValueError, match="split each replica"):
-        FleetGroup(*model_for("granite-3-8b"), max_batch=2, max_seq=8,
-                   mesh=parse_mesh_spec("2x2:fleet,model", device="cpu"),
-                   device="cpu")
+    # a (fleet 2, model 2) group serves: each replica's cache split by
+    # kv heads over 'model' (tests/test_torch_fleet_model_axis.py holds it
+    # to the reference)
+    m, p = model_for("granite-3-8b")
+    fe = ClusterFrontend(
+        [ReplicaEngine(m, p, max_batch=2, max_seq=8, rid=i, device="cpu")
+         for i in range(2)], policy="rr", fleet_batch=True,
+        mesh=parse_mesh_spec("2x2:fleet,model", device="cpu"))
+    reqs = make_reqs(3, n_new=3)
+    for r in reqs:
+        fe.submit(r)
+    fe.run_until_drained()
+    assert all(r.done and r.output for r in reqs)
+    (g,) = fe.fleets.values()
+    assert (g.shards, g.heads) == (2, 2)
 
 
 def test_cuda_mesh_never_maps_onto_fewer_cards(monkeypatch):
