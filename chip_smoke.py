@@ -250,7 +250,14 @@ the script exits non-zero:
      qpg 4 over the 32-row slab, the loop's fleet prefill; 32 and 40 SSD
      heads). mamba2-1.3b and zamba2-2.7b, inside their own phases: the
      f32 2-layer loop over (fleet 1, model 2) equal to their phase 8
-     digests, every leaf split, each kernel twice a dispatch.
+     digests, every leaf split, each kernel twice a dispatch. (e) the
+     fleet mesh over an axis that names no part of the slab, which the
+     slab is replicated over: phase 6's loop over (fleet 2, seq 2), every
+     device cuda:0, counted and sync-checked, its decode, admission and
+     sync counts (per tick too) and its flash_decode and flash_attention
+     launches equal to (b)'s (fleet 2) run's (its row blocks are that
+     run's: each runs on index 0 of ``seq``), and at 2 layers in f32 its
+     digest equal to (b)'s; within 20 s.
 
  15. the parameter half of multi-device. (a) A one-rank NCCL process group
      on cuda:0 and a (data=1, model=1) ``DeviceMesh``: phase 13's
@@ -270,7 +277,14 @@ the script exits non-zero:
      (a)'s configuration on ``1x1:data,model``, whose predicted peak is
      printed beside (a)'s measured ``max_memory_allocated``; each cell's
      peak GB a device, flops a device and collective MiB. A cell that
-     fails fails the phase.
+     fails fails the phase. (c) On (a)'s mesh, granite-3-8b at full width
+     cut to 1 layer (4.8 GB of f32 params and moments): the DTensor train
+     state after step 2 saved by ``checkpoint.save_checkpoint`` (each leaf
+     gathered whole) and restored by ``restore_latest``, re-placed with
+     ``place_params``; its step 3's loss and grad norm equal to the
+     uninterrupted step 3's bit for bit; the save's and the restore's host
+     ms and the checkpoint's bytes beside the card's name and power limit;
+     within 30 s.
 
 The line before the last is the JSON table of kernels (launches from the
 control loop of phase 6: granite's for the attention kernels and
@@ -279,7 +293,8 @@ phase 11, where gcn_layer's are given too, with its times at the DDPG
 update's shapes under ``update``; the attention kernels' ``moe`` entries
 give their times at the MoE heads and their launches on the MoE paths,
 their ``vlm`` and ``audio`` entries those of phase 12, their ``fleet``
-and ``mesh`` entries those of phase 14, and every serving kernel's
+and ``mesh`` entries those of phase 14 -- (e)'s under ``mesh``'s
+``replicated_axis`` -- and every serving kernel's
 ``model_axis`` entry its launches on phase 14(d)'s split path and its
 parity and times at a model device's shapes); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2478,6 +2493,8 @@ def serve_arch(torch, F, ops, ref, cfg) -> dict:
         mesh["model_axis"] = phase_model_axis(torch, F, ops, ref, cfg, model,
                                               params, control, small, oracle,
                                               mesh)
+        mesh["replicated_axis"] = phase_replicated_axis(
+            torch, ops, cfg, model, params, small, mesh)
     model_axis = phase_model_axis_ssm(torch, ops, cfg, small, oracle) \
         if cfg.name in SSM_ARCHS else None
     del reps
@@ -3868,7 +3885,8 @@ def phase_mesh(torch, ops, ref, cfg, model, params, control, small,
     out = serve.run_control_loop(_control_args(serve), cfg2, model2,
                                  params2, cache_dtype=torch.float32,
                                  mesh=mesh)
-    same = _digest(out["fe"]) == oracle
+    f32_digest = _digest(out["fe"])
+    same = f32_digest == oracle
     log(f"[mesh] f32 full width, 2 layers, {MESH_SHARDS} shards: digest "
         f"equal to the unsharded loop's: {same}")
     if not same:
@@ -3898,7 +3916,9 @@ def phase_mesh(torch, ops, ref, cfg, model, params, control, small,
             "decode": sharded["decode"], "prefill": sharded["prefill"],
             "ratio": ratio, "seq_kv_err": err,
             "unsharded": control["launches"],
-            "peak_bytes": sharded["peak_bytes"], "digest": sharded["digest"]}
+            "peak_bytes": sharded["peak_bytes"], "digest": sharded["digest"],
+            "per_tick": sharded["per_tick"], "syncs": sharded["syncs"],
+            "tok_s": sharded["tok_s"], "f32_digest": f32_digest}
 
 
 def phase_seq_kv(torch, ref) -> float:
@@ -3939,7 +3959,8 @@ def phase_seq_kv(torch, ref) -> float:
 def fleet_rows(rows: dict, families: dict, mesh: dict) -> None:
     """Phase 14's entries in the kernels line: under each attention kernel,
     ``fleet`` (the vlm and audio fleets' launches) and ``mesh`` (the
-    sharded control loop's, beside the unsharded run's)."""
+    sharded control loop's, beside the unsharded run's, and under
+    ``replicated_axis`` phase 14(e)'s)."""
     for kernel in ("flash_attention", "flash_decode"):
         rows[kernel]["fleet"] = {
             name: dict(launches=run["fleet"]["launches"][kernel],
@@ -3947,11 +3968,16 @@ def fleet_rows(rows: dict, families: dict, mesh: dict) -> None:
                                    f"{FLEET_NODES} replicas, {N_REQUESTS} "
                                    "requests with extras")
             for name, run in families.items()}
+        seq = mesh["replicated_axis"]["launches"]
         rows[kernel]["mesh"] = dict(
             launches=mesh["launches"][kernel],
             unsharded_launches=mesh["unsharded"][kernel],
             launches_of=f"granite-3-8b's control loop over {MESH_SHARDS} "
-                        "shards on cuda:0")
+                        "shards on cuda:0",
+            replicated_axis=dict(
+                launches=seq[kernel],
+                launches_of="granite-3-8b's control loop over (fleet 2, "
+                            "seq 2) on cuda:0 (phase 14(e))"))
 
 
 
@@ -4206,6 +4232,67 @@ def model_axis_rows(rows: dict, served: dict) -> None:
         rows[kernel]["model_axis"] = dict(
             launches=counted["launches"][kernel], launches_of=of,
             **g["kernels"][kernel])
+
+
+# ------------------------------------------------------------ phase 14(e)
+# a mesh axis that names no part of the fleet slab ('seq'): the slab is
+# replicated over it, and each row block runs on its index 0, so the row
+# blocks are those of phase 14(b)'s (fleet 2) run
+SEQ_AXIS_MESH = ((2, 2), ("fleet", "seq"))
+SEQ_AXIS_BUDGET_S = 20.0
+
+
+def phase_replicated_axis(torch, ops, cfg, model, params, small,
+                          fleet_only) -> dict:
+    """Phase 14(e) for granite-3-8b. Phase 6's control loop at full width
+    and depth, bf16, over (fleet 2, seq 2), every device cuda:0, counted
+    and sync-checked as phase 6: its decode, admission and sync counts
+    (per tick too) and its flash_decode and flash_attention launches equal
+    those of phase 14(b)'s (fleet 2) run, and at 2 layers in f32 its
+    digest equals that run's. Fails past ``SEQ_AXIS_BUDGET_S``."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    mesh = _card_mesh(*SEQ_AXIS_MESH)
+    run = phase_control(torch, ops, cfg, model, params, mesh=mesh)
+    kernels = ("flash_decode", "flash_attention")
+    diff = {k: (run[k], fleet_only[k]) for k in
+            ("per_tick", "decode", "prefill", "syncs")
+            if run[k] != fleet_only[k]}
+    diff.update({k: (run["launches"][k], fleet_only["launches"][k])
+                 for k in kernels
+                 if run["launches"][k] != fleet_only["launches"][k]})
+    log(f"[mesh] {cfg.name} bf16 over (fleet 2, seq 2) on cuda:0 ({CARD}): "
+        f"decode dispatches {run['decode']}, admissions {run['prefill']}, "
+        f"syncs {run['syncs']} ((fleet 2) run {fleet_only['decode']}, "
+        f"{fleet_only['prefill']}, {fleet_only['syncs']}); launches "
+        + ", ".join(f"{k} {run['launches'][k]} ((fleet 2) run "
+                    f"{fleet_only['launches'][k]})" for k in kernels)
+        + f"; peak slab bytes {run['peak_bytes']} ((fleet 2) run "
+        f"{fleet_only['peak_bytes']}); streams differing from the (fleet 2) "
+        f"run's {_differing(run['digest'], fleet_only['digest'])}/"
+        f"{len(fleet_only['digest'])} (bf16); {run['tok_s']:.1f} tok/s "
+        f"against {fleet_only['tok_s']:.1f}")
+    if diff:
+        raise AssertionError(f"(fleet 2, seq 2) differs from (fleet 2): "
+                             f"{diff}")
+    cfg2, model2, params2 = small
+    out = serve.run_control_loop(_control_args(serve), cfg2, model2,
+                                 params2, cache_dtype=torch.float32,
+                                 mesh=mesh)
+    same = _digest(out["fe"]) == fleet_only["f32_digest"]
+    del out
+    _free(torch)
+    took = time.perf_counter() - t0
+    log(f"[mesh] f32 full width, 2 layers, (fleet 2, seq 2): digest equal "
+        f"to the (fleet 2) run's: {same}; phase 14(e): {took:.1f}s "
+        f"(budget {SEQ_AXIS_BUDGET_S:.0f}s)")
+    if not same:
+        raise AssertionError("the (fleet 2, seq 2) f32 control loop differs")
+    if took > SEQ_AXIS_BUDGET_S:
+        raise AssertionError(f"phase 14(e) took {took:.1f}s, over its "
+                             f"{SEQ_AXIS_BUDGET_S:.0f}s budget")
+    return {"launches": run["launches"]}
 
 
 # --------------------------------------------------------------- phase 13
@@ -4621,6 +4708,13 @@ def phase_train(torch, ops, smi) -> dict:
 # phase 15: the parameter half of multi-device
 SHARD_STEPS = 3
 SHARD_RTOL = 1e-5            # sharded against plain step, loss and grad norm
+# (c): the checkpointed state's depth (granite-3-8b's 0.40 B params at one
+# layer, 4.8 GB with its two moments; at (a)'s four layers, 12.0 GB, the
+# save and the restore together outrun the phase's budget), and the step
+# it is saved after
+CKPT_DEPTH = 1
+CKPT_AT = 2
+CKPT_BUDGET_S = 30.0
 # the dry-run's cells: (label, CLI arguments); each runs in its own process.
 # Both full-depth cells pin --grad-accum 1: at the reference's sizing
 # (granite 8 microbatches, grok 4) granite's cell traced in 126.8 s alone
@@ -4659,7 +4753,7 @@ def _full(x):
 def _shard_steps(torch, step, params, state, batches) -> dict:
     """``step`` over ``batches``: each step's loss and grad norm (read
     back whole), host ms to the loss's readback, CUDA-event ms, and the
-    peak memory of the steps; the last params."""
+    peak memory of the steps; the last params and optimizer state."""
     out = dict(loss=[], gnorm=[], host=[], dev=[], peak=[])
     for b in batches:
         torch.cuda.synchronize()
@@ -4675,7 +4769,7 @@ def _shard_steps(torch, step, params, state, batches) -> dict:
         out["dev"].append(e0.elapsed_time(e1))
         out["gnorm"].append(_full(m["grad_norm"]).item())
         out["peak"].append(torch.cuda.max_memory_allocated() / 1e9)
-    out["params"] = params
+    out["params"], out["state"] = params, state
     return out
 
 
@@ -4703,7 +4797,7 @@ def phase_sharded_step(torch, ops, smi, train) -> dict:
     params = model.init(seed=SEED, dtype=torch.float32, device="cuda")
     plain = _shard_steps(torch, make_train_step(model, opt), params,
                          opt.init(params), toks)
-    del params, plain["params"]
+    del params, plain["params"], plain["state"]
     _free(torch)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -4717,10 +4811,11 @@ def phase_sharded_step(torch, ops, smi, train) -> dict:
         params = place_params(plan, model.init(seed=SEED,
                                                dtype=torch.float32,
                                                device="cuda"))
+        batches = [place_batch(plan, b) for b in toks]
         ops.reset_launches()
         sharded = _shard_steps(
             torch, make_train_step(model, opt, make_shard_fn(plan)), params,
-            opt.init(params), [place_batch(plan, b) for b in toks])
+            opt.init(params), batches)
         launched = dict(ops.LAUNCHES)
         fresh = make_device_mesh((1, 1), ("data", "model"))
         moved = reshard_params(sharded["params"], ShardPlan(fresh, "train"))
@@ -4728,7 +4823,9 @@ def phase_sharded_step(torch, ops, smi, train) -> dict:
             leaves(sharded["params"]), leaves(moved)))
         placed = {str(tuple(p.placements))
                   for p in leaves(sharded["params"])}
-        del params, moved, sharded["params"]
+        del params, moved, sharded["params"], sharded["state"]
+        _free(torch)
+        ckpt = phase_sharded_ckpt(torch, ops, smi, plan, opt, batches)
     finally:
         dist.destroy_process_group()
     _free(torch)
@@ -4754,7 +4851,80 @@ def phase_sharded_step(torch, ops, smi, train) -> dict:
     if worst > SHARD_RTOL or not same or any(launched.values()):
         raise AssertionError("the sharded step differs from the plain one, "
                              "launched a kernel, or the reshard moved bits")
-    return dict(plain=plain, sharded=sharded, worst=worst)
+    return dict(plain=plain, sharded=sharded, worst=worst, ckpt=ckpt)
+
+
+def phase_sharded_ckpt(torch, ops, smi, plan, opt, batches) -> dict:
+    """15 (c): see the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.manager import restore_latest, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import make_shard_fn, place_params
+    from repro_torch.models.model import make_model, make_train_step
+
+    t0 = time.perf_counter()
+    name = "granite-3-8b"
+    cfg = dataclasses.replace(get_config(name), num_layers=CKPT_DEPTH)
+    model = make_model(cfg)
+    step = make_train_step(model, opt, make_shard_fn(plan))
+    params = place_params(plan, model.init(seed=SEED, dtype=torch.float32,
+                                           device="cuda"))
+    ops.reset_launches()
+    first = _shard_steps(torch, step, params, opt.init(params),
+                         batches[:CKPT_AT])
+    del params
+    state = {"params": first.pop("params"), "opt": first.pop("state")}
+    ckpt = tempfile.mkdtemp(prefix="shard_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = save_checkpoint(ckpt, CKPT_AT, state)
+        save_ms = (time.perf_counter() - t) * 1e3
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        straight = _shard_steps(torch, step, state["params"], state["opt"],
+                                batches[CKPT_AT:])
+        del straight["params"], straight["state"]
+        t = time.perf_counter()
+        restored_at, got = restore_latest(ckpt, state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state
+    whole = not any(hasattr(x, "full_tensor") for x in leaves(got))
+    resumed = _shard_steps(
+        torch, step, place_params(plan, got["params"]),
+        dict(got["opt"], mu=place_params(plan, got["opt"]["mu"]),
+             nu=place_params(plan, got["opt"]["nu"])), batches[CKPT_AT:])
+    del got, resumed["params"], resumed["state"]
+    launched = dict(ops.LAUNCHES)
+    _free(torch)
+    same = all(resumed[k] == straight[k] for k in ("loss", "gnorm"))
+    took = time.perf_counter() - t0
+    log(f"[shard] (c) {name} at {CKPT_DEPTH} layer(s) f32, the train state "
+        f"after step {CKPT_AT} (DTensor params and moments on the one-rank "
+        f"NCCL mesh) saved in {save_ms:.1f} ms host, {nbytes} bytes, "
+        f"restored whole in {restore_ms:.1f} ms host (warm page cache), "
+        f"re-placed with place_params: step {CKPT_AT + 1} loss "
+        f"{resumed['loss'][0]!r} grad norm {resumed['gnorm'][0]!r} against "
+        f"the uninterrupted {straight['loss'][0]!r} / "
+        f"{straight['gnorm'][0]!r}: {'equal bits' if same else 'DIFFERENT'}"
+        f"; kernel launches {launched}; {took:.1f}s (budget "
+        f"{CKPT_BUDGET_S:.0f}s); {smi}")
+    if not (same and whole and restored_at == CKPT_AT) or any(
+            launched.values()):
+        raise AssertionError("the resumed sharded step differs from the "
+                             "uninterrupted one")
+    if took > CKPT_BUDGET_S:
+        raise AssertionError(f"phase 15(c) took {took:.1f}s, over its "
+                             f"{CKPT_BUDGET_S:.0f}s budget")
+    return dict(save_ms=save_ms, restore_ms=restore_ms, bytes=nbytes,
+                seconds=took)
 
 
 def phase_dryrun(torch, smi, measured_peak_gb: float) -> dict:

@@ -3,12 +3,25 @@
 
 Each checkpoint is a directory ``step_%010d`` holding ``leaves.npz`` (leaf
 i, in ``core.tree.leaves`` order, as ``leaf_i``) and ``manifest.json``
-(step, leaf count, each leaf's dtype, the tree's structure, ``extra``,
-``complete``). A save writes a ``.tmp_`` directory and renames it into
-place, so a crash mid-save never corrupts the latest checkpoint;
-``restore_latest`` skips incomplete or corrupt directories. Leaves are
-tensors; numpy has no bfloat16, so a bf16 leaf is stored as its uint16
-bits and restored from the dtype in the manifest.
+(step, leaf count, the tree's structure, ``extra``, ``complete``, and
+``dtypes``, each leaf's dtype, a key the reference does not read). A save
+writes a ``.tmp_`` directory and renames it into place, so a crash
+mid-save never corrupts the latest checkpoint; ``restore_latest`` skips
+incomplete or corrupt directories. Leaves are tensors. numpy has no
+bfloat16: a bf16 leaf is stored as the reference's ``np.asarray`` stores
+one, its bits as a ``|V2`` array, and a ``|V2`` leaf (or a ``uint16`` leaf
+that ``dtypes`` marks ``bfloat16``, as earlier versions of the port wrote
+it) restores as bf16 bits. The reference itself cannot cast a ``|V2``
+leaf, so it skips such a checkpoint, its own or the port's.
+
+A sharded tree (``DTensor`` leaves) saves whole: each leaf is gathered
+(``full_tensor``, a collective that every rank of its mesh joins, in leaf
+order), so the files are those of an unsharded save of the same values.
+Under ``torch.distributed`` every rank of the default group calls
+``save_checkpoint``; rank 0 alone writes, and every rank returns only
+once the checkpoint is in place. ``restore_latest`` gives every leaf back
+whole, as the reference does; the caller re-places a sharded tree
+(``distributed.sharding.place_params``).
 """
 from __future__ import annotations
 
@@ -28,14 +41,17 @@ _DATA = "leaves.npz"
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if hasattr(t, "full_tensor"):          # a DTensor: gathered whole
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
+        return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
 
 
 def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
-    if dtype_name == "bfloat16":
+    if a.dtype == np.dtype("V2") or (a.dtype == np.uint16
+                                     and dtype_name == "bfloat16"):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
@@ -43,23 +59,37 @@ def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
                     extra: dict = None) -> str:
     """Atomically write checkpoint ``step`` of ``tree``; keep the newest
-    ``keep``. Returns the final path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``keep``. Returns the final path. Under ``torch.distributed`` every
+    rank calls it (a sharded leaf is gathered by all of them); rank 0
+    writes, and the others wait until it has."""
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    ls = leaves(tree)
+    arrays = {f"leaf_{i}": _to_numpy(x) for i, x in enumerate(ls)}
+    manifest = {
+        "step": step,
+        "n_leaves": len(ls),
+        "dtypes": [str(x.dtype).removeprefix("torch.") for x in ls],
+        "treedef": str(tree_map(lambda x: "*", tree)),
+        "time": time.time(),
+        "extra": extra or {},
+        "complete": True,
+    }
+    dist = torch.distributed
+    ranks = dist.is_available() and dist.is_initialized()
+    try:
+        if not ranks or dist.get_rank() == 0:
+            _write(ckpt_dir, final, arrays, manifest, keep)
+    finally:
+        if ranks:       # no rank lists checkpoints before the rename
+            dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, arrays, manifest, keep):
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
-        ls = leaves(tree)
-        np.savez(os.path.join(tmp, _DATA),
-                 **{f"leaf_{i}": _to_numpy(x) for i, x in enumerate(ls)})
-        manifest = {
-            "step": step,
-            "n_leaves": len(ls),
-            "dtypes": [str(x.dtype).removeprefix("torch.") for x in ls],
-            "treedef": str(tree_map(lambda x: "*", tree)),
-            "time": time.time(),
-            "extra": extra or {},
-            "complete": True,
-        }
+        np.savez(os.path.join(tmp, _DATA), **arrays)
         with open(os.path.join(tmp, _MANIFEST), "w") as f:
             json.dump(manifest, f)
         if os.path.exists(final):
@@ -69,7 +99,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -99,9 +128,12 @@ def list_checkpoints(ckpt_dir: str) -> list:
 
 
 def restore_latest(ckpt_dir: str, tree_like):
-    """Restore the newest intact checkpoint into ``tree_like``'s structure,
-    each leaf on its counterpart's device and in its dtype. Returns
-    (step, tree), or (None, None) when nothing restorable exists."""
+    """Restore the newest intact checkpoint with ``tree_like``'s leaf count
+    into its structure, each leaf whole and as stored (its shape is not
+    checked, as the reference's is not), on its counterpart's device (a
+    ``DTensor``'s local block's) and in its dtype. Returns (step, tree),
+    or (None, None) when nothing restorable exists. A sharded caller
+    re-places the tree (``distributed.sharding.place_params``)."""
     ref = leaves(tree_like)
     for step, path, man in reversed(list_checkpoints(ckpt_dir)):
         try:
@@ -112,10 +144,8 @@ def restore_latest(ckpt_dir: str, tree_like):
             dtypes = man.get("dtypes", [None] * len(ref))
             restored = []
             for a, name, r in zip(arrays, dtypes, ref):
-                if tuple(a.shape) != tuple(r.shape):
-                    raise ValueError(f"leaf shape {a.shape} != {r.shape}")
                 restored.append(_from_numpy(a, name).to(r.device, r.dtype))
             return step, unflatten(tree_like, restored)
-        except (OSError, ValueError, KeyError):
-            continue  # corrupt: try the previous one
+        except (OSError, ValueError, KeyError, TypeError):
+            continue  # corrupt or undecodable: try the previous one
     return None, None

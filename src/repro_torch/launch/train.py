@@ -104,6 +104,10 @@ def main(argv=None):
     opt_state = opt.init(params)
     step0 = 0
     if args.ckpt_dir:
+        # every leaf comes back whole, on its counterpart's device and in
+        # its dtype; a sharded run re-places the restored tree with
+        # distributed.sharding.place_params, as the reference's jitted
+        # step re-places the whole arrays it is given
         step, restored = restore_latest(args.ckpt_dir,
                                         {"params": params, "opt": opt_state})
         if step is not None:

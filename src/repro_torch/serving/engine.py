@@ -1174,8 +1174,12 @@ class FleetGroup:
     another block) and drops every graph; a backfill on remove may copy a
     row across devices. A block captures its decode steps as graphs only
     when its devices are one device (``_Shard``). Streams and finish
-    clocks equal the unsharded group's. Axes other than these must have
-    size 1. Unsharded, ``parts`` is one block on ``device``, and
+    clocks equal the unsharded group's. Any other axis (``seq``, ``pipe``,
+    ...) names no part of the slab, which the reference therefore
+    replicates over it: each row block runs on index 0 of every such axis
+    (``Mesh.row_blocks``), whose copy holds the values every replica
+    holds, and the devices at its other indices hold no slab. Unsharded,
+    ``parts`` is one block on ``device``, and
     ``slab``, ``ops``, ``graphs`` are its."""
 
     def __init__(self, model: Model, params, *, max_batch: int, max_seq: int,
@@ -1190,12 +1194,6 @@ class FleetGroup:
             if "fleet" not in mesh.axis_names:
                 raise ValueError(f"FleetGroup mesh needs a 'fleet' axis, "
                                  f"got {mesh.axis_names}")
-            other = {a: n for a, n in mesh.shape.items()
-                     if a not in _ROW_AXES + (_HEAD_AXIS,) and n > 1}
-            if other:
-                raise ValueError(
-                    f"a fleet slab splits over {_ROW_AXES + (_HEAD_AXIS,)}"
-                    f"; mesh axes {other} name no part of it")
             blocks = [[resolve_device(d) for d in b]
                       for b in mesh.row_blocks(_ROW_AXES, _HEAD_AXIS)]
         self.model = model

@@ -25,7 +25,10 @@ SSM heads split four ways on the last), and grok-1-314b on (fleet 2,
 data 2): its routing is per batch row, so splitting the rows over
 ``data`` changes no value; granite with the int8 cache (``:int8``) on
 (fleet 2, model 2), whose four leaves no rule names: whole on each
-device, as the reference replicates them. The CLI case runs
+device, as the reference replicates them; granite on (fleet 2, seq 2) and
+mamba2 on (fleet 1, seq 2, model 2): ``seq`` names no part of the slab,
+which the reference replicates over it, so each row block runs on index
+0 of it. The CLI case runs
 ``--mesh 2x2:fleet,model`` through test_torch_control_loop's
 ``port_loop``, held to the reference's loop of the same flags (its
 sharded loop equals its unsharded one).
@@ -53,13 +56,16 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MESHES = {"fleet-model": ((2, 2), ("fleet", "model")),
           "fleet-data": ((2, 2), ("fleet", "data")),
           "fleet-data-model": ((1, 2, 2), ("fleet", "data", "model")),
-          "fleet-model4": ((1, 4), ("fleet", "model"))}
+          "fleet-model4": ((1, 4), ("fleet", "model")),
+          "fleet-seq": ((2, 2), ("fleet", "seq")),
+          "fleet-seq-model": ((1, 2, 2), ("fleet", "seq", "model"))}
 CASES = [(a, "fleet-model") for a in ("granite-3-8b", "mamba2-1.3b",
                                       "zamba2-2.7b", "whisper-base",
                                       "grok-1-314b")] + [
     (a, m) for m in ("fleet-data", "fleet-data-model", "fleet-model4")
     for a in ("granite-3-8b", "mamba2-1.3b")] + [
-    ("grok-1-314b", "fleet-data"), ("granite-3-8b:int8", "fleet-model")]
+    ("grok-1-314b", "fleet-data"), ("granite-3-8b:int8", "fleet-model"),
+    ("granite-3-8b", "fleet-seq"), ("mamba2-1.3b", "fleet-seq-model")]
 MAX_SEQ = {"whisper-base": 48}          # the others 64
 
 

@@ -10,8 +10,11 @@ update matches. ``checkpoint.manager``: the six behaviours of
 tests/test_checkpoint.py (round trip, keep-k, a corrupt newest falls
 back, an incomplete directory is skipped, an empty directory restores
 nothing, optimizer state survives a resume), a bf16 round trip bit for
-bit, and the reference's on-disk layout (each package restores the
-other's checkpoint of the same tree). ``data.pipeline``: ``MarkovCorpus``
+bit, the reference's on-disk layout (each package restores the other's
+checkpoint of the same tree; a bf16 leaf is the reference's ``|V2``
+bytes), its restore rule (the newest checkpoint with the leaf count,
+as stored), the ``uint16`` bf16 leaves of earlier versions, and an
+undecodable leaf skipped as corrupt. ``data.pipeline``: ``MarkovCorpus``
 and ``DataLoader`` give the reference's tokens and unigram entropy.
 ``core.tree``: a train step leaves no tensor in a reference cycle, so a
 step's gradient and old state go as soon as they are dropped, not at the
@@ -233,7 +236,7 @@ def test_bf16_roundtrip_bit_for_bit(tmp_path):
     assert man["dtypes"] == ["bfloat16", "float32", "bfloat16"]
     with np.load(os.path.join(str(tmp_path), "step_0000000004",
                               "leaves.npz")) as data:
-        assert data["leaf_2"].dtype == np.uint16
+        assert data["leaf_2"].dtype == np.dtype("V2")
     _, restored = restore_latest(str(tmp_path), t)
     for a, b in zip(tree.leaves(t), tree.leaves(restored)):
         assert a.dtype == b.dtype
@@ -244,7 +247,10 @@ def test_bf16_roundtrip_bit_for_bit(tmp_path):
 
 def test_layout_is_the_references(tmp_path):
     """A tree of one structure on both sides: each package restores the
-    other's checkpoint."""
+    other's checkpoint. With a bf16 leaf: the port restores the
+    reference's file bit for bit, and the reference does with the port's
+    file what it does with its own (it cannot cast the ``|V2`` leaf, so it
+    finds nothing to restore)."""
     t = _np_tree(5)
     save_checkpoint(str(tmp_path / "port"), 3, _torch(t))
     step, jt = jckpt.restore_latest(str(tmp_path / "port"), _jax(t))
@@ -254,6 +260,116 @@ def test_layout_is_the_references(tmp_path):
     step, tt = restore_latest(str(tmp_path / "ref"), _torch(t))
     assert step == 6
     _assert_close(tt, t, rtol=0, atol=0)
+
+    jb, tb = _bf16_trees(t)
+    jckpt.save_checkpoint(str(tmp_path / "ref_bf16"), 7, jb)
+    step, got = restore_latest(str(tmp_path / "ref_bf16"), tb)
+    assert step == 7
+    _assert_bits_equal(got, jb)
+    save_checkpoint(str(tmp_path / "port_bf16"), 8, tb)
+    assert jckpt.restore_latest(str(tmp_path / "port_bf16"), jb) == \
+        jckpt.restore_latest(str(tmp_path / "ref_bf16"), jb) == (None, None)
+
+
+def _bf16_trees(t):
+    """(the reference's, the port's) tree of ``t`` with its "w" in bf16."""
+    jb = dict(_jax(t), w=jnp.asarray(t["w"]).astype(jnp.bfloat16))
+    tb = dict(_torch(t), w=torch.from_numpy(t["w"]).to(torch.bfloat16))
+    return jb, tb
+
+
+def _bits(x):
+    if isinstance(x, torch.Tensor):
+        return (x.view(torch.int16) if x.dtype == torch.bfloat16
+                else x).numpy()
+    x = np.asarray(x)
+    return x.view(np.int16) if x.dtype.name == "bfloat16" else x
+
+
+def _assert_bits_equal(got, want):
+    gl, wl = tree.leaves(got), jax.tree.leaves(want)
+    assert len(gl) == len(wl)
+    for g, w in zip(gl, wl):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def test_bf16_leaf_is_stored_as_the_reference_stores_it(tmp_path):
+    """The same bf16 values saved by each package: the port's ``leaf_i``
+    has the reference's dtype (``|V2``) and bytes, and its manifest has
+    the reference's keys (plus ``dtypes``) with the same leaf count."""
+    jb, tb = _bf16_trees(_np_tree(6))
+    jckpt.save_checkpoint(str(tmp_path / "ref"), 1, jb)
+    save_checkpoint(str(tmp_path / "port"), 1, tb)
+    (_, rpath, rman), = jckpt.list_checkpoints(str(tmp_path / "ref"))
+    (_, ppath, pman), = list_checkpoints(str(tmp_path / "port"))
+    with np.load(os.path.join(rpath, "leaves.npz")) as r, \
+            np.load(os.path.join(ppath, "leaves.npz")) as p:
+        assert sorted(r.files) == sorted(p.files)
+        for k in r.files:
+            assert r[k].dtype == p[k].dtype and r[k].shape == p[k].shape
+            assert r[k].tobytes() == p[k].tobytes(), k
+        assert any(r[k].dtype == np.dtype("V2") for k in r.files)
+    assert set(pman) == set(rman) | {"dtypes"}
+    assert pman["n_leaves"] == rman["n_leaves"]
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_restore_takes_the_newest_as_stored(tmp_path, writer):
+    """Step 1 holds a (2, 2) leaf and step 2 a (4, 4) one; restored into
+    a (2, 2) tree, both packages give step 2 as stored, as the
+    reference's rule has it (it checks the leaf count only)."""
+    d = str(tmp_path)
+    if writer == "port":
+        save_checkpoint(d, 1, {"w": torch.zeros(2, 2)})
+        save_checkpoint(d, 2, {"w": torch.ones(4, 4)})
+    else:
+        jckpt.save_checkpoint(d, 1, {"w": jnp.zeros((2, 2))})
+        jckpt.save_checkpoint(d, 2, {"w": jnp.ones((4, 4))})
+    step, got = restore_latest(d, {"w": torch.zeros(2, 2)})
+    assert step == 2 and torch.equal(got["w"], torch.ones(4, 4))
+    jstep, jgot = jckpt.restore_latest(d, {"w": jnp.zeros((2, 2))})
+    assert jstep == 2 and np.array_equal(np.asarray(jgot["w"]),
+                                         np.ones((4, 4), np.float32))
+
+
+def test_uint16_checkpoint_of_earlier_versions_restores(tmp_path):
+    """A checkpoint that the port wrote before it took the reference's
+    ``|V2`` (a bf16 leaf as ``uint16``, marked ``bfloat16`` in
+    ``dtypes``) restores bit for bit; a ``uint16`` leaf that ``dtypes``
+    marks ``uint16`` stays numbers."""
+    g = torch.Generator().manual_seed(2)
+    p = torch.randn(3, 5, generator=g).to(torch.bfloat16)
+    u = torch.arange(6, dtype=torch.int32)
+    d = os.path.join(str(tmp_path), "step_0000000003")
+    os.makedirs(d)
+    np.savez(os.path.join(d, "leaves.npz"),
+             leaf_0=p.view(torch.int16).numpy().view(np.uint16),
+             leaf_1=np.arange(6, dtype=np.uint16))
+    with open(os.path.join(d, "manifest.json"), "w") as f:
+        json.dump({"step": 3, "n_leaves": 2,
+                   "dtypes": ["bfloat16", "uint16"], "treedef": "",
+                   "time": 0.0, "extra": {}, "complete": True}, f)
+    step, got = restore_latest(str(tmp_path), {"p": p, "u": u})
+    assert step == 3 and got["p"].dtype == torch.bfloat16
+    assert torch.equal(got["p"].view(torch.int16), p.view(torch.int16))
+    assert torch.equal(got["u"], u)
+
+
+def test_undecodable_leaf_falls_back(tmp_path):
+    """A newest checkpoint whose leaf no tensor can hold (a ``|V4``
+    array) counts as corrupt: the older one is restored, and nothing
+    raises."""
+    t = _ckpt_tree()
+    save_checkpoint(str(tmp_path), 1, t)
+    save_checkpoint(str(tmp_path), 2, _ckpt_tree(scale=2.0))
+    path = os.path.join(str(tmp_path), "step_0000000002", "leaves.npz")
+    with np.load(path) as data:
+        arrays = dict(data)
+    arrays["leaf_2"] = arrays["leaf_2"].view("V4")
+    np.savez(path, **arrays)
+    step, got = restore_latest(str(tmp_path), t)
+    assert step == 1 and torch.equal(got["w"], t["w"])
 
 
 # -------------------------------------------------------------------- data

@@ -38,11 +38,18 @@ step is held to the reference's single-device step on bridged weights
     reference's prefill and decode of the same tokens, logits and every
     cache leaf, within 1e-5 of the largest;
   * ``comm_bytes`` counts a redistribution's all-gather, all-reduce and
-    reduce-scatter by ``collective_bytes``'s kinds and ring factors.
+    reduce-scatter by ``collective_bytes``'s kinds and ring factors;
+  * a checkpoint of granite's sharded train state on (4, 2), saved by
+    every rank and written by rank 0, holds the files an unsharded save
+    of the same values holds (arrays, names, dtypes, the manifest but for
+    its time); the reference's ``restore_latest`` restores them equal;
+    the step after ``restore_latest`` and ``place_params`` equals the
+    uninterrupted one bit for bit.
 
 While the ranks run, this process computes the reference's steps.
 """
 import dataclasses
+import json
 import os
 import pickle
 import subprocess
@@ -201,6 +208,46 @@ def elastic_job(mesh, inputs):
     return out
 
 
+def ckpt_job(mesh, inputs, path):
+    # granite's train state after one sharded step, saved (every rank),
+    # restored whole, re-placed with place_params and stepped again,
+    # beside the uninterrupted second step
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.checkpoint.manager import restore_latest, save_checkpoint
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import ShardPlan, make_shard_fn, place_params
+    from repro_torch.distributed.sharding import place_batch
+    from repro_torch.models.model import make_model, make_train_step
+    from repro_torch.models.optim import AdamW
+
+    model = make_model(config("granite-3-8b"), tp=2)
+    plan = ShardPlan(mesh, "train")
+    params = place_params(plan, params_from_jax(inputs["params"], "cpu"))
+    batch = place_batch(plan, {k: torch.from_numpy(v)
+                               for k, v in inputs["batch"].items()})
+    opt = AdamW(lr=LR)
+    step = make_train_step(model, opt, make_shard_fn(plan))
+    p1, o1, _ = step(params, opt.init(params), batch)
+    state = {"params": p1, "opt": o1}
+    d = os.path.join(path, "ckpt")
+    save_checkpoint(d, 1, state)
+    p2, _, m2 = step(p1, o1, batch)
+    n, got = restore_latest(d, state)
+    resumed = {"params": place_params(plan, got["params"]),
+               "opt": dict(got["opt"], mu=place_params(plan, got["opt"]["mu"]),
+                           nu=place_params(plan, got["opt"]["nu"]))}
+    rp2, _, rm2 = step(resumed["params"], resumed["opt"], batch)
+    return {"dir": d, "restored_step": n, "state": to_numpy(state),
+            "split": any(tuple(x.to_local().shape) != tuple(x.shape)
+                         for x in leaves(p1)),
+            "whole_on_restore": not any(hasattr(x, "full_tensor")
+                                        for x in leaves(got)),
+            "metrics": [{k: float(full(v)) for k, v in m.items()}
+                        for m in (m2, rm2)],
+            "params_equal": all(torch.equal(full(a), full(b)) for a, b in
+                                zip(leaves(p2), leaves(rp2)))}
+
+
 def gossip_job(mesh, rank):
     from torch.distributed.tensor import DTensor
     from repro_torch.core.decentralized import (make_gossip_allreduce,
@@ -261,6 +308,7 @@ def run(rank, path, port):
     if meshes["A"].get_coordinate() is not None:
         out["decode"] = decode_job(meshes["A"], inputs["granite"])
     out["elastic"] = elastic_job(meshes["4x2"], inputs["granite"])
+    out["ckpt"] = ckpt_job(meshes["4x2"], inputs["granite"], path)
     out["gossip"] = gossip_job(meshes["8"], rank)
     out["comm"] = comm_job(meshes["4x2"])
     with open(os.path.join(path, f"rank{rank}.pkl"), "wb") as f:
@@ -452,6 +500,77 @@ def test_gossip_and_grad_average_on_mesh(runs):
         np.testing.assert_allclose(res["avg"], np.full((1, 16), 3.5))
         np.testing.assert_allclose(res["grads"], np.full(16, 3.5))
         assert res["avg_layout"] == "(Shard(dim=0),)"
+
+
+def test_sharded_save_holds_the_unsharded_files(runs, tmp_path):
+    """The sharded save's files against an unsharded save of the same
+    values made here: the same arrays under the same names and dtypes,
+    and the same manifest but for ``time``."""
+    from repro_torch.checkpoint.manager import save_checkpoint
+    import torch
+
+    merged, _ = runs
+    res = merged["ckpt"][0]
+    assert all(r["split"] for r in merged["ckpt"].values())
+    whole = _torch_tree(res["state"])
+    save_checkpoint(str(tmp_path), 1, whole)
+    (sharded,), (plain,) = ([os.path.join(d, n) for n in os.listdir(d)
+                             if n.startswith("step_")]
+                            for d in (res["dir"], str(tmp_path)))
+    with np.load(os.path.join(sharded, "leaves.npz")) as a, \
+            np.load(os.path.join(plain, "leaves.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    mans = []
+    for d in (sharded, plain):
+        with open(os.path.join(d, "manifest.json")) as f:
+            man = json.load(f)
+        man.pop("time")
+        mans.append(man)
+    assert mans[0] == mans[1]
+    assert not any(n.startswith(".tmp_") for n in os.listdir(res["dir"]))
+    assert isinstance(whole["opt"]["step"], torch.Tensor)
+
+
+def test_reference_restores_the_sharded_save(runs):
+    """The reference's ``restore_latest`` gives the sharded save back
+    equal to the state's whole values."""
+    from repro.checkpoint import manager as jckpt
+
+    merged, _ = runs
+    res = merged["ckpt"][0]
+    like = jax.tree.map(jnp.asarray, res["state"])
+    step, got = jckpt.restore_latest(res["dir"], like)
+    assert step == 1
+    want = jax.tree.leaves(res["state"])
+    got = jax.tree.leaves(got)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w)
+
+
+def test_resumed_sharded_step_equals_uninterrupted(runs):
+    """On every rank: the restored leaves are whole tensors, and the step
+    after ``place_params`` gives the uninterrupted step's metrics and
+    params bit for bit."""
+    merged, _ = runs
+    assert len(merged["ckpt"]) == 8
+    for res in merged["ckpt"].values():
+        assert res["restored_step"] == 1 and res["whole_on_restore"]
+        straight, resumed = res["metrics"]
+        assert straight == resumed
+        assert res["params_equal"]
+
+
+def _torch_tree(t):
+    import torch
+    if isinstance(t, dict):
+        return {k: _torch_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_torch_tree(v) for v in t]
+    return torch.from_numpy(np.array(t))
 
 
 def test_comm_bytes_counts_redistributions(runs):
