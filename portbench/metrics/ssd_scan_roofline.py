@@ -1,0 +1,7 @@
+"""ssd_scan's share of its roofline over the traced slice
+(``reduce.roofline``), in %."""
+from portbench import reduce
+
+
+def read(ctx):
+    return reduce.roofline(ctx, "ssd_scan")
