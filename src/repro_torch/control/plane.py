@@ -26,7 +26,9 @@ tick. The observation, the window and the metrics stay numpy, as in the
 reference.
 
 **Accounting.** ``host_s`` sums the host seconds of each phase (forecast,
-balance, learn -- the replay and the DDPG updates --, scale);
+balance, learn -- the replay and the DDPG updates --, scale), each the
+seconds of the phase's span (``plane.forecast``, ``plane.balance``,
+``plane.learn``, ``plane.scale``; ``repro_torch.telemetry``);
 ``fetches`` / ``fetch_wait`` count the plane's blocking device-to-host
 fetches (the GRU forecast, the fractions, and the GPSO plan through the
 ``fetch`` the plane hands the autoscaler) apart from the engine's
@@ -41,12 +43,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import balancer as bal
 from repro_torch.core.autoscaler import (GPSOAutoscaler, HPAAutoscaler,
                                          RBASAutoscaler, StaticAllocator)
@@ -165,9 +167,8 @@ class ControlPlane:
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """Blocking fetch of a plane result (waits for the plane's stream
         only), counted apart from the engine's syncs."""
-        t0 = time.perf_counter()
-        out = t.cpu().numpy()
-        self.fetch_wait += time.perf_counter() - t0
+        with telemetry.span("plane.fetch", into=(self, "fetch_wait")):
+            out = t.cpu().numpy()
         self.fetches += 1
         return out
 
@@ -234,67 +235,67 @@ class ControlPlane:
                            float(arrival_rate)) + 2.0 * sigma
                 node_demand = peak * np.maximum(self.fractions,
                                                 1.0 / (4 * n))
-                with self._on_plane():
+                with self._on_plane(), telemetry.span("plane.gpso_plan"):
                     target = self.scaler.plan(
                         node_demand, self.t, in_flight,
                         node_speed=self.backend.node_speed,
                         slo_pressure=m.get("tier_pressure"),
                         preempt_risk=m.get("preempt_risk"),
                         fetch=self._fetch)
-                self.backend.scale_to(target)
+                with telemetry.span("frontend.scale_to"):
+                    self.backend.scale_to(target)
             else:
                 # emergency path: instantaneous overload on a node triggers
                 # an immediate scale-up without waiting for the plan interval
                 hot = m["utilization"] > 0.95
                 if hot.any():
                     target = in_flight + hot.astype(np.int32)
-                    self.backend.scale_to(
-                        np.minimum(target, cfg.max_replicas_per_node))
+                    with telemetry.span("frontend.scale_to"):
+                        self.backend.scale_to(
+                            np.minimum(target, cfg.max_replicas_per_node))
         elif self.scaler is not None and self.scaler_kind != "static":
             # rule-based scalers observe every tick (the k8s control loop)
             target = self.scaler.plan(m["utilization"], self.t, in_flight)
-            self.backend.scale_to(target)
+            with telemetry.span("frontend.scale_to"):
+                self.backend.scale_to(target)
         # "static"/"none": the backend keeps its initial replica profile
 
     # ---------------------------------------------------------------- tick
+    @telemetry.spanned("plane.step")
     def step(self, arrival_rate: float) -> dict:
         """One forecast -> balance -> advance -> (learn) -> scale tick."""
-        cfg = self.cfg
-        t0 = time.perf_counter()
-        fc = self._forecast(arrival_rate)
-        obs = self.backend.observe(fc)
-        up = self.backend.up_mask()
-        t1 = time.perf_counter()
-        self.fractions = self._balance(obs, up, arrival_rate)
-        self.backend.route(self.fractions)
-        t2 = time.perf_counter()
+        cfg, host = self.cfg, self.host_s
+        with telemetry.span("plane.forecast", into=(host, "forecast")):
+            fc = self._forecast(arrival_rate)
+            with telemetry.span("frontend.observe"):
+                obs = self.backend.observe(fc)
+                up = self.backend.up_mask()
+        with telemetry.span("plane.balance", into=(host, "balance")):
+            self.fractions = self._balance(obs, up, arrival_rate)
+            with telemetry.span("frontend.route"):
+                self.backend.route(self.fractions)
         m = self.backend.tick(arrival_rate)
-        t3 = time.perf_counter()
 
-        if self.balancer == "rl":
-            # Eq.5, tier-weighted (untiered backends omit tier_slo_cost)
-            reward = bal.reward_fn(m["response_time"], m["mean_utilization"],
-                                   cfg.alpha, cfg.beta, m["overload"],
-                                   slo_cost=cfg.slo_gamma *
-                                   float(m.get("tier_slo_cost") or 0.0))
-            if self._prev is not None and self.train_rl:
-                self.rl.observe(self._prev[0], self._prev[1],
-                                float(self._prev[2]), obs, up)
-                if self.t % self.train_every == 0:
-                    with self._on_plane():
-                        self.rl.train_step()
-            self._prev = (obs, self.fractions, reward)
-        t4 = time.perf_counter()
+        with telemetry.span("plane.learn", into=(host, "learn")):
+            if self.balancer == "rl":
+                # Eq.5, tier-weighted (untiered backends omit tier_slo_cost)
+                reward = bal.reward_fn(
+                    m["response_time"], m["mean_utilization"], cfg.alpha,
+                    cfg.beta, m["overload"], slo_cost=cfg.slo_gamma *
+                    float(m.get("tier_slo_cost") or 0.0))
+                if self._prev is not None and self.train_rl:
+                    self.rl.observe(self._prev[0], self._prev[1],
+                                    float(self._prev[2]), obs, up)
+                    if self.t % self.train_every == 0:
+                        with self._on_plane():
+                            self.rl.train_step()
+                self._prev = (obs, self.fractions, reward)
 
-        self._scale(m, fc, arrival_rate)
-
-        self.window = np.roll(self.window, -1)
-        self.window[-1] = arrival_rate
-        self.t += 1
-        self.host_s["forecast"] += t1 - t0
-        self.host_s["balance"] += t2 - t1
-        self.host_s["learn"] += t4 - t3
-        self.host_s["scale"] += time.perf_counter() - t4
+        with telemetry.span("plane.scale", into=(host, "scale")):
+            self._scale(m, fc, arrival_rate)
+            self.window = np.roll(self.window, -1)
+            self.window[-1] = arrival_rate
+            self.t += 1
         return m
 
     def run(self, arrivals: np.ndarray) -> list:

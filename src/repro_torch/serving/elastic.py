@@ -66,6 +66,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.serving.engine import (FleetGroup, ReplicaEngine, Request,
                                         TieredQueue, normalize_fractions)
 from repro_torch.workload.trace import DEFAULT_TIERS, TierSet
@@ -584,6 +585,7 @@ class ElasticClusterFrontend:
         return max([self._retired_peak_rows]
                    + [g.peak_rows for g in self._fleets.values()])
 
+    @telemetry.spanned("frontend.reconcile")
     def _reconcile_all(self) -> list:
         """The per-tick reconcile point: flush every fleet group's pending
         device futures (one blocking sync per group) and collect the newly
@@ -1049,6 +1051,7 @@ class ElasticClusterFrontend:
             eng = min(cands, key=lambda e: e.load / max(e.speed, 1e-6))
             eng.submit(node.queue.pop())
 
+    @telemetry.spanned("frontend.tick")
     def tick(self, arrival_rate: float = 0.0) -> dict:
         self.t += 1
         prefill_before = self.prefill_dispatches()
@@ -1060,26 +1063,27 @@ class ElasticClusterFrontend:
         # results (retires free their slots HERE, before admission planning,
         # so admission timing matches the eager oracle exactly)
         finished_now: list = self._reconcile_all()
-        self._advance_provisioning()
-        self._advance_chaos()     # scripted events + notice timers: their
-        self._inject_failures()   # hand-backs re-route this same tick
-        self._generate_arrivals(arrival_rate)
-        finished_now.extend(self._cull_expired())
-        self._reroute_stranded()
-        self._route_pending()
-        self._tick_dispatches = round_start = 0
-        stepping: list = []          # (engine, n_substeps) across ALL nodes
-        for node in self.nodes:
-            self._dispatch(node)
-            for eng in list(node.live) + list(node.draining):
-                node.credit[id(eng)] = node.credit.get(id(eng), 0.0) + \
-                    eng.speed * node.slow
-                n_sub = int(node.credit[id(eng)])
-                node.credit[id(eng)] -= n_sub
-                if n_sub <= 0:
-                    continue
-                eng.clock = float(self.t - 1)
-                stepping.append((eng, n_sub))
+        with telemetry.span("frontend.arrivals"):
+            self._advance_provisioning()
+            self._advance_chaos()     # scripted events + notice timers: their
+            self._inject_failures()   # hand-backs re-route this same tick
+            self._generate_arrivals(arrival_rate)
+            finished_now.extend(self._cull_expired())
+            self._reroute_stranded()
+            self._route_pending()
+            self._tick_dispatches = round_start = 0
+            stepping: list = []     # (engine, n_substeps) across ALL nodes
+            for node in self.nodes:
+                self._dispatch(node)
+                for eng in list(node.live) + list(node.draining):
+                    node.credit[id(eng)] = node.credit.get(id(eng), 0.0) + \
+                        eng.speed * node.slow
+                    n_sub = int(node.credit[id(eng)])
+                    node.credit[id(eng)] -= n_sub
+                    if n_sub <= 0:
+                        continue
+                    eng.clock = float(self.t - 1)
+                    stepping.append((eng, n_sub))
         # sub-step rounds: round r advances every engine with n_sub > r, so
         # a homogeneous-speed cluster runs exactly one round and each fleet
         # group issues ONE decode dispatch (plus, under fleet admission, one
@@ -1093,31 +1097,33 @@ class ElasticClusterFrontend:
         allow_block = (self.decode_block > 1 and max_sub == 1
                        and not self.pending)
         for r in range(max_sub):
-            if r > 0 and self.async_tick:
-                # hetero sub-rounds: round r's admission may use slots the
-                # previous round's decode freed, so reconcile between rounds
-                # (homogeneous clusters run one round = one sync per tick)
-                finished_now.extend(self._reconcile_all())
-            round_engines = [(e, n) for e, n in stepping if n > r]
-            ids = {id(e) for e, _ in round_engines}
-            for eng, n in round_engines:
-                finished_now.extend(eng.begin_step(
-                    dt=1.0 / n,
-                    admit=eng._fleet is None or not self.fleet_prefill))
-            if self.fleet_prefill:
+            with telemetry.span("frontend.round"):
+                if r > 0 and self.async_tick:
+                    # hetero sub-rounds: round r's admission may use slots
+                    # the previous round's decode freed, so reconcile
+                    # between rounds (homogeneous clusters run one round =
+                    # one sync per tick)
+                    finished_now.extend(self._reconcile_all())
+                round_engines = [(e, n) for e, n in stepping if n > r]
+                ids = {id(e) for e, _ in round_engines}
+                for eng, n in round_engines:
+                    finished_now.extend(eng.begin_step(
+                        dt=1.0 / n,
+                        admit=eng._fleet is None or not self.fleet_prefill))
+                if self.fleet_prefill:
+                    for g in self._fleets.values():
+                        finished_now.extend(g.admit_round(ids))
+                round_start = self._tick_dispatches
                 for g in self._fleets.values():
-                    finished_now.extend(g.admit_round(ids))
-            round_start = self._tick_dispatches
-            for g in self._fleets.values():
-                before = g.dispatches
-                finished_now.extend(g.decode_round(
-                    ids, allow_block=allow_block))
-                self._tick_dispatches += g.dispatches - before
-            for eng, _ in round_engines:     # engines outside any fleet
-                if eng._fleet is None:
-                    if eng.n_decoding:
-                        self._tick_dispatches += 1
-                    finished_now.extend(eng.finish_step())
+                    before = g.dispatches
+                    finished_now.extend(g.decode_round(
+                        ids, allow_block=allow_block))
+                    self._tick_dispatches += g.dispatches - before
+                for eng, _ in round_engines:     # engines outside any fleet
+                    if eng._fleet is None:
+                        if eng.n_decoding:
+                            self._tick_dispatches += 1
+                        finished_now.extend(eng.finish_step())
         self._tick_last_round = self._tick_dispatches - round_start
         for node in self.nodes:
             for eng in list(node.draining):   # retire drained replicas

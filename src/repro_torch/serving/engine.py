@@ -173,13 +173,13 @@ import contextlib
 import copy
 import dataclasses
 import itertools
-import time
 from collections import deque
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.tree import tree_map
 from repro_torch.device import host_to_device, resolve_device
 from repro_torch.distributed.sharding import HeadLayout
@@ -286,11 +286,10 @@ def _whole(leaf) -> torch.Tensor:
 
 def _timed_get(owner, tensors) -> list:
     """Blocking fetch of device ``tensors`` to numpy, accounted on
-    ``owner``: bumps ``owner.syncs`` once and adds the blocked wall time to
-    ``owner.sync_wait``."""
-    t0 = time.perf_counter()
-    out = [t.cpu().numpy() for t in tensors]
-    owner.sync_wait += time.perf_counter() - t0
+    ``owner``: bumps ``owner.syncs`` once and adds the blocked wall time,
+    the ``engine.sync_wait`` span's, to ``owner.sync_wait``."""
+    with telemetry.span("engine.sync_wait", into=(owner, "sync_wait")):
+        out = [t.cpu().numpy() for t in tensors]
     owner.syncs += 1
     return out
 
@@ -383,12 +382,11 @@ class _Pending:
 def _timed_wait(owner, pend: list) -> list:
     """The reconcile's one blocking wait: every pending result's host copy,
     as numpy, accounted on ``owner`` like ``_timed_get`` (one sync)."""
-    t0 = time.perf_counter()
-    for p in pend:
-        for ev in p.ready:
-            ev.synchronize()
-    out = [[h.numpy() for h in p.host] for p in pend]
-    owner.sync_wait += time.perf_counter() - t0
+    with telemetry.span("engine.sync_wait", into=(owner, "sync_wait")):
+        for p in pend:
+            for ev in p.ready:
+                ev.synchronize()
+        out = [[h.numpy() for h in p.host] for p in pend]
     owner.syncs += 1
     return out
 
@@ -1437,6 +1435,7 @@ class FleetGroup:
             self._admitted = True
 
     # -------------------------------------------------------------- admit
+    @telemetry.spanned("engine.admit_round")
     def admit_round(self, stepping_ids=None) -> list:
         """One fused admission step for every member (or the ``id(engine)``
         subset in ``stepping_ids``): plan each member's admissions on the
@@ -1470,6 +1469,7 @@ class FleetGroup:
             self._dispatch_fleet_chunk(chunk_rows, finished)
         return finished
 
+    @telemetry.spanned("engine.fleet_prefill")
     def _dispatch_fleet_prefill(self, sb: int, entries: list,
                                 finished: list):
         """ONE prefill for every same-bucket admit across the fleet: the
@@ -1479,7 +1479,9 @@ class FleetGroup:
         slot). Under a mesh each shard runs the prefill of the rows it
         owns. Async: the admitted slots also activate in the device
         operands, so this tick's decode consumes their first token without
-        a host sync."""
+        a host sync. Counts each shard's real prompt tokens
+        (``engine.prefill_tokens``) and the token slots its prefill
+        computes, K x sb (``engine.prefill_slots``)."""
         n, B = len(entries), self.max_batch
         pieces, at = [], {}
         for part, idx in self._by_shard([e._fleet_row
@@ -1517,6 +1519,9 @@ class FleetGroup:
             a = len(at) - m
             pieces.append(((slice(a, a + m),), (first[:m], plen[:m])))
             self.shard_prefills += 1
+            telemetry.count("engine.prefill_tokens",
+                            sum(len(entries[i][3]) for i in idx))
+            telemetry.count("engine.prefill_slots", K * sb)
         self.prefill_dispatches += 1
         self._shapes.add(("afleet_prefill" if self.async_mode
                           else "fleet_prefill", pow2_bucket(n), sb, self.cap,
@@ -1536,6 +1541,7 @@ class FleetGroup:
             e.commit_admit([slot], [req], first[k:k + 1], plen[k:k + 1],
                            finished)
 
+    @telemetry.spanned("engine.fleet_chunk")
     def _dispatch_fleet_chunk(self, chunk_rows: list, finished: list):
         """ONE chunk dispatch for every due chunk row across the fleet (one
         per distinct ``chunk_len`` of the members), each row's state
@@ -1655,6 +1661,7 @@ class FleetGroup:
         w = write[(write >= lo) & (write < lo + part.rows * B)] - lo
         return rows[part.lo:part.lo + part.rows], w
 
+    @telemetry.spanned("engine.decode_round")
     def decode_round(self, stepping_ids=None, allow_block: bool = False
                      ) -> list:
         """One fused decode step for every member (or the ``id(engine)``
@@ -1690,7 +1697,7 @@ class FleetGroup:
             or any(e._chunks for e in movers)
         if masked:
             rows, write = self._row_masks(movers)
-        pieces = []
+        pieces, computed = [], 0
         for part in self.parts:
             span = slice(part.lo, part.lo + part.rows)
             host = [a[span] for a in (toks, pos, rem, eos, active)]
@@ -1699,6 +1706,7 @@ class FleetGroup:
                 if not w.size:
                     continue
                 host += [r, w]
+            computed += part.rows * B
             with _on(part.device):
                 dev = _stage(part.device, *host)
                 r = w = None
@@ -1709,6 +1717,8 @@ class FleetGroup:
         self.dispatches += 1
         self.decode_steps += 1
         self.shard_steps += len(pieces)
+        telemetry.count("engine.decode_rows_computed", computed)
+        telemetry.count("engine.decode_rows_stepped", int(active.sum()))
         nxt, done = self._fetch(pieces, [((cap, B), torch.int32),
                                          ((cap, B), torch.bool)])
         finished: list = []
@@ -1749,7 +1759,7 @@ class FleetGroup:
         masked = not full or any(e._chunks for e in movers)
         if masked:
             rows, write = self._row_masks(movers)
-        pieces = []
+        pieces, computed = [], 0
         for part in self.parts:
             span = slice(part.lo, part.lo + part.rows)
             with _on(part.device):
@@ -1757,16 +1767,20 @@ class FleetGroup:
                     r, w = self._shard_masks(part, rows, write)
                     if not w.size:
                         continue
-                    _stage_into((part.masks["rows"], part.masks["write"]),
-                                r, np.resize(w, part.rows * self.max_batch))
+                    with telemetry.span("engine.stage_masks"):
+                        _stage_into((part.masks["rows"],
+                                     part.masks["write"]), r,
+                                    np.resize(w, part.rows * self.max_batch))
                 out = part.graphs.run(
                     (masked, steps),
                     lambda p=part: self._micro_steps(p, steps, masked))
             pieces.append(((span,) if steps == 1 else (slice(None), span),
                            out))
+            computed += part.rows * self.max_batch * steps
         self.dispatches += 1
         self.decode_steps += steps
         self.shard_steps += steps * len(pieces)
+        telemetry.count("engine.decode_rows_computed", computed)
         if steps > 1:
             self._block_credit = steps - 1
         shape = (self.cap, self.max_batch) if steps == 1 \
@@ -1810,6 +1824,7 @@ class FleetGroup:
         self._stash.clear()
         return out
 
+    @telemetry.spanned("engine.reconcile")
     def reconcile(self, force: bool = False) -> list:
         """The ONE blocking host sync per tick: wait for every pending
         result together and apply the deferred host bookkeeping in dispatch
@@ -1839,12 +1854,14 @@ class FleetGroup:
 
     def _apply_decode(self, arrays, meta: list, finished: list):
         nxt, done, stepped = arrays
+        telemetry.count("engine.decode_rows_stepped", int(stepped.sum()))
         for e, row, clock in meta:
             finished.extend(e.apply_decode(nxt[row], done[row], stepped[row],
                                            clock))
 
     def _apply_block(self, arrays, meta: list, finished: list):
         nxt, done, stepped = arrays                  # (K, cap, B)
+        telemetry.count("engine.decode_rows_stepped", int(stepped.sum()))
         for k in range(nxt.shape[0]):                # micro-step k: clock + k
             for e, row, clock in meta:
                 finished.extend(e.apply_decode(nxt[k, row], done[k, row],

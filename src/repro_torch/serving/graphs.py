@@ -60,6 +60,7 @@ import gc
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.kernels import ops
 
 _streams: dict = {}          # device -> the warm-up and capture stream
@@ -114,12 +115,14 @@ class DecodeGraphs:
         g = self._graphs.get(key)
         if g is not None:
             self.replays += 1
-            out = g.replay()
+            with telemetry.span("graphs.replay"):
+                out = g.replay()
             for k, n in g.launches.items():
                 ops.LAUNCHES[k] += n
             return out
-        out = self._warm(fn)
-        self._graphs[key] = self._record(fn)
+        with telemetry.span("graphs.capture"):
+            out = self._warm(fn)
+            self._graphs[key] = self._record(fn)
         self.captures += 1
         if key in self._dropped:
             self._dropped.discard(key)
