@@ -34,7 +34,12 @@ the script exits non-zero:
      heads, at the drain mode's prefills (8 x 512, 2 x 96, 8 x 200) and
      the control loop's (K x 8 or 16) and at T 24, with ragged lengths, so
      that each arch reaches every (step tile, heads a block)
-     instantiation;
+     instantiation; ssd_decode (the decode step of the SSM state) at
+     mamba2-1.3b's heads over 128 to 384 rows and zamba2-2.7b's over 128,
+     bf16 x, B and C and an f32 state as the model runs it, every row
+     written and 3 in 4 (a padded write buffer): the written state equal
+     to the plain version's bit for bit, y within 1e-4, and timed there
+     (kernel, plain, the byte bound);
   4.-8. for each served architecture in turn -- granite-3-8b (dense),
      mamba2-1.3b (ssm), zamba2-2.7b (hybrid), then mistral-nemo-12b
      (dense, queries 32 x 128 = 4096 wide against d_model 5120) -- each at
@@ -48,7 +53,8 @@ the script exits non-zero:
      and read just after: every decode step runs flash_decode once per
      attention layer (the hybrid's shared block once per invocation),
      every prefill dispatch runs flash_attention as often and ssd_scan
-     once per mamba layer; ssd_scan never runs in decode;
+     once per mamba layer, and every decode step ssd_decode once per mamba
+     layer; ssd_scan never runs in decode;
   5. the kernel path against the einsum path: full-width prefill
      last-token logits and first decode logits (both paths decoding the
      einsum prefill's token) within a stated tolerance (granite in bf16;
@@ -342,6 +348,10 @@ KERNELS = {
                       replaces="src/repro/kernels/gcn_fused.py:17"),
     "ssd_scan": dict(source="src/repro_torch/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:24"),
+    # no Pallas counterpart: the reference's decode step is plain jnp
+    # (src/repro/models/ssd.py ssd_decode_step)
+    "ssd_decode": dict(source="src/repro_torch/csrc/ssd_decode.cu",
+                       replaces=None),
     # no Pallas counterpart: the reference differentiates its plain XLA
     # GCN (src/repro/core/gcn.py:52 under jax.value_and_grad, from
     # src/repro/core/ddpg.py:141); this backward belongs to the same
@@ -627,6 +637,102 @@ def phase_parity_ssd(torch, ops, ref, gen) -> float:
     return worst
 
 
+# (mamba2-1.3b rows) of ssd_decode's parity and times: the rag cell's
+# decode dispatches (a group's slab of 2 to 4 replicas of 32 or 64 slots)
+# and its whole fleet of 384 rows; zamba2-2.7b at the first
+SSD_DECODE_ROWS = (128, 192, 256, 384)
+SSD_DECODE_ROW = 256        # the JSON row's
+SSD_DECODE_LAYERS = 4       # layer states a timing walks, none left in L2
+
+
+def _decode_bytes(B, H, P, N, written) -> int:
+    """Bytes of one ssd_decode launch: each state row read once and each
+    written row written once (f32), x, B and C in (bf16), dt in and y out
+    (f32), A and the write buffer."""
+    return (4 * (B + written) * H * P * N + 2 * B * (H * P + 2 * N)
+            + 4 * B * H + 4 * B * H * P + 4 * H + 4 * B)
+
+
+def phase_ssd_decode(torch, ops, ref) -> tuple:
+    """ssd_decode against its plain version, then timed: mamba2-1.3b's
+    heads (64 x 64, N 128) at ``SSD_DECODE_ROWS`` rows and zamba2-2.7b's
+    (80 x 64, N 64) at 128, x, B and C in bf16 as views of one buffer
+    (the model's layout) and the state in f32, every row written and 3 in
+    4 (the write buffer padded to B by repeating it, as the fleet stages
+    it). The written state must equal the plain version's bit for bit and
+    y lie within ``SSD_TOL``. Times: CUDA-event medians over graph replays
+    of one launch a layer state over ``SSD_DECODE_LAYERS`` states; the
+    bound is bytes (``_decode_bytes``) at 3.35 TB/s. Returns (worst y
+    error, the JSON row: mamba2-1.3b at ``SSD_DECODE_ROW`` rows, 3 in 4
+    written)."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst, row = 0.0, None
+    cases = [(SSM_ARCHS[0], B) for B in SSD_DECODE_ROWS] + \
+        [(SSM_ARCHS[1], SSD_DECODE_ROWS[0])]
+    for name, B in cases:
+        cfg = get_config(name)
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        L = SSD_DECODE_LAYERS
+        states = torch.randn(L, B, H, P, N, generator=gen, device="cuda")
+        xbc = torch.randn(B, H * P + 2 * N, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        x = xbc[:, :H * P].reshape(B, H, P)
+        bm = xbc[:, H * P:H * P + N].reshape(B, 1, N)
+        cm = xbc[:, H * P + N:].reshape(B, 1, N)
+        dt = torch.empty(B, H, device="cuda").uniform_(
+            math.log(1e-3), math.log(1e-1), generator=gen).exp()
+        A = -torch.empty(H, device="cuda").uniform_(1.0, 16.0, generator=gen)
+        written = [r for r in range(B) if r % 4]
+        padded = (written * 2)[:B]
+        for label, rows, n_w in (
+                ("every row", None, B),
+                ("3 in 4 rows", torch.tensor(padded, dtype=torch.int32,
+                                             device="cuda"), len(written))):
+            before = states[0].clone()
+            want = before.clone()
+            y_want = ref.ssd_decode_ref(want, x, dt, A, bm, cm, rows)
+            y = ops.ssd_decode(states[0], x, dt, A, bm, cm, write=rows)
+            torch.cuda.synchronize()
+            if not torch.equal(states[0], want):
+                raise AssertionError(
+                    f"ssd_decode {name} B={B} {label}: "
+                    f"{(states[0] != want).sum().item()} state values differ "
+                    "from the plain version's")
+            if rows is not None and not torch.equal(states[0][0::4],
+                                                    before[0::4]):
+                raise AssertionError(f"ssd_decode {name} B={B}: an unwritten "
+                                     "row changed")
+            torch.testing.assert_close(
+                y, y_want, **SSD_TOL,
+                msg=lambda m: f"ssd_decode {name} B={B} {label}: {m}")
+            err = (y - y_want).abs().max().item()
+            worst = max(worst, err)
+            ms = _graph_ms(torch, lambda: [
+                ops.ssd_decode(states[i], x, dt, A, bm, cm, write=rows)
+                for i in range(L)], L)
+            plain = _graph_ms(torch, lambda: [
+                ref.ssd_decode_ref(states[i], x, dt, A, bm, cm, rows)
+                for i in range(L)], L)
+            nbytes = _decode_bytes(B, H, P, N, n_w)
+            bound, by = _bound(nbytes, 5.0 * B * H * P * N, F32_FLOPS_PER_S)
+            log(f"[ssd_decode] {name} B={B} H={H} P={P} N={N} {label}: "
+                f"state bit for bit, max|y err| {err:.3e} (atol/rtol "
+                f"{SSD_TOL['atol']}); kernel {ms:.4f} ms "
+                f"({nbytes / ms / 1e6:.0f} GB/s, {100 * bound / ms:.1f}% of "
+                f"the bound), plain {plain:.4f} ms, library none, bound "
+                f"{bound:.4f} ms ({by}: {nbytes} B)")
+            if (name, B) == (SSM_ARCHS[0], SSD_DECODE_ROW) and n_w < B:
+                row = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                           library_ms=None, timed_at=(
+                               f"{name} B={B}, 3 in 4 rows written, "
+                               f"{L} layer states"))
+        del states, xbc
+        _free(torch)
+    return worst, row
+
+
 def _gcn_inputs(torch, gen, xs, ws):
     """Inputs in the range the balancer gives the kernel: a row-normalised
     adjacency (entries in [0, 1], rows summing to 1, like D^-1/2 (A+I)
@@ -767,19 +873,20 @@ def _per_dispatch(cfg) -> dict:
     shared block once per invocation; the audio family's prefill once per
     encoder layer and twice per decoder layer, its decode twice per
     decoder layer), ssd_scan once per mamba layer in prefill and never in
-    decode. gcn_layer runs in the plane: once a
-    tick (the balancer's whole action)."""
+    decode, ssd_decode once per mamba layer in decode. gcn_layer runs in
+    the plane: once a tick (the balancer's whole action)."""
     from repro_torch.models.ssm_lm import n_invocations
 
     if cfg.family == "audio":   # encoder, decoder self and cross; decode:
         L = cfg.num_layers      # self and cross over the cached K/V
         return {"flash_decode": (0, 2 * L),
                 "flash_attention": (cfg.encoder_layers + 2 * L, 0),
-                "ssd_scan": (0, 0)}
+                "ssd_scan": (0, 0), "ssd_decode": (0, 0)}
     dense = cfg.family in ("dense", "moe", "vlm")  # attention LMs, no SSM
     attn = cfg.num_layers if dense else n_invocations(cfg)
+    mamba = 0 if dense else cfg.num_layers
     return {"flash_decode": (0, attn), "flash_attention": (attn, 0),
-            "ssd_scan": (0 if dense else cfg.num_layers, 0)}
+            "ssd_scan": (mamba, 0), "ssd_decode": (0, mamba)}
 
 
 def _check_launches(cfg, launches, prefill, decode, ticks=0,
@@ -5008,6 +5115,7 @@ def main() -> int:
     smi = CARD = phase_card(torch)
     phase_build(build)
     errs = phase_parity(torch, ops, ref)
+    errs["ssd_decode"], ssd_decode_row = phase_ssd_decode(torch, ops, ref)
     variant_errs = phase_parity_variants(
         torch, ops, ref, torch.Generator(device="cuda").manual_seed(SEED + 5))
 
@@ -5018,7 +5126,9 @@ def main() -> int:
     rows = dict(served["granite-3-8b"]["rows"])
     rows.update(phase_times_ssm(torch, F, ops, ref, served))
     launches = dict(served["granite-3-8b"]["launches"])
-    launches["ssd_scan"] = served[SSM_ARCHS[0]]["launches"]["ssd_scan"]
+    for kernel in ("ssd_scan", "ssd_decode"):
+        launches[kernel] = served[SSM_ARCHS[0]]["launches"][kernel]
+    rows["ssd_decode"] = ssd_decode_row
     # this round's variants, beside each kernel's row: their times at the
     # chunk and int8 paths' shapes, their parity, and their launches on
     # those paths (granite's control loop with --chunk-len 4 and with int8

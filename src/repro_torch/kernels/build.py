@@ -26,7 +26,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flash_decode", "flash_attention", "gcn_layer", "ssd_scan")
+KERNELS = ("flash_decode", "flash_attention", "gcn_layer", "ssd_scan",
+           "ssd_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

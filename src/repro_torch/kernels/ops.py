@@ -12,13 +12,13 @@ tensor either reaches the kernel or raises.
 a launch of the CUDA kernel adds to it, so a run can show that its path
 went through the kernels.
 
-``flash_decode``, ``flash_attention`` and ``ssd_scan`` have no backward:
-the CUDA kernel writes its output through ``ctypes``, outside autograd.
-Under grad, with an input that requires grad, each raises on either
-device (on the CPU its plain version would differentiate and hide what
-the card would drop); training goes through the plain paths
-(``backend="einsum"``). ``gcn_layer`` has its backward (``gcn_layer_bwd``,
-through ``core.gcn.GCNLayer``).
+``flash_decode``, ``flash_attention``, ``ssd_scan`` and ``ssd_decode``
+have no backward: the CUDA kernel writes its output through ``ctypes``,
+outside autograd. Under grad, with an input that requires grad, each
+raises on either device (on the CPU its plain version would
+differentiate and hide what the card would drop); training goes through
+the plain paths (``backend="einsum"``). ``gcn_layer`` has its backward
+(``gcn_layer_bwd``, through ``core.gcn.GCNLayer``).
 """
 from __future__ import annotations
 
@@ -27,10 +27,11 @@ import math
 import torch
 
 from repro_torch.kernels import decode_attention, flash_attention as fa
-from repro_torch.kernels import gcn_fused, ref, ssd_scan as ssd
+from repro_torch.kernels import gcn_fused, ref, ssd_decode as ssd_step
+from repro_torch.kernels import ssd_scan as ssd
 
 LAUNCHES = {"flash_decode": 0, "flash_attention": 0, "gcn_layer": 0,
-            "gcn_layer_bwd": 0, "ssd_scan": 0}
+            "gcn_layer_bwd": 0, "ssd_scan": 0, "ssd_decode": 0}
 
 
 def reset_launches() -> None:
@@ -392,3 +393,69 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     ssd.launch(x, a, Bm, Cm, y, state, init_state=init_state)
     LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+               A: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
+               write: torch.Tensor | None = None) -> torch.Tensor:
+    """One Mamba-2 decode step of the carried state, in place. state:
+    (B, H, P, N) f32, updated in place -- only the rows of ``write`` (an
+    int index tensor, duplicates allowed) when given, the others keeping
+    theirs bit for bit; x: (B, H, P); dt: (B, H) f32; A: (H,) f32; Bm, Cm:
+    (B, G, N). Returns y (B, H, P) f32. The CUDA kernel takes what
+    ``ssd_scan`` takes, P <= 64 and N <= 128 with one group, x, Bm and Cm
+    in one dtype of f32 and bf16 with their last dim contiguous, a state
+    with (P, N) contiguous, and ``write`` as contiguous int32; its written
+    state is the plain version's bit for bit, y up to the order of its
+    sum."""
+    writes = () if write is None else (write,)
+    _no_grad("ssd_decode", state, x, dt, A, Bm, Cm)
+    if not _on_cuda("ssd_decode", state, x, dt, A, Bm, Cm, *writes):
+        return ref.ssd_decode_ref(state, x, dt, A, Bm, Cm, write)
+    if state.dtype != torch.float32 or dt.dtype != torch.float32 \
+            or A.dtype != torch.float32:
+        raise TypeError(f"ssd_decode: state, dt and A must be f32, got "
+                        f"{state.dtype}, {dt.dtype}, {A.dtype}")
+    if x.dtype not in ssd_step.DTYPES or Bm.dtype != x.dtype \
+            or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_decode: x, Bm and Cm must share one dtype of "
+                        f"{sorted(map(str, ssd_step.DTYPES))}, got "
+                        f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
+    if state.dim() != 4:
+        raise ValueError(f"ssd_decode: state must be (B, H, P, N), got "
+                         f"{tuple(state.shape)}")
+    B, H, P, N = state.shape
+    if Bm.dim() == 3 and Bm.shape[1] != 1:
+        raise NotImplementedError(f"ssd_decode with {Bm.shape[1]} B/C "
+                                  "groups is not yet ported (one group only)")
+    if tuple(x.shape) != (B, H, P) or tuple(dt.shape) != (B, H) \
+            or tuple(A.shape) != (H,) or tuple(Bm.shape) != (B, 1, N) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"ssd_decode: shapes state {tuple(state.shape)}, x "
+                         f"{tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)} do not match")
+    if P > ssd_step.MAX_HEAD_DIM or N > ssd_step.MAX_STATE:
+        raise ValueError(f"ssd_decode: head dim {P} / state {N} not "
+                         f"supported (P <= {ssd_step.MAX_HEAD_DIM}, N <= "
+                         f"{ssd_step.MAX_STATE})")
+    if state.stride(3) != 1 or state.stride(2) != N:
+        raise ValueError("ssd_decode: the state's (P, N) must be contiguous, "
+                         f"got strides {state.stride()}")
+    if x.stride(2) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1 \
+            or A.stride(0) != 1:
+        raise ValueError(f"ssd_decode: the last dim of x, Bm, Cm and A must "
+                         f"be contiguous, got strides {x.stride()}, "
+                         f"{Bm.stride()}, {Cm.stride()}, {A.stride()}")
+    mask = None
+    if write is not None:
+        if write.dtype != torch.int32 or write.dim() != 1 \
+                or not write.is_contiguous():
+            raise ValueError(f"ssd_decode: write must be contiguous 1-D "
+                             f"int32, got {write.dtype} "
+                             f"{tuple(write.shape)}")
+        mask = torch.empty(B, dtype=torch.uint8, device=state.device)
+    y = torch.empty((B, H, P), dtype=torch.float32, device=state.device)
+    ssd_step.launch(state, x, dt, A, Bm, Cm, y, write, mask)
+    LAUNCHES["ssd_decode"] += 1
+    return y

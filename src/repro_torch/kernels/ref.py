@@ -18,6 +18,9 @@ CUDA kernel computes it (step tiles, heads in groups sharing one C.B^T
 tile, the state's term transposed), with its products at f32, one TF32
 pass or the kernel's three (``tf32_round`` splits the operands). Nothing
 on the serving path calls it: it is the kernel's arithmetic, for tests.
+``ssd_decode_ref`` is one Mamba-2 decode step of the carried state; the
+model's einsum backend steps through it too (``per_head`` repeats the B/C
+groups over the heads, for it and the model's blocked scan).
 """
 from __future__ import annotations
 
@@ -152,6 +155,34 @@ def ssd_scan_ref(x, a, Bm, Cm, chunk, init_state=None):
                                  state)
         ys.append(y)
     return torch.cat(ys, dim=1), state
+
+
+def per_head(t, rep: int, dim: int):
+    """Repeat each B/C group ``rep`` times along ``dim`` (groups -> heads),
+    as ``jnp.repeat`` does, by a broadcast: no count goes to the host."""
+    shape = list(t.shape)
+    t = t.unsqueeze(dim + 1).expand(*shape[:dim + 1], rep, *shape[dim + 1:])
+    return t.reshape(*shape[:dim], shape[dim] * rep, *shape[dim + 1:])
+
+
+def ssd_decode_ref(state, x, dt, A, Bm, Cm, write=None):
+    """One Mamba-2 decode step of every row's carried state, in place.
+    state: (B, H, P, N) f32, updated in place -- only the rows of
+    ``write`` (an int index tensor, duplicates allowed) when given, the
+    others keeping theirs bit for bit; x: (B, H, P); dt: (B, H) f32; A:
+    (H,) f32; Bm, Cm: (B, G, N) with H % G == 0. Returns y (B, H, P) f32,
+    the new state read out by C."""
+    rep = x.shape[1] // Bm.shape[1]
+    bh = per_head(Bm, rep, 1).float()
+    ch = per_head(Cm, rep, 1).float()
+    decay = torch.exp((dt * A[None, :]).float())[:, :, None, None]
+    inp = (x * dt[..., None]).float()[..., None] * bh[:, :, None, :]
+    if write is None:
+        new = state.mul_(decay).add_(inp)
+    else:
+        new = state * decay + inp
+        state[write] = new[write]
+    return torch.einsum("bhpn,bhn->bhp", new, ch)
 
 
 def tf32_round(v):

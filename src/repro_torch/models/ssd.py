@@ -17,10 +17,12 @@ A chunked prefill continues the scan from the carried state
 raw window (``conv_state``), so chunk by chunk equals the single-shot
 forward.
 
-Decode (``mamba2_decode``) is one recurrence step in plain PyTorch on both.
-It updates the carried state in place (the reference returns a new state
-and relies on jit buffer donation; eagerly that would copy every layer's
-state on every step).
+Decode (``mamba2_decode``) is one recurrence step of the carried state, in
+place (the reference returns a new state and relies on jit buffer
+donation; eagerly that would copy every layer's state on every step):
+``ops.ssd_decode``, the hand-written kernel, on ``"pallas"``; its plain
+version ``ref.ssd_decode_ref`` on ``"einsum"``. The conv step, the skip
+term and the gate are PyTorch on both.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (HeadBlocks, he_init, per_shard,
                                        rms_norm, silu, softplus)
 
@@ -78,14 +80,6 @@ def segsum_exp(a):
     return torch.exp(torch.where(tri, diff, float("-inf")))
 
 
-def _per_head(t, rep: int, dim: int):
-    """Repeat each B/C group ``rep`` times along ``dim`` (groups -> heads),
-    as ``jnp.repeat`` does, by a broadcast: no count goes to the host."""
-    shape = list(t.shape)
-    t = t.unsqueeze(dim + 1).expand(*shape[:dim + 1], rep, *shape[dim + 1:])
-    return t.reshape(*shape[:dim], shape[dim] * rep, *shape[dim + 1:])
-
-
 def _pad_steps(t, pad: int):
     """Zero-pad axis 1 (time) of ``t`` by ``pad`` steps at the end."""
     return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
@@ -116,8 +110,8 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         xc, ac = xdt[:, sl], a[:, sl]
-        bh = _per_head(Bf[:, sl], rep, 2)                    # (B, Q, H, N)
-        ch = _per_head(Cf[:, sl], rep, 2)
+        bh = ref.per_head(Bf[:, sl], rep, 2)                 # (B, Q, H, N)
+        ch = ref.per_head(Cf[:, sl], rep, 2)
         a_cum = torch.cumsum(ac, dim=1)                      # (B, Q, H)
         L = segsum_exp(ac.transpose(1, 2))                   # (B, H, Q, Q)
         scores = torch.einsum("bqhn,bkhn->bhqk", ch, bh)
@@ -131,39 +125,38 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     return torch.cat(ys, dim=1)[:, :T_orig], state
 
 
-def ssd_decode_step(state, x, dt, A, Bm, Cm, rows=None):
+def ssd_decode_step(state, x, dt, A, Bm, Cm, rows=None, backend="pallas"):
     """One token. state: (B, H, P, N) f32, updated in place (only rows
     ``rows``, an int index tensor, when given: the others keep their state
-    bit for bit); x: (B, H, P), dt: (B, H), Bm/Cm: (B, G, N). Returns
-    (y (B, H, P) f32, state). A DTensor state (batch over data, heads over
-    model) is stepped block by block on each rank, every row; a head-split
-    state (``layers.HeadBlocks``) block by block on each device, ``rows``
-    too."""
+    bit for bit); x: (B, H, P), dt: (B, H), Bm/Cm: (B, G, N). ``backend``
+    ``"pallas"`` steps through ``ops.ssd_decode``, ``"einsum"`` through
+    its plain version. Returns (y (B, H, P) f32, state). A DTensor state
+    (batch over data, heads over model) is stepped block by block on each
+    rank, every row; a head-split state (``layers.HeadBlocks``) block by
+    block on each device, ``rows`` too."""
+    steps = {"pallas": _kernel_step, "einsum": _decode_step}
+    if backend not in steps:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    step = steps[backend]
     if isinstance(state, (DTensor, HeadBlocks)):
         if rows is not None and isinstance(state, DTensor):
             raise ValueError("a sharded state is stepped whole: rows=None")
         # batch rows and heads are independent (B/C follow the batch)
         xs = (state, x, dt, A, Bm, Cm) + (() if rows is None else (rows,))
-        y = per_shard(lambda *a: _decode_step(*a)[0], xs,
+        y = per_shard(lambda *a: step(*a)[0], xs,
                       [(0, 1), (0, 1), (0, 1), (None, 0), (0, None),
                        (0, None), (None, None)][:len(xs)], mutates=(0,))
         return y, state
-    return _decode_step(state, x, dt, A, Bm, Cm, rows)
+    return step(state, x, dt, A, Bm, Cm, rows)
 
 
 def _decode_step(state, x, dt, A, Bm, Cm, rows=None):
-    H = x.shape[1]
-    rep = H // Bm.shape[1]
-    bh = _per_head(Bm, rep, 1).float()
-    ch = _per_head(Cm, rep, 1).float()
-    decay = torch.exp((dt * A[None, :]).float())[:, :, None, None]
-    inp = (x * dt[..., None]).float()[..., None] * bh[:, :, None, :]
-    if rows is None:
-        new = state.mul_(decay).add_(inp)
-    else:
-        new = state * decay + inp
-        state[rows] = new[rows]
-    return torch.einsum("bhpn,bhn->bhp", new, ch), state
+    """The plain step: (y, state)."""
+    return ref.ssd_decode_ref(state, x, dt, A, Bm, Cm, rows), state
+
+
+def _kernel_step(state, x, dt, A, Bm, Cm, rows=None):
+    return ops.ssd_decode(state, x, dt, A, Bm, Cm, write=rows), state
 
 
 # -------------------------------------------------------------- full block
@@ -342,10 +335,12 @@ def _conv_step(x_new, conv, w, b, rows=None):
     return out
 
 
-def mamba2_decode(params, x, cfg, state, rows=None):
+def mamba2_decode(params, x, cfg, state, rows=None,
+                  attn_backend: str = "pallas"):
     """One-token decode. x: (B, 1, d_model); state: {"ssm", "conv"}, both
     updated in place (only rows ``rows``, an int index tensor, when given:
-    the other rows keep theirs bit for bit). Returns (out (B, 1, d_model),
+    the other rows keep theirs bit for bit); ``attn_backend`` picks the
+    SSM step (``ssd_decode_step``). Returns (out (B, 1, d_model),
     state)."""
     N, G = cfg.ssm_state, cfg.ssm_groups
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
@@ -362,6 +357,10 @@ def mamba2_decode(params, x, cfg, state, rows=None):
     dt = softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     xh = xs.reshape(-1, H, P)
-    y, _ = ssd_decode_step(state["ssm"], xh, dt, A, Bm, Cm, rows)
+    # the default backend goes unnamed: the call keeps the step's seven
+    # arguments, so a stand-in step of that signature (the one
+    # portbench/tests/test_portbench_run.py puts in) still fits
+    named = {} if attn_backend == "pallas" else {"backend": attn_backend}
+    y, _ = ssd_decode_step(state["ssm"], xh, dt, A, Bm, Cm, rows, **named)
     out = _gate_out(params, y, xh, z, cfg, x.dtype)
     return out[:, None], state

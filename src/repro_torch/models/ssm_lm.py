@@ -199,7 +199,8 @@ def ssm_decode(params, state, tokens, pos, cfg: ArchConfig,
         y, _ = mamba2_decode(lp["mamba"],
                              rms_norm(h, lp["norm"], cfg.norm_eps), cfg,
                              {"ssm": state["ssm"][li],
-                              "conv": state["conv"][li]}, rows=write_rows)
+                              "conv": state["conv"][li]}, rows=write_rows,
+                             attn_backend=attn_backend)
         h = h + y
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _logits(params, h)[:, 0], state

@@ -7,6 +7,11 @@ import pytest
 # Multi-device sharding tests spawn subprocesses that set the flag themselves.
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA card (skips on a machine without one)")
+
+
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)

@@ -166,15 +166,19 @@ def _kernel_inputs():
     a = -torch.rand(1, 8, 2, generator=g)
     bc = torch.randn(1, 8, 3, generator=g)
     pos = torch.full((1,), 7, dtype=torch.int32)
+    state = torch.randn(1, 2, 4, 3, generator=g)
+    dt = torch.rand(1, 2, generator=g)
     return {
         "flash_attention": (lambda t: ops.flash_attention(t, k, v), q),
         "flash_decode": (lambda t: ops.flash_decode(t, k, v, pos), q[:, 0]),
         "ssd_scan": (lambda t: ops.ssd_scan(t, a, bc, bc, chunk=4)[0], x),
+        "ssd_decode": (lambda t: ops.ssd_decode(
+            state.clone(), t, dt, a[0, 0], bc[:, :1], bc[:, :1]), x[:, 0]),
     }
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
-                                  "ssd_scan"])
+                                  "ssd_scan", "ssd_decode"])
 def test_kernels_without_backward_refuse_grad(name):
     fn, t = _kernel_inputs()[name]
     out = fn(t)                                  # nothing requires grad
