@@ -10,6 +10,9 @@ Families:
   dense   — decoder-only transformer (GQA, SwiGLU)
   moe     — decoder-only transformer with top-k mixture-of-experts FFNs
   hybrid  — Mamba-2 backbone with a shared attention block every `attn_every` layers
+  hybrid_moe — Mamba-2 and attention layers side by side (``layer_types``),
+            each with its own weights and each followed by a dropless top-k
+            MoE FFN plus an always-on shared expert (granitemoehybrid)
   ssm     — pure Mamba-2 (attention-free)
   vlm     — dense LM backbone consuming stub patch embeddings + text tokens
   audio   — encoder-decoder transformer (Whisper-style); conv/mel frontend stubbed
@@ -17,12 +20,13 @@ Families:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | hybrid | ssm | vlm | audio
+    family: str      # dense | moe | hybrid | hybrid_moe | ssm | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int                   # query heads (0 for attention-free)
@@ -58,6 +62,19 @@ class ArchConfig:
     encoder_seq_len: int = 0         # whisper: 1500 frames
     # --- vlm ---
     num_patches: int = 0             # stub patch embeddings prepended to text
+    # --- hybrid_moe (the port's own fields; the neutral defaults leave
+    # every other family as it is, and only hybrid_moe reads them) ---
+    layer_types: tuple = ()          # per layer "mamba" or "attention"
+    experts_held: int = 0            # experts [0, held) computed here; 0 = all
+    attention_multiplier: float = 0.0    # softmax scale; 0 -> 1/sqrt(hd)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0      # logits are divided by it
+    position_embedding_type: str = "rope"    # "rope" | "nope"
+
+    def __post_init__(self):
+        # a JSON configuration gives a list: keep the frozen config hashable
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
 
     # ------------------------------------------------------------------ derived
     @property
@@ -78,10 +95,25 @@ class ArchConfig:
     @property
     def sub_quadratic(self) -> bool:
         """True when decode cost/state is O(1)-ish in context (SSM/hybrid)."""
-        return self.family in ("ssm", "hybrid")
+        return self.family in ("ssm", "hybrid", "hybrid_moe")
+
+    @property
+    def held_experts(self) -> int:
+        """Experts whose weights this model holds and computes: ids
+        [0, held)."""
+        return self.experts_held or self.num_experts
+
+    @property
+    def softmax_scale(self) -> float:
+        """Attention's softmax scale: ``attention_multiplier``, else
+        1/sqrt(head_dim)."""
+        return self.attention_multiplier \
+            or 1.0 / math.sqrt(self.resolved_head_dim)
 
     @property
     def has_attention(self) -> bool:
+        if self.family == "hybrid_moe":
+            return "attention" in self.layer_types
         return self.family != "ssm"
 
     @property
@@ -93,6 +125,9 @@ class ArchConfig:
         """Analytic parameter count (logical, unpadded). Used by tests + roofline."""
         d, v = self.d_model, self.vocab_size
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "hybrid_moe":
+            return emb + d + sum(self._hybrid_moe_layer(t)
+                                 for t in self.layer_types)
         if self.family in ("ssm", "hybrid"):
             n = emb
             di, N, G, H = self.d_inner, self.ssm_state, self.ssm_groups, self.ssm_heads
@@ -135,6 +170,28 @@ class ArchConfig:
                 n += dense_mlp
         return n
 
+    def _mamba_params(self) -> int:
+        """One Mamba-2 mixer with its pre-norm."""
+        d, di, N, G, H = (self.d_model, self.d_inner, self.ssm_state,
+                          self.ssm_groups, self.ssm_heads)
+        in_proj = d * (2 * di + 2 * G * N + H)
+        conv = (self.ssm_conv_width + 1) * (di + 2 * G * N)   # with bias
+        return in_proj + conv + di * d + di + 2 * H + d
+
+    def _hybrid_moe_layer(self, kind: str) -> int:
+        """A hybrid_moe layer: its mixer and its MoE FFN (every expert, the
+        router and the shared expert), both with their pre-norms."""
+        d = self.d_model
+        if kind == "mamba":
+            mixer = self._mamba_params()
+        else:
+            hd = self.resolved_head_dim
+            mixer = (2 * d * self.num_heads * hd
+                     + 2 * d * self.num_kv_heads * hd + d)
+        ffn = (self.num_experts * 3 * d * (self.moe_d_ff or self.d_ff)
+               + d * self.num_experts + 3 * d * self.d_ff + d)
+        return mixer + ffn
+
     @property
     def max_decoder_pos(self) -> int:
         # Learned decoder positions sized to the assigned shape set (the real
@@ -149,18 +206,31 @@ class ArchConfig:
         d = self.d_model
         e_ff = self.moe_d_ff or self.d_ff
         mlp_mult = 3 if self.activation == "swiglu" else 2
-        n_moe_layers = len([l for l in range(self.num_layers) if l % self.moe_every == 0])
+        n_moe_layers = self.num_layers if self.family == "hybrid_moe" else \
+            len([l for l in range(self.num_layers) if l % self.moe_every == 0])
         inactive = n_moe_layers * (self.num_experts - self.num_experts_per_tok) \
             * mlp_mult * d * e_ff
         return self.param_count() - inactive
 
     # ------------------------------------------------------------------ reduced
     def reduced(self) -> "ArchConfig":
-        """Tiny same-family config for CPU smoke tests."""
+        """Tiny same-family config for CPU smoke tests. A hybrid_moe keeps
+        both layer kinds (four layers, one of them attention) and eight
+        experts, four of them held where the config holds a share."""
+        if self.family == "hybrid_moe":
+            moe = dict(layer_types=("mamba", "mamba", "attention", "mamba"),
+                       num_experts=min(self.num_experts, 8),
+                       num_experts_per_tok=min(self.num_experts_per_tok, 3),
+                       experts_held=min(self.experts_held, 4))
+        else:
+            moe = dict(num_experts=min(self.num_experts, 4),
+                       num_experts_per_tok=min(self.num_experts_per_tok, 2))
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            num_layers=min(self.num_layers, 4 if self.family in ("ssm", "hybrid") else 2),
+            num_layers=min(self.num_layers,
+                           4 if self.family in ("ssm", "hybrid",
+                                                "hybrid_moe") else 2),
             d_model=128,
             num_heads=4 if self.num_heads else 0,
             num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else 0,
@@ -169,8 +239,6 @@ class ArchConfig:
             moe_d_ff=128 if self.moe_d_ff else 0,
             vocab_size=512,
             max_seq_len=512,
-            num_experts=min(self.num_experts, 4),
-            num_experts_per_tok=min(self.num_experts_per_tok, 2),
             ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
             ssm_head_dim=32 if self.ssm_state else 64,
             ssm_chunk=32,
@@ -178,6 +246,7 @@ class ArchConfig:
             encoder_layers=min(self.encoder_layers, 2),
             encoder_seq_len=min(self.encoder_seq_len, 64),
             num_patches=min(self.num_patches, 16),
+            **moe,
         )
 
 

@@ -74,13 +74,15 @@ def _check_dtype(name, dtypes, *tensors):
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, pos: torch.Tensor,
                  k_scale: torch.Tensor | None = None,
-                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                 v_scale: torch.Tensor | None = None, *,
+                 scale: float | None = None) -> torch.Tensor:
     """Single-token GQA attention. q: (B, G, qpg, hd); caches (B, S, G, hd)
     (any 16-byte aligned strides with a contiguous last dim, e.g. one
     layer of the serve pool) in q's dtype, or int8 with their f32 scales
     ``k_scale`` / ``v_scale`` (B, S, G) (the ``serving.kv_quant`` codec:
     each value is int8 * scale, rounded to q's dtype); pos: (B,) int32,
-    row b attends 0..pos[b]. Returns (B, G, qpg, hd)."""
+    row b attends 0..pos[b]. ``scale``: the softmax scale, 1/sqrt(hd) when
+    None. Returns (B, G, qpg, hd)."""
     quant = k_cache.dtype == torch.int8
     scales = (k_scale, v_scale) if quant else ()
     if quant and (k_scale is None or v_scale is None):
@@ -89,7 +91,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     _no_grad("flash_decode", q, k_cache, v_cache, *scales)
     if not _on_cuda("flash_decode", q, k_cache, v_cache, pos, *scales):
         return ref.flash_decode_ref(q, k_cache, v_cache, pos,
-                                    k_scale=k_scale, v_scale=v_scale)
+                                    k_scale=k_scale, v_scale=v_scale,
+                                    scale=scale)
     if quant:
         _check_dtype("flash_decode", decode_attention.DTYPES, q)
         if v_cache.dtype != torch.int8:
@@ -131,12 +134,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     part = torch.empty(decode_attention.partial_floats(
         B, G, qpg, hd, k_cache.shape[1]), dtype=torch.float32,
         device=q.device)
+    sm = 1.0 / math.sqrt(hd) if scale is None else scale
     if quant:
         decode_attention.launch_int8(q, k_cache, v_cache, k_scale, v_scale,
-                                     pos, out, part, 1.0 / math.sqrt(hd))
+                                     pos, out, part, sm)
     else:
-        decode_attention.launch(q, k_cache, v_cache, pos, out, part,
-                                1.0 / math.sqrt(hd))
+        decode_attention.launch(q, k_cache, v_cache, pos, out, part, sm)
     LAUNCHES["flash_decode"] += 1
     return out
 
@@ -149,7 +152,8 @@ def _int32_rows(name: str, what: str, t, B: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: torch.Tensor | None = None,
-                    kv_rows: torch.Tensor | None = None) -> torch.Tensor:
+                    kv_rows: torch.Tensor | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Causal or full GQA attention. Without ``q_offset``: over a whole
     sequence, q (B, S, G, qpg, hd) against k, v (B, S, G, hd); or, full
     (``causal=False``), S queries against Sk keys of any length, k, v
@@ -159,12 +163,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at position q_offset[b] + i and (causal) sees keys 0 .. q_offset[b] + i.
     ``kv_rows`` (B,) int32 names the pool row each q row reads (default:
     row b). Any strides with a contiguous last dim; S need not be a
-    multiple of any tile. Returns (B, S, G, qpg, hd)."""
+    multiple of any tile. ``scale``: the softmax scale, 1/sqrt(hd) when
+    None. Returns (B, S, G, qpg, hd)."""
     extra = tuple(t for t in (q_offset, kv_rows) if t is not None)
     _no_grad("flash_attention", q, k, v)
     if not _on_cuda("flash_attention", q, k, v, *extra):
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       q_offset=q_offset, kv_rows=kv_rows)
+                                       q_offset=q_offset, kv_rows=kv_rows,
+                                       scale=scale)
     _check_dtype("flash_attention", fa.DTYPES, q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
@@ -196,7 +202,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  f"{align}-byte aligned, got strides "
                                  f"{t.stride()}")
     out = torch.empty((B, S, G, qpg, hd), dtype=q.dtype, device=q.device)
-    fa.launch(q, k, v, out, causal, 1.0 / math.sqrt(hd), q_offset, kv_rows)
+    fa.launch(q, k, v, out, causal,
+              1.0 / math.sqrt(hd) if scale is None else scale, q_offset,
+              kv_rows)
     LAUNCHES["flash_attention"] += 1
     return out
 

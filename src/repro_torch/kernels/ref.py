@@ -38,20 +38,27 @@ def dequantize_kv(q, scale, dtype):
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
-def flash_decode_ref(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
+def _scaled(s, hd: int, scale):
+    """Scores ``s`` times the softmax scale: divided by sqrt(hd) when
+    ``scale`` is None, else times ``scale``."""
+    return s / math.sqrt(hd) if scale is None else s * scale
+
+
+def flash_decode_ref(q, k_cache, v_cache, pos, k_scale=None, v_scale=None,
+                     scale=None):
     """q: (B, G, qpg, hd); caches: (B, S, G, hd); pos: (B,) int or scalar.
     Row b attends cache positions 0..pos[b] inclusive. An int8 cache comes
     with its scales ``k_scale`` / ``v_scale`` (B, S, G) and is dequantized
-    to q's dtype first. Returns (B, G, qpg, hd) in q's dtype; computes in
-    f32."""
+    to q's dtype first. ``scale``: the softmax scale, 1/sqrt(hd) when
+    None. Returns (B, G, qpg, hd) in q's dtype; computes in f32."""
     if k_scale is not None:
         k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
         v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
     B, G, qpg, hd = q.shape
     S = k_cache.shape[1]
     pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
-    s = torch.einsum("bgqh,btgh->bgqt", q.float(), k_cache.float()) \
-        / math.sqrt(hd)
+    s = _scaled(torch.einsum("bgqh,btgh->bgqt", q.float(), k_cache.float()),
+                hd, scale)
     mask = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -92,18 +99,19 @@ def flash_decode_split_ref(q, k_cache, v_cache, pos, chunk):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, q_offset=None,
-                        kv_rows=None):
+                        kv_rows=None, scale=None):
     """q: (B, S, G, qpg, hd); k, v: (B, T, G, hd), or (R, T, G, hd) with
     ``kv_rows`` (B,) naming each q row's k/v row. Without ``q_offset``
     causal masks key t > query s + (T - S); with ``q_offset`` (B,) query s
     of row b sits at position q_offset[b] + s and sees keys up to it.
-    Returns (B, S, G, qpg, hd) in q's dtype; computes in f32."""
+    ``scale``: the softmax scale, 1/sqrt(hd) when None. Returns
+    (B, S, G, qpg, hd) in q's dtype; computes in f32."""
     if kv_rows is not None:
         k, v = k[kv_rows.long()], v[kv_rows.long()]
     S, hd = q.shape[1], q.shape[-1]
     T = k.shape[1]
-    s = torch.einsum("bsgqh,btgh->bgqst", q.float(), k.float()) \
-        / math.sqrt(hd)
+    s = _scaled(torch.einsum("bsgqh,btgh->bgqst", q.float(), k.float()), hd,
+                scale)
     if causal:
         if q_offset is None:
             mask = torch.ones(S, T, dtype=torch.bool, device=q.device) \

@@ -27,6 +27,7 @@ masked einsum on ``"einsum"``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -98,11 +99,13 @@ def _out_proj(params, ctx, dims: PaddedDims):
     return ctx @ params["wo"].reshape(ctx.shape[-1], -1)
 
 
-def _attend(q, k, v, q_pos, k_pos, causal: bool):
+def _attend(q, k, v, q_pos, k_pos, causal: bool, scale=None):
     """The reference's dense attention. q: (B,Cq,G,qpg,hd); k,v: (B,T,G,hd);
-    positions are int vectors. Scores in f32, probabilities rounded to v's
-    dtype before the P.V product."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    positions are int vectors. Scores in f32 (times ``scale``, 1/sqrt(hd)
+    when None), probabilities rounded to v's dtype before the P.V
+    product."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bsgqh,btgh->bgqst", q.float(), k.float()) * scale
     if causal:
         mask = q_pos[:, None] >= k_pos[None, :]          # (Cq, T)
@@ -111,14 +114,16 @@ def _attend(q, k, v, q_pos, k_pos, causal: bool):
     return torch.einsum("bgqst,btgh->bsgqh", probs.to(v.dtype), v)
 
 
-def _attend_ctx(q, k, v, q_pos, k_pos, causal: bool, backend: str):
+def _attend_ctx(q, k, v, q_pos, k_pos, causal: bool, backend: str,
+                scale=None):
     """The attention context of q over k, v on ``backend``: the kernel
     (``ops.flash_attention``, whose causal call needs T == S) or the
-    reference's dense path."""
+    reference's dense path; ``scale`` the softmax scale (1/sqrt(hd) when
+    None)."""
     if backend == "pallas":
-        return ops.flash_attention(q, k, v, causal=causal)
+        return ops.flash_attention(q, k, v, causal=causal, scale=scale)
     if backend == "einsum":
-        return _attend(q, k, v, q_pos, k_pos, causal)
+        return _attend(q, k, v, q_pos, k_pos, causal, scale)
     raise ValueError(f"unknown attention backend {backend!r}")
 
 
@@ -160,12 +165,13 @@ def attention(params, x, dims: PaddedDims, *, positions=None, rope_theta=0.0,
 
 
 def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
-                      rope_theta=0.0, backend: str = "pallas"):
+                      rope_theta=0.0, backend: str = "pallas", scale=None):
     """Causal attention over the prompt that also writes its K/V into
     positions [0, S) of the per-layer caches (B, S_cache, G, hd), in place.
     Head-split caches (``layers.HeadBlocks``) take their blocks of K/V,
     and the attention runs on each block at its device's kv heads.
-    Returns (B, S, d_model)."""
+    ``scale``: the softmax scale, 1/sqrt(hd) when None. Returns
+    (B, S, d_model)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, dims)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -175,7 +181,7 @@ def prefill_attention(params, x, dims: PaddedDims, k_cache, v_cache, *,
     k_cache[:, :S].copy_(k)
     v_cache[:, :S].copy_(v)
     ctx = per_shard(_attend_ctx, (q, k, v), (0, 2), positions, positions,
-                    True, backend, over=k_cache,
+                    True, backend, scale, over=k_cache,
                     blocks_only=backend == "pallas")
     return _out_proj(params, ctx, dims)
 
@@ -289,7 +295,8 @@ def write_kv(k_cache, v_cache, k_new, v_new, pos, rows=None):
 
 
 def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
-                  backend: str = "pallas", k_scale=None, v_scale=None):
+                  backend: str = "pallas", k_scale=None, v_scale=None,
+                  scale=None):
     """Read-only attention of a single-token q (B,1,G,qpg,hd) over
     cache[0..pos[b]] per row (pos: (B,) int32 tensor). An int8 cache comes
     with its scales ``k_scale`` / ``v_scale`` (B, S, G). ``"pallas"`` goes
@@ -299,37 +306,40 @@ def decode_attend(params, q, k_cache, v_cache, pos, dims: PaddedDims,
     dense path over the whole cache with a mask (an int8 cache dequantized
     whole to q's dtype first, as the reference does). Head-split caches
     (``layers.HeadBlocks``) are read block by block, each on its device at
-    its kv heads, and the contexts joined on the lead device. Returns
-    (B, 1, d_model)."""
+    its kv heads, and the contexts joined on the lead device. ``scale``:
+    the softmax scale, 1/sqrt(hd) when None. Returns (B, 1, d_model)."""
     if backend not in ("pallas", "einsum"):
         raise ValueError(f"unknown attention backend {backend!r}")
     scales = () if k_scale is None else (k_scale, v_scale)
+    ctx_fn = _kernel_decode_ctx if backend == "pallas" else _decode_ctx
     # batch rows (dim 0) and kv-head groups (dim 2) are independent
-    ctx = per_shard(_kernel_decode_ctx if backend == "pallas"
-                    else _decode_ctx, (q, k_cache, v_cache, pos) + scales,
-                    (0, 2), blocks_only=backend == "pallas")
+    ctx = per_shard(functools.partial(ctx_fn, scale=scale),
+                    (q, k_cache, v_cache, pos) + scales, (0, 2),
+                    blocks_only=backend == "pallas")
     return _out_proj(params, ctx, dims)
 
 
 def _kernel_decode_ctx(q, k_cache, v_cache, pos, k_scale=None,
-                       v_scale=None):
+                       v_scale=None, scale=None):
     """The kernel decode's context (B, 1, G, qpg, hd) in q's dtype. A
     float cache in another dtype than q (an f32 cache under bf16 weights,
     as chunked prefill needs) is read in its own dtype, q cast to it: the
     kernel reads the pool as it lies."""
     qk = q[:, 0] if k_scale is not None else q[:, 0].to(k_cache.dtype)
-    return ops.flash_decode(qk, k_cache, v_cache, pos, k_scale,
-                            v_scale)[:, None].to(q.dtype)
+    return ops.flash_decode(qk, k_cache, v_cache, pos, k_scale, v_scale,
+                            scale=scale)[:, None].to(q.dtype)
 
 
-def _decode_ctx(q, k_cache, v_cache, pos, k_scale=None, v_scale=None):
+def _decode_ctx(q, k_cache, v_cache, pos, k_scale=None, v_scale=None,
+                scale=None):
     """The einsum decode's context (B, 1, G, qpg, hd) in q's dtype."""
     if k_scale is not None:
         k_cache = ref.dequantize_kv(k_cache, k_scale, q.dtype)
         v_cache = ref.dequantize_kv(v_cache, v_scale, q.dtype)
     T = k_cache.shape[1]
     k_pos = torch.arange(T, dtype=torch.int32, device=q.device)
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bsgqh,btgh->bgqst", q.float(),
                           k_cache.to(q.dtype).float()) * scale
     mask = (k_pos[None, :] <= pos[:, None])[:, None, None, None, :]

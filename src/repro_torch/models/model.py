@@ -12,12 +12,15 @@
 Every family of the reference is ported: dense, moe and vlm through
 ``models.lm`` (a vlm batch carries ``patch_embeds``), ssm and hybrid
 through ``models.ssm_lm``, audio through ``models.encdec`` (a batch
-carries ``frame_embeds``); an unknown family raises ``ValueError``.
+carries ``frame_embeds``); the port's own hybrid_moe family
+(granitemoehybrid) serves through ``models.hybrid_moe``, with no training
+forward and no chunked prefill. An unknown family raises ``ValueError``.
 ``cache_dtype="int8"`` (the quantized KV codec of ``serving.kv_quant``) is
 taken by the attention-LM families (dense, moe, vlm) only, and chunked
 prefill is refused for moe (expert capacity would scale with the chunk,
-not the prompt) and for vlm and audio (their requests carry per-request
-extras and stay on exact-length single admits), as in the reference.
+not the prompt), for hybrid_moe (not ported) and for vlm and audio
+(their requests carry per-request extras and stay on exact-length single
+admits), as in the reference.
 
 Training: ``forward`` is the full-sequence forward (einsum attention,
 ``ssd_chunked``; the kernels have no backward), ``loss`` the next-token
@@ -48,7 +51,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.tree import tree_map, value_and_grad
 from repro_torch.device import resolve_device
-from repro_torch.models import encdec, lm, ssm_lm
+from repro_torch.models import encdec, hybrid_moe, lm, ssm_lm
 from repro_torch.models.dims import PaddedDims, padded_dims
 from repro_torch.models.layers import token_nll
 
@@ -70,8 +73,13 @@ _SSM = _Serves(ssm_lm, ssm_lm.init_ssm_lm, ssm_lm.ssm_init_state,
 _ENCDEC = _Serves(encdec, encdec.init_encdec, encdec.encdec_init_state,
                   encdec.encdec_prefill, encdec.encdec_decode,
                   encdec.encdec_forward)
+_HYBRID_MOE = _Serves(hybrid_moe, hybrid_moe.init_hybrid_moe,
+                      hybrid_moe.hybrid_moe_init_state,
+                      hybrid_moe.hybrid_moe_prefill,
+                      hybrid_moe.hybrid_moe_decode,
+                      hybrid_moe.hybrid_moe_forward)
 SERVES = {"dense": _LM, "moe": _LM, "ssm": _SSM, "hybrid": _SSM,
-          "vlm": _LM, "audio": _ENCDEC}
+          "vlm": _LM, "audio": _ENCDEC, "hybrid_moe": _HYBRID_MOE}
 PORTED_FAMILIES = tuple(SERVES)
 # serve-state leaves with a sequence axis (axis 2, after the layer and row
 # axes: the attention caches, float or int8 with their scales, the
@@ -201,7 +209,7 @@ class Model:
         in the reference: per-chunk routing would drop other tokens than
         single-shot; vlm and audio raise, as in the reference: their
         requests carry per-request extras."""
-        if self.cfg.family in ("moe", "vlm", "audio"):
+        if self.cfg.family in ("moe", "vlm", "audio", "hybrid_moe"):
             raise ValueError(
                 f"chunked prefill unsupported for {self.cfg.family!r}")
         chunk = lm.lm_prefill_chunk if self._serves.module is lm \

@@ -1,5 +1,7 @@
 """Top-k mixture-of-experts FFN with capacity-bounded dispatch (the port of
-``repro.models.moe``).
+``repro.models.moe``), and the hybrid_moe family's dropless layer over the
+experts one device holds (``held_moe_prefill`` / ``held_moe_decode``,
+below).
 
 Routing runs in f32: softmax over the router logits, the top-k experts a
 token (ties to the lower expert index, as ``jax.lax.top_k`` breaks them),
@@ -23,6 +25,7 @@ import math
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.models.layers import gelu, he_init, per_shard, silu
 
 
@@ -185,3 +188,117 @@ def moe_dense_oracle(params, x, *, num_experts: int, top_k: int,
     if "shared" in params:
         y = y + _dense_ffn(params["shared"], xt, activation).float()
     return y.reshape(B, S, d).to(x.dtype)
+
+
+# ------------------------------------------------- dropless, held experts
+# tokens a grouped prefill routes at a time: bounds the (tokens x top-k)
+# pair buffers (a block of 8,192 tokens at top-10 and d 4,096 is 0.67 GB
+# of gathered bf16 rows and 1.3 GB of f32 outputs)
+HELD_BLOCK = 8192
+
+
+def init_held_moe(gen: torch.Generator, d_model: int, d_ff: int,
+                  shared_ff: int, num_experts: int, held: int,
+                  dtype) -> dict:
+    """A dropless expert layer that holds experts [0, ``held``) of
+    ``num_experts`` (expert parallelism's share of one device): ``router``
+    f32 (d, E) over every expert; ``w_gate`` / ``w_up`` (held, d, ff) and
+    ``w_down`` (held, ff, d), SwiGLU; and the always-on shared SwiGLU
+    expert ``shared`` of width ``shared_ff``."""
+    return {
+        "router": he_init(gen, (d_model, num_experts), torch.float32,
+                          d_model),
+        "w_gate": he_init(gen, (held, d_model, d_ff), dtype, d_model),
+        "w_up": he_init(gen, (held, d_model, d_ff), dtype, d_model),
+        "w_down": he_init(gen, (held, d_ff, d_model), dtype, d_ff),
+        "shared": {
+            "w_gate": he_init(gen, (d_model, shared_ff), dtype, d_model),
+            "w_up": he_init(gen, (d_model, shared_ff), dtype, d_model),
+            "w_down": he_init(gen, (shared_ff, d_model), dtype, shared_ff),
+        }}
+
+
+def _held_block(params, xt, keep, top_k: int):
+    """The held experts' part of the routed sum over tokens ``xt`` (T, d),
+    f32 (T, d): pairs sorted by expert into grouped products, no pair
+    dropped; tokens where ``keep`` is False and pairs whose expert is not
+    held route nowhere. Counts the pairs routed (``moe.pairs``) and the
+    rows the grouped products compute (``moe.slots``), on the device."""
+    T, d = xt.shape
+    held = params["w_gate"].shape[0]
+    with telemetry.span("moe.dispatch"):
+        _, top_p, top_i = route(params["router"], xt, top_k)
+        key = torch.where(keep[:, None] & (top_i < held), top_i,
+                          held).reshape(-1)                  # (T k,)
+        order = torch.argsort(key, stable=True)
+        ends = torch.searchsorted(
+            key[order], torch.arange(held, dtype=key.dtype, device=xt.device),
+            right=True).to(torch.int32)
+        xs = xt[order // top_k]
+    # one grouped product an expert matrix: group e the sorted rows
+    # [ends[e-1], ends[e]); rows past ends[-1] come out undefined
+    h = silu(torch._grouped_mm(xs, params["w_gate"], offs=ends)) \
+        * torch._grouped_mm(xs, params["w_up"], offs=ends)
+    o = torch._grouped_mm(h, params["w_down"], offs=ends)
+    live = torch.arange(o.shape[0], device=xt.device) < ends[-1]
+    out = torch.empty_like(o).index_copy_(
+        0, order, torch.where(live[:, None], o, 0))
+    kept = key < held
+    gate = torch.where(kept, top_p.reshape(-1), 0.0).view(T, 1, top_k)
+    telemetry.count_on_device("moe.pairs", kept.sum(), xt.device)
+    telemetry.count_on_device("moe.slots", ends[-1], xt.device)
+    return torch.bmm(gate, out.view(T, top_k, d).float()).view(T, d)
+
+
+def held_moe_prefill(params, x, *, top_k: int, valid=None):
+    """Dropless MoE FFN over a prompt batch x (B, S, d), positions where
+    ``valid`` (B, S) is False (a bucket's pads) routed to no expert: the
+    held experts' gated outputs plus the shared expert, in x's dtype.
+    Tokens go ``HELD_BLOCK`` at a time."""
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    keep = torch.ones(B * S, dtype=torch.bool, device=x.device) \
+        if valid is None else valid.reshape(-1)
+    routed = torch.cat([
+        _held_block(params, xt[i:i + HELD_BLOCK], keep[i:i + HELD_BLOCK],
+                    top_k) for i in range(0, B * S, HELD_BLOCK)])
+    y = routed + _dense_ffn(params["shared"], xt, "swiglu").float()
+    return y.to(x.dtype).view(B, S, d)
+
+
+def held_moe_decode(params, x, *, top_k: int):
+    """Dropless MoE FFN over one token a row, x (B, 1, d): every held
+    expert over every row, weighted by a gate that is zero where the row
+    did not pick it (at decode batches each held expert is picked by some
+    row, so its weights are read either way), plus the shared expert, in
+    x's dtype. No host sync and static shapes: a CUDA graph captures it.
+    Returns (y, top_i): the rows' picks (B, k), which the step counts once
+    for all its layers (``count_held_decode``)."""
+    B, _, d = x.shape
+    xt = x.reshape(B, d)
+    held, E = params["w_gate"].shape[0], params["router"].shape[1]
+    _, top_p, top_i = route(params["router"], xt, top_k)
+    gates = torch.zeros((B, E), dtype=torch.float32, device=x.device) \
+        .scatter(1, top_i, top_p)[:, :held]
+    h = silu(torch.matmul(xt, params["w_gate"])) \
+        * torch.matmul(xt, params["w_up"])                   # (held, B, ff)
+    o = torch.bmm(h, params["w_down"])                       # (held, B, d)
+    y = torch.einsum("be,ebd->bd", gates, o.float())
+    y = y + _dense_ffn(params["shared"], xt, "swiglu").float()
+    return y.to(x.dtype).view(B, 1, d), top_i
+
+
+def count_held_decode(picks, held: int, rows=None) -> None:
+    """Count a decode step's expert work on the device, once for all its
+    layers (``picks``: each layer's (B, k) expert ids): ``moe.pairs`` the
+    picks of held experts by the rows the step writes (``rows``, an int
+    index tensor, or every row), ``moe.slots`` every held expert over
+    every row of every layer."""
+    top = torch.stack(picks)                                 # (L, B, k)
+    L, B, _ = top.shape
+    hits = (top < held).sum((0, 2))                          # (B,)
+    if rows is not None:
+        hits = torch.zeros(B, dtype=torch.bool, device=top.device) \
+            .index_fill(0, rows.long(), True) * hits
+    telemetry.count_on_device("moe.pairs", hits.sum(), top.device)
+    telemetry.count_on_device("moe.slots", L * held * B, top.device)

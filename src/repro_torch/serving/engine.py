@@ -8,8 +8,12 @@ right-padded to power-of-two length buckets and admitted in batched
 prefill calls, so the prefill sees O(log max_seq * log max_batch) distinct
 shapes in total (``prefill_traces`` counts them -- the analogue of the
 reference's jit retrace count). Padded prefill is exact for the dense,
-ssm and hybrid families: causal attention masks trailing pads, and padded
-steps get dt = 0 in the SSM scan (decay 1, no input). Prompts longer than
+ssm, hybrid and hybrid_moe families: causal attention masks trailing pads,
+padded steps get dt = 0 in the SSM scan (decay 1, no input), and
+hybrid_moe's dropless experts route pads nowhere. A bucketed prefill's
+batch also carries its real rows' lengths on the host (``host_lengths``):
+hybrid_moe runs each row at its own length with them, so its bucket costs
+what its prompts do; the other families ignore them. Prompts longer than
 ``max_seq - 1`` are truncated to their last ``max_seq - 1`` tokens at
 admission (the KV pool can never overflow).
 
@@ -195,8 +199,9 @@ _ROW_AXES = ("fleet", "pod", "data", "expert")
 _HEAD_AXIS = "model"
 
 # families whose prefill accepts per-row ``lengths`` (bucketed prompts are
-# exact). moe is absent: expert capacity scales with the padded bucket
-_BUCKET_FAMILIES = ("dense", "ssm", "hybrid")
+# exact). moe is absent: expert capacity scales with the padded bucket;
+# hybrid_moe's dropless experts route a bucket's pads nowhere
+_BUCKET_FAMILIES = ("dense", "ssm", "hybrid", "hybrid_moe")
 # families with a chunked-prefill continuation (cache-offset attention for
 # dense, carried ssm/conv state for ssm/hybrid); moe is absent for the
 # same capacity reason
@@ -754,8 +759,10 @@ class ReplicaEngine:
             for i, p in enumerate(prompts):
                 toks[i, :len(p)] = p
                 lengths[i] = len(p)
+            host = lengths[:len(reqs)]
             toks, lengths = _stage(device, toks, lengths)
-            batch = {"tokens": toks, "lengths": lengths}
+            batch = {"tokens": toks, "lengths": lengths,
+                     "host_lengths": host}
             self._shapes.add(("bucketed", kb, sb))
         else:
             req = reqs[0]
@@ -1500,11 +1507,13 @@ class FleetGroup:
                 flat[j] = (e._fleet_row - part.lo) * B + slot
                 rems[j] = req.rem_tokens(e.clock) - 1
                 eoss[j] = req.eos_id
+            host = lens[:m]
             with _on(part.device):
                 toks, lens, rows, rems, eoss = _stage(part.device, toks, lens,
                                                       flat, rems, eoss)
                 logits, small, plen = self.model.prefill(
-                    part.params, {"tokens": toks, "lengths": lens},
+                    part.params, {"tokens": toks, "lengths": lens,
+                                  "host_lengths": host},
                     cache_len=sb, cache_dtype=self.cache_dtype,
                     attn_backend=self.attn_backend, shard_fn=part.layout)
                 first = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -26,15 +26,18 @@ AVG_DECODE_LEN = 128
 
 
 def kv_bytes_per_token(cfg, kv_dtype_bytes: int = 2) -> float:
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "hybrid_moe"):
         # mamba state is O(1); per-token HBM traffic ~ state read/write
-        state = cfg.num_layers * cfg.ssm_heads * cfg.ssm_head_dim * \
-            cfg.ssm_state * 4
-        extra = 0.0
+        n_ssm = cfg.layer_types.count("mamba") \
+            if cfg.family == "hybrid_moe" else cfg.num_layers
+        state = n_ssm * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        n_attn = 0
         if cfg.family == "hybrid" and cfg.attn_every:
-            n_inv = (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
-            extra = 2 * n_inv * cfg.num_kv_heads * cfg.resolved_head_dim * \
-                kv_dtype_bytes
+            n_attn = (cfg.num_layers + cfg.attn_every - 1) // cfg.attn_every
+        elif cfg.family == "hybrid_moe":
+            n_attn = cfg.layer_types.count("attention")
+        extra = 2 * n_attn * cfg.num_kv_heads * cfg.resolved_head_dim * \
+            kv_dtype_bytes
         return state / 1000.0 + extra  # state reread amortized over context
     layers = cfg.num_layers
     return 2 * layers * cfg.num_kv_heads * cfg.resolved_head_dim * \

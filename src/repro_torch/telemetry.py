@@ -26,6 +26,12 @@ makes no new object. ``spanned(name)`` puts a whole function or
 method inside one.
 
 ``count(name, n)`` adds ``n`` to a counter of the registry.
+``count_on_device(name, n, device)`` adds ``n`` (a tensor the device
+computed, or a whole number) to a counter that lives on ``device``, in
+place and without a host sync: a decode step captured in a CUDA graph
+counts again at every replay. Only ``session()`` reads such a counter,
+after the profiler has stopped; a session's bounds take an on-device copy
+of it, so nothing in a tick waits for the device.
 
 **Sessions.** A session starts at the first span or count that finds the
 profiler recording after a time when it was not, and ends at the first
@@ -43,6 +49,7 @@ import functools
 import time
 from typing import NamedTuple
 
+import torch
 import torch.autograd.profiler as _prof
 from torch.autograd.profiler import record_function
 
@@ -60,12 +67,18 @@ class _Registry:
     def __init__(self):
         self.spans: dict = {}        # name -> [seconds, count], cumulative
         self.counters: dict = {}     # name -> total, cumulative
+        self.device: dict = {}       # (name, device) -> 0-d int64 tensor
         self.recording = False       # the profiler recorded at the last poll
         self.start = self.end = None  # (spans, counters) snapshots
+        self.dstart = self.dend = None  # device counters' copies
 
     def snapshot(self) -> tuple:
         return ({k: tuple(v) for k, v in self.spans.items()},
                 dict(self.counters))
+
+    def device_snapshot(self) -> dict:
+        """On-device copies of the device counters: no host sync."""
+        return {k: t.clone() for k, t in self.device.items()}
 
     def poll(self) -> bool:
         """Whether the profiler records; opens or closes a session where
@@ -75,8 +88,10 @@ class _Registry:
             self.recording = on
             if on:
                 self.start, self.end = self.snapshot(), None
+                self.dstart, self.dend = self.device_snapshot(), None
             else:
                 self.end = self.snapshot()
+                self.dend = self.device_snapshot()
         return on
 
 
@@ -156,9 +171,31 @@ def count(name: str, n) -> None:
     _REG.counters[name] = _REG.counters.get(name, 0) + n
 
 
+def count_on_device(name: str, n, device) -> None:
+    """Add ``n`` (an integer tensor on ``device``, or a whole number) to the
+    device counter ``name`` on ``device``, in place (see the module
+    docstring). The counter is made at its first use, which must come
+    outside a CUDA graph capture (a graph's first dispatch runs eagerly,
+    ``serving.graphs``)."""
+    dev = torch.device(device)
+    key = (name, dev)
+    capturing = dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+    if not capturing:
+        _REG.poll()
+    acc = _REG.device.get(key)
+    if acc is None:
+        if capturing:
+            raise RuntimeError(f"device counter {name!r} first used inside "
+                               "a CUDA graph capture")
+        acc = _REG.device[key] = torch.zeros((), dtype=torch.int64,
+                                             device=dev)
+    acc.add_(n)
+
+
 def session() -> Session:
     """The change of every span and counter over the last profiler session
-    (up to now if the profiler still records); empty if none ran."""
+    (up to now if the profiler still records), device counters summed over
+    their devices and read here; empty if none ran."""
     if not _prof._is_profiler_enabled:
         _REG.poll()              # stopped with no span since: close it now
     if _REG.start is None:
@@ -172,4 +209,10 @@ def session() -> Session:
             spans[k] = (sec - a, n - m)
     counters = {k: v - c0.get(k, 0) for k, v in c1.items()
                 if v != c0.get(k, 0)}
+    d0 = _REG.dstart or {}
+    d1 = _REG.dend if _REG.dend is not None else _REG.device
+    for key, t in d1.items():
+        n = int(t) - (int(d0[key]) if key in d0 else 0)
+        if n:
+            counters[key[0]] = counters.get(key[0], 0) + n
     return Session(spans, counters)

@@ -1,7 +1,8 @@
 """The two dense configs added to the port, mistral-nemo-12b and
 command-r-35b, against the reference's, in one process.
 
-The configs are the reference's field for field (full and reduced). The
+The configs are the reference's field for field (full and reduced), and
+each field only the port has holds its neutral default. The
 reduced configs' control loop (``--arch <name> --policy ours --autoscale
 gpso``) gives the reference's streams, finish clocks, ledger and per-tick
 counts. mistral-nemo-12b's query width (32 heads x 128 = 4096) is not its
@@ -26,6 +27,7 @@ from repro_torch.models.model import make_model
 from test_torch_control_loop import (assert_loops_match, port_loop,
                                      reference_loop)
 from test_torch_vlm import _one_torch_thread  # noqa: F401
+from test_torch_vlm import assert_config_matches
 
 ARCHS = ["mistral-nemo-12b", "command-r-35b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -42,7 +44,7 @@ def _pair(cfg_of):
 def test_config_is_the_references(name):
     for view in (lambda c: c, lambda c: c.reduced()):
         got, want = view(get_config(name)), view(jax_get_config(name))
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert_config_matches(got, want)
         assert got.param_count() == want.param_count()
 
 

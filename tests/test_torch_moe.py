@@ -34,6 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import moe
 from repro_torch.models.model import make_model
 from test_torch_vlm import _one_torch_thread  # noqa: F401
+from test_torch_vlm import assert_config_matches
 
 ARCHS = ["grok-1-314b", "llama4-maverick-400b-a17b"]
 MOE_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -180,7 +181,7 @@ def _pair(name, **changes):
 def test_config_is_the_references(name):
     for view in (lambda c: c, lambda c: c.reduced()):
         got, want = view(get_config(name)), view(jax_get_config(name))
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert_config_matches(got, want)
         assert got.param_count() == want.param_count()
         assert got.active_param_count() == want.active_param_count()
     red = get_config(name).reduced()

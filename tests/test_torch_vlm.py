@@ -82,10 +82,21 @@ def extras_of(cfg, n: int, seed: int) -> list:
              .astype(np.float32)} for _ in range(n)]
 
 
+def assert_config_matches(got, want):
+    """The port's config holds every field of the reference's with the
+    reference's value, and each field only the port has (its own
+    families' settings) at its neutral default."""
+    mine, theirs = dataclasses.asdict(got), dataclasses.asdict(want)
+    assert {k: mine[k] for k in theirs} == theirs
+    own = mine.keys() - theirs.keys()
+    defaults = {f.name: f.default for f in dataclasses.fields(got)}
+    assert {k: mine[k] for k in own} == {k: defaults[k] for k in own}
+
+
 def check_config(name):
     for view in (lambda c: c, lambda c: c.reduced()):
         got, want = view(get_config(name)), view(jax_get_config(name))
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert_config_matches(got, want)
         assert got.param_count() == want.param_count()
 
 
